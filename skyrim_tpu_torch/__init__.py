@@ -1,0 +1,13 @@
+"""skyrim_tpu_torch — the PyTorch/CUDA port of skyrim_tpu.
+
+A second package beside the JAX one, which stays the reference.  Plain
+tensor code is PyTorch; every Pallas kernel on a ported path is a CUDA
+kernel written by hand for Hopper (``csrc/``, built at first use by
+``ops/_build.py``), with a plain PyTorch version beside it that CPU
+tensors take.  Entry points run on the card unless the caller passes
+``device="cpu"``.  This package imports neither jax nor skyrim_tpu.
+
+Ported so far: Pangu-Weather end to end (``core.GlobalModel("pangu")``).
+"""
+
+__version__ = "0.1.0"

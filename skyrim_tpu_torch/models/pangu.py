@@ -1,0 +1,452 @@
+"""Pangu-Weather — 3D Earth-Specific Transformer (port of skyrim_tpu/models/pangu.py).
+
+69 channels = z/q/t/u/v × 13 levels + msl/u10m/v10m/t2m on 721×1440,
+hierarchical 6h + 24h model pair (Bi et al., Nature 2023):
+- patch embed as one GEMM: surface 4×4, upper-air 2×4×4 → tokens
+  (8, 181, 360), C = 192
+- encoder/decoder 2-6-6-2 blocks; middle stages at (8, 91, 180), 2C
+- 3D window attention, window (2, 6, 12), shifted every other block,
+  earth-specific bias (absolute in level/lat, relative in lon)
+- skip concat between encoder stage 1 and the decoder output.
+
+Module and parameter names follow the flax tree of the JAX package
+(``PanguBlock_3.EarthAttention3D_0.qkv.kernel`` ↔
+``PanguBlock_3/EarthAttention3D_0/qkv/kernel``), Dense kernels are
+(in, out), so one checkpoint serves both packages (params.py).  Every
+block runs through K1 (ops/fused_block.py) between two K2 rolls
+(ops/roll.py) when shifted; DownSample/UpSample run K3/K4
+(ops/resample.py).  The patch embed/recover products stay
+``torch.matmul``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from skyrim_tpu_torch import channels as ch
+from skyrim_tpu_torch.grid import LatLonGrid
+from skyrim_tpu_torch.models.base import (
+    ModelState,
+    PrognosticModel,
+    denormalize,
+    make_norm_params,
+    normalize,
+)
+from skyrim_tpu_torch.ops import windows as W
+from skyrim_tpu_torch.ops.fused_block import fused_swin_block
+from skyrim_tpu_torch.ops.resample import fused_downsample, fused_upsample
+from skyrim_tpu_torch.ops.roll import shift_roll
+from skyrim_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class PanguConfig:
+    lat: int = 721
+    lon: int = 1440
+    levels: int = 13
+    surface_channels: int = 4  # msl, u10m, v10m, t2m
+    level_vars: int = 5  # z, q, t, u, v
+    const_masks: int = 3  # land-sea, soil type, topography
+    patch: tuple[int, int, int] = (2, 4, 4)  # (level, lat, lon)
+    window: tuple[int, int, int] = (2, 6, 12)
+    embed_dim: int = 192
+    depths: tuple[int, ...] = (2, 6, 6, 2)
+    num_heads: tuple[int, ...] = (6, 12, 12, 6)
+    mlp_ratio: float = 4.0
+
+    @property
+    def z_tokens(self) -> int:
+        # 13 levels → ceil(14/2)=7 upper tokens + 1 surface token row
+        return -(-(self.levels + 1) // self.patch[0]) + 1
+
+    @property
+    def hw_tokens(self) -> tuple[int, int]:
+        return (-(-self.lat // self.patch[1]), self.lon // self.patch[2])
+
+
+# -- parameter holders with flax's names and layouts -------------------------
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` parameters: kernel (in, out), bias (out,)."""
+
+    def __init__(self, din: int, dout: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(din, dout))
+        self.bias = nn.Parameter(torch.zeros(dout))
+
+    def wb(self):
+        return self.kernel, self.bias
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` parameters: scale, bias."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def sb(self):
+        return self.scale, self.bias
+
+
+class ConvParams(nn.Module):
+    """Conv-shaped kernel + bias (flax ``nn.Conv`` layout), consumed by the
+    grand patch GEMMs."""
+
+    def __init__(self, kernel_shape: tuple[int, ...]):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(kernel_shape))
+        self.bias = nn.Parameter(torch.zeros(kernel_shape[-1]))
+
+
+class EarthAttention3D(nn.Module):
+    """Window attention parameters with the earth-specific bias: one table
+    per (z, lat) window position (windows differing only in lon share it),
+    laid out (n_types, heads, table) so expansion is a last-axis gather."""
+
+    def __init__(self, dim: int, heads: int, window, n_type_windows: int):
+        super().__init__()
+        self.earth_bias = nn.Parameter(
+            torch.empty(n_type_windows, heads, W.earth_bias_table_size(window))
+        )
+        self.qkv = Dense(dim, 3 * dim)
+        self.proj = Dense(dim, dim)
+        index = torch.from_numpy(W.earth_bias_index(tuple(window)).astype(np.int64))
+        self.register_buffer("bias_index", index, persistent=False)
+
+    def expanded_bias(self) -> torch.Tensor:
+        return self.earth_bias[:, :, self.bias_index]  # (n_types, heads, wlen, wlen)
+
+
+_MASKS: dict = {}
+
+
+def _mask_tensor(dims, window, shift, valid, device):
+    key = (dims, tuple(window), shift, valid, str(device))
+    if key not in _MASKS:
+        m = W.shift_attention_mask(dims, tuple(window), shift, valid)
+        _MASKS[key] = None if m is None else torch.from_numpy(m).to(device)
+    return _MASKS[key]
+
+
+class PanguBlock(nn.Module):
+    def __init__(self, dim, heads, window, shifted, mlp_ratio, n_type_windows):
+        super().__init__()
+        self.heads = heads
+        self.window = tuple(window)
+        self.shifted = shifted
+        self.LayerNorm_0 = LayerNorm(dim)
+        self.EarthAttention3D_0 = EarthAttention3D(dim, heads, window, n_type_windows)
+        self.LayerNorm_1 = LayerNorm(dim)
+        hidden = int(dim * mlp_ratio)
+        self.Dense_0 = Dense(dim, hidden)
+        self.Dense_1 = Dense(hidden, dim)
+
+    def forward(self, x, valid):  # (Z, H, Wd, C) padded to window multiples
+        Z, H, Wd, _ = x.shape
+        shift = tuple(w // 2 for w in self.window) if self.shifted else (0, 0, 0)
+        mask = _mask_tensor((Z, H, Wd), self.window, shift, valid, x.device)
+        attn = self.EarthAttention3D_0
+        # the block commutes with the shift roll: roll in, run unshifted
+        # with the shift mask, roll back
+        h = shift_roll(x, shift, forward=True)
+        h = fused_swin_block(
+            h, self.LayerNorm_0.sb(), attn.qkv.wb(), attn.expanded_bias(), mask,
+            attn.proj.wb(), self.LayerNorm_1.sb(), (*self.Dense_0.wb(), *self.Dense_1.wb()),
+            self.window, self.heads,
+        )
+        return shift_roll(h, shift, forward=False)
+
+
+class DownSample(nn.Module):
+    """2×2 lat-lon patch merging: (Z, H, W, C) → (Z, ⌈H/2⌉, W/2, dim_out)."""
+
+    def __init__(self, dim: int, dim_out: int):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(4 * dim)
+        self.Dense_0 = Dense(4 * dim, dim_out)
+
+    def forward(self, x):
+        if x.shape[1] % 2:
+            x = F.pad(x, (0, 0, 0, 0, 0, 1))
+        return fused_downsample(x.contiguous(), self.LayerNorm_0.sb(), self.Dense_0.wb())
+
+
+class UpSample(nn.Module):
+    """Inverse patch merging: (Z, H, W, C) → (Z, out_h, 2W, dim_out)."""
+
+    def __init__(self, dim: int, dim_out: int):
+        super().__init__()
+        self.Dense_0 = Dense(dim, 4 * dim_out)
+        self.LayerNorm_0 = LayerNorm(dim_out)
+
+    def forward(self, x, out_h: int):
+        return fused_upsample(x.contiguous(), self.Dense_0.wb(), self.LayerNorm_0.sb())[:, :out_h]
+
+
+class PanguNet(nn.Module):
+    def __init__(self, cfg: PanguConfig):
+        super().__init__()
+        self.cfg = cfg
+        pz, ph, pw = cfg.patch
+        C = cfg.embed_dim
+        Cs = cfg.surface_channels + cfg.const_masks
+        self.embed_surface = ConvParams((ph, pw, Cs, C))
+        self.embed_upper = ConvParams((pz, ph, pw, cfg.level_vars, C))
+        self.recover_upper = ConvParams((pz, ph, pw, 2 * C, cfg.level_vars))
+        self.recover_surface = ConvParams((ph, pw, 2 * C, cfg.surface_channels))
+
+        wz, wh, _ = cfg.window
+        Zt = cfg.z_tokens
+        Ht, _ = cfg.hw_tokens
+        nz = -(-Zt // wz)
+        Ht2 = -(-Ht // 2)
+        n_types = (nz * -(-Ht // wh), nz * -(-Ht2 // wh))  # full, half resolution
+        # flax numbers the blocks in call order across stages, with
+        # DownSample_0/UpSample_0 between them
+        self.stages: list[list[str]] = []
+        i = 0
+        for s, depth in enumerate(cfg.depths):
+            dim = C if s in (0, 3) else 2 * C
+            names = []
+            for b in range(depth):
+                name = f"PanguBlock_{i}"
+                self.add_module(name, PanguBlock(
+                    dim, cfg.num_heads[s], cfg.window, shifted=(b % 2 == 1),
+                    mlp_ratio=cfg.mlp_ratio, n_type_windows=n_types[0 if s in (0, 3) else 1],
+                ))
+                names.append(name)
+                i += 1
+            self.stages.append(names)
+        self.DownSample_0 = DownSample(C, 2 * C)
+        self.UpSample_0 = UpSample(2 * C, C)
+
+    @torch.no_grad()
+    def grand_weights(self) -> dict:
+        """Expand the conv-shaped patch params into the grand embed/recover
+        GEMM weights, cast to bf16 (whatever the compute dtype)."""
+        cfg = self.cfg
+        pz, ph, pw = cfg.patch
+        C = cfg.embed_dim
+        Zt = cfg.z_tokens
+        Zu = Zt - 1
+        L, Vl = cfg.levels, cfg.level_vars
+        n_up = L * Vl
+        Cs = cfg.surface_channels + cfg.const_masks
+        lanes = n_up + Cs
+        Cout = n_up + cfg.surface_channels
+
+        # patch embedding as ONE GEMM over (ph·pw·lanes): each z-token's
+        # 10 input channels (2 levels × 5 vars) are a static lane subset
+        ks, bs = self.embed_surface.kernel, self.embed_surface.bias
+        ku, bu = self.embed_upper.kernel, self.embed_upper.bias
+        Wg = ku.new_zeros((ph, pw, lanes, Zt, C))
+        for zt in range(Zu):
+            for lz in range(pz):
+                level = pz * zt + lz
+                if level >= L:
+                    continue
+                lane_idx = torch.arange(Vl, device=ku.device) * L + level
+                Wg[:, :, :, zt][:, :, lane_idx] = ku[lz]
+        Wg[:, :, n_up:, Zu] = ks
+        bias_g = torch.cat([bu[None].expand(Zu, C), bs[None]], dim=0)
+
+        # patch recovery: flax ConvTranspose(transpose_kernel=False) applies
+        # the kernel spatially FLIPPED — flip here so converted checkpoints
+        # keep their conv layout
+        kur, bur = self.recover_upper.kernel, self.recover_upper.bias
+        ksr, bsr = self.recover_surface.kernel, self.recover_surface.bias
+        kur_f = kur.flip(0, 1, 2)
+        ksr_f = ksr.flip(0, 1)
+        Wr = kur.new_zeros((Zt, 2 * C, ph, pw, Cout))
+        for zt in range(Zu):
+            for lz in range(pz):
+                level = pz * zt + lz
+                if level >= L:
+                    continue
+                lane_idx = torch.arange(Vl, device=kur.device) * L + level
+                Wr[zt][:, :, :, lane_idx] = kur_f[lz].permute(2, 0, 1, 3)
+        Wr[Zu, :, :, :, n_up:] = ksr_f.permute(2, 0, 1, 3)
+        bias_out = torch.cat([bur.repeat_interleave(L), bsr])
+        dt = torch.bfloat16
+        return {
+            "Wg": Wg.reshape(ph * pw * lanes, Zt * C).to(dt),
+            "bias_g": bias_g.to(dt),
+            "Wr": Wr.reshape(Zt * 2 * C, ph * pw * Cout).to(dt),
+            "bias_out": bias_out.to(dt),
+        }
+
+    def _stage(self, x, s, valid):
+        xp = W.pad_to_windows(x, self.cfg.window)[0].contiguous()
+        for name in self.stages[s]:
+            xp = getattr(self, name)(xp, valid)
+        return xp[: valid[0], : valid[1], : valid[2]]
+
+    def forward(self, x72, gw: dict):
+        """x72 (H, W, 65 upper + 4 surface + 3 masks) normalized → (H, W, 69)."""
+        cfg = self.cfg
+        pz, ph, pw = cfg.patch
+        C = cfg.embed_dim
+        Hin, Win = x72.shape[0], x72.shape[1]
+        Ht, Wt = -(-Hin // ph), Win // pw
+        Zt = cfg.z_tokens
+        n_up = cfg.levels * cfg.level_vars
+        lanes = n_up + cfg.surface_channels + cfg.const_masks
+        dt = x72.dtype
+
+        xp = F.pad(x72, (0, 0, 0, 0, 0, (-Hin) % ph))
+        p = xp.reshape(Ht, ph, Wt, pw, lanes).permute(0, 2, 1, 3, 4)
+        p = p.reshape(Ht * Wt, ph * pw * lanes)
+        tok = p @ gw["Wg"].to(dt)
+        tok = tok.reshape(Ht, Wt, Zt, C) + gw["bias_g"].to(dt)
+        x = tok.permute(2, 0, 1, 3)  # (Zt, Ht, Wt, C)
+
+        valid_full = (Zt, Ht, Wt)
+        valid_half = (Zt, -(-Ht // 2), Wt // 2)
+        x = self._stage(x, 0, valid_full)
+        skip = x
+        x = self.DownSample_0(x)
+        x = self._stage(x, 1, valid_half)
+        x = self._stage(x, 2, valid_half)
+        x = self.UpSample_0(x, Ht)
+        x = self._stage(x, 3, valid_full)
+        x = torch.cat([x, skip], dim=-1)  # (Zt, Ht, Wt, 2C)
+
+        Cout = n_up + cfg.surface_channels
+        t = x.permute(1, 2, 0, 3).reshape(Ht * Wt, Zt * 2 * C)
+        y = t @ gw["Wr"].to(dt)
+        y = y.reshape(Ht, Wt, ph, pw, Cout) + gw["bias_out"].to(dt)
+        y = y.permute(0, 2, 1, 3, 4).reshape(Ht * ph, Wt * pw, Cout)
+        return y[:Hin]
+
+
+# -- flax's initialisers ------------------------------------------------------
+
+
+def _truncated_normal(shape, std, generator):
+    """N(0, std²) truncated to ±2 std, by inverse CDF (jax's truncated_normal)."""
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+    t = torch.empty(shape).uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+    return t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+
+
+@torch.no_grad()
+def init_pangu_net_(net: PanguNet, generator: torch.Generator) -> PanguNet:
+    """flax's initialisers by leaf name: kernels lecun_normal (truncated,
+    fan_in = prod(shape[:-1])), earth_bias truncated_normal(0.02), biases
+    zeros, LayerNorm scales ones.  Draws in sorted flax-path order."""
+    for name, p in sorted(net.named_parameters()):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            fan_in = math.prod(p.shape[:-1])
+            p.copy_(_truncated_normal(p.shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator))
+        elif leaf == "earth_bias":
+            p.copy_(_truncated_normal(p.shape, 0.02, generator))
+        elif leaf == "scale":
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    return net
+
+
+class PanguModel(PrognosticModel):
+    """69-channel Pangu with hierarchical 6h/24h stepping.
+
+    ``variant``: "pangu" (24h net every 4th step, 6h otherwise), "pangu6",
+    "pangu24".  Runs on ``device`` (the card by default).
+    """
+
+    name = "pangu"
+    channels = ch.PANGU
+    n_history = 1
+
+    def __init__(self, variant: str = "pangu", cfg: PanguConfig | None = None, device="cuda"):
+        if variant not in ("pangu", "pangu6", "pangu24"):
+            raise ValueError(f"unknown Pangu variant {variant!r}")
+        self.device = resolve_device(device)
+        self.cfg = cfg or PanguConfig()
+        self.variant = variant
+        if variant == "pangu24":
+            self.time_step = datetime.timedelta(hours=24)
+        self.grid = LatLonGrid(self.cfg.lat, self.cfg.lon)
+
+    def init_params(self, generator: torch.Generator | None = None):
+        """Random parameters drawn on the CPU from ``generator`` (seed 0 by
+        default), so a seed gives the same parameters on every device."""
+        g = generator if generator is not None else torch.Generator().manual_seed(0)
+        nc = len(self.channels)
+        H, Wd = self.cfg.lat, self.cfg.lon
+
+        def net():
+            return init_pangu_net_(PanguNet(self.cfg), g).to(self.device).eval().requires_grad_(False)
+
+        params = {
+            "net6": net(),
+            "norm": make_norm_params(nc, device=self.device),
+            "consts": torch.zeros((self.cfg.const_masks, H, Wd), device=self.device),
+        }
+        if self.variant == "pangu":
+            params["net24"] = net()
+        return self.prepare_params(params)
+
+    def prepare_params(self, params):
+        """Attach the grand embed/recover GEMM weights (pure functions of
+        the conv params) under ``params["cache"]``."""
+        if "cache" in params:
+            return params
+        params = dict(params)
+        params["cache"] = {"gw6": params["net6"].grand_weights()}
+        if "net24" in params:
+            params["cache"]["gw24"] = params["net24"].grand_weights()
+        return params
+
+    def param_count(self, params):
+        return super().param_count({k: v for k, v in params.items() if k != "cache"})
+
+    @torch.no_grad()
+    def _forward(self, net: PanguNet, params, x, gw):
+        """One network evaluation on a (C, H, W) state."""
+        xn = normalize(params["norm"], x).to(self.compute_dtype)
+        consts = params["consts"].to(self.compute_dtype)
+        x72 = torch.cat([xn, consts], dim=0).permute(1, 2, 0)
+        y = net(x72, gw)
+        y = y.permute(2, 0, 1).float()
+        return denormalize(params["norm"], y)
+
+    def apply(self, params, x):
+        return self._forward(params["net6"], params, x[-1], params["cache"]["gw6"])[None]
+
+    def init_state(self, params, x0, generator=None, start_time=None):
+        state = super().init_state(params, x0, generator, start_time=start_time)
+        if self.variant == "pangu":
+            # anchor: last state at a 24h boundary (input of the 24h net)
+            state = state.replace(extra={"anchor": state.x[-1]})
+        return state
+
+    def advance(self, params, state: ModelState):
+        if self.variant != "pangu":
+            return super().advance(params, state)
+        cache = params["cache"]
+        # steps 1, 2, 3: 6h net; step 4 (completing 24h): 24h net from anchor
+        if state.step % 4 == 3:
+            y = self._forward(params["net24"], params, state.extra["anchor"], cache["gw24"])
+            anchor = y
+        else:
+            y = self._forward(params["net6"], params, state.x[-1], cache["gw6"])
+            anchor = state.extra["anchor"]
+        new_state = state.replace(
+            x=y[None],
+            step=state.step + 1,
+            time_days=state.time_days + self._step_days,
+            extra={"anchor": anchor},
+        )
+        return new_state, y[None]

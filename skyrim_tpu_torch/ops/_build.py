@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, loaded with ``ctypes``.
+Libraries go to ``build/skyrim_tpu_torch/`` at the root of the checkout
+(listed in ``.gitignore``), named by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one is reused.  ``build()``
+starts one ``nvcc`` per missing library, all at once, and waits for all.
+Only the repository's sources and the CUDA toolkit's headers are used.
+
+Adding ``"-Xptxas", "-v"`` to ``FLAGS`` makes nvcc print ptxas's
+register and shared-memory report for each kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skyrim_tpu_torch"
+LIBS = ("gemm", "fused_block", "roll", "resample")
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+)  # fmt: skip
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode() + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=LIBS) -> float:
+    """Compile the named libraries that are not built yet, in parallel.
+    Returns the seconds taken; raises with nvcc's output on failure."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    if name not in _loaded:
+        path = lib_path(name)
+        if not path.exists():
+            build((name,))
+        lib = ctypes.CDLL(str(path))
+        lib.skt_error_string.restype = ctypes.c_char_p
+        lib.skt_error_string.argtypes = [ctypes.c_int]
+        _loaded[name] = lib
+    return _loaded[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error (cudaGetLastError)."""
+    if err != 0:
+        msg = lib.skt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+

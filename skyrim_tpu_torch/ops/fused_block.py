@@ -1,0 +1,199 @@
+"""Pre-norm Swin/Pangu window block (K1).
+
+Replaces ``skyrim_tpu/ops/fused_block.py`` ``fused_swin_block_4d``
+(Pallas body ``_fused_block_kernel``): on a window-padded (Z, H, W, C)
+activation, LN1 → qkv → windowed multi-head attention with the earth
+bias and the shift mask → proj → +residual → LN2 → GELU-tanh MLP →
++residual.  The shifted-window roll stays outside (ops/roll.py): the
+block commutes with it.
+
+Bound on this card: operations.  At Pangu stage 1 one block does
+24·N·C² + 4·nWin·heads·wlen²·hd ≈ 0.53 TFLOP on ≈ 0.48 GB of inputs and
+output (N = 535,680 tokens, C = 192), ≈ 0.54 ms at 989 TFLOP/s bf16.
+
+Design: the TPU kernel keeps a whole window tile in VMEM; a Hopper
+thread block has 227 KB of shared memory, less than the packed qkv of
+one 144-token window at C = 384 with its scores, so the block runs as
+seven launches of hand-written kernels: LN1 (csrc/fused_block.cu) →
+qkv GEMM+bias (csrc/gemm.cu) → window attention (csrc/fused_block.cu)
+→ proj GEMM+bias+residual → LN2 → fc1 GEMM+bias+GELU → fc2
+GEMM+bias+residual.  LN and the GEMMs are per token and run on the flat
+(Z·H·W, C) view; the attention kernel reads q/k/v straight out of
+(Z, H, W, 3C) by index math, so no window relayout touches memory.  The
+intermediates (qkv, attention output, x1, LN outputs, MLP hidden) do
+round-trip device memory: fusing them is later work.
+
+On a CPU tensor the wrapper runs ``reference_swin_block``, the plain
+PyTorch version of the same function; on a CUDA tensor it launches the
+kernels or raises.  ``fused_swin_block.launches`` counts wrapper calls
+that launched the kernels, ``launches_by_shape`` the same by input shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops import windows as W
+from skyrim_tpu_torch.ops.gemm import gemm
+
+_EPS = 1e-6
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _layernorm_f32(t, scale, bias):
+    """flax LayerNorm numerics: f32 stats, fast variance, eps 1e-6."""
+    tf = t.float()
+    mu = tf.mean(-1, keepdim=True)
+    var = ((tf * tf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    h = (tf - mu) * torch.rsqrt(var + _EPS)
+    return h * scale.float() + bias.float()
+
+
+def reference_window_attention(q, k, v, bias, mask, n_lon_windows):
+    """(nWin, heads, wlen, hd) q/k/v → softmax(q kᵀ·scale + bias + mask) v."""
+    n_win, heads, wlen, hd = q.shape
+    s = torch.einsum("whqd,whkd->whqk", q.float(), k.float()) * (hd**-0.5)
+    if bias.ndim == 3:
+        bias = bias[None]
+    nt = bias.shape[0]
+    s = s.reshape(nt, n_win // nt, heads, wlen, wlen) + bias[:, None].float()
+    s = s.reshape(n_win, heads, wlen, wlen)
+    if mask is not None:
+        nz, nh = mask.shape[:2]
+        s = s.reshape(nz, nh, n_lon_windows, heads, wlen, wlen) + mask[:, :, None, None]
+        s = s.reshape(n_win, heads, wlen, wlen)
+    s = torch.softmax(s, dim=-1)
+    return torch.einsum("whqk,whkd->whqd", s, v.float()).to(q.dtype)
+
+
+def reference_window_attention_qkv(qkv, bias, mask, n_lon_windows, heads):
+    """Packed (nWin, wlen, 3C) qkv → (nWin, wlen, C)."""
+    n_win, wlen, c3 = qkv.shape
+    C = c3 // 3
+    parts = qkv.reshape(n_win, wlen, 3, heads, C // heads)
+    q, k, v = (parts[:, :, i].transpose(1, 2) for i in range(3))
+    out = reference_window_attention(q, k, v, bias, mask, n_lon_windows)
+    return out.transpose(1, 2).reshape(n_win, wlen, C)
+
+
+def reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads):
+    """Plain PyTorch version of K1 (JAX ``reference_swin_block``)."""
+    dt = x.dtype
+    Z, H, Wd, C = x.shape
+    h = _layernorm_f32(x, *ln1).to(dt)
+    qkv = h @ qkv_wb[0].to(dt) + qkv_wb[1].to(dt)
+    o = reference_window_attention_qkv(
+        W.window_partition(qkv, window), bias, mask, Wd // window[2], heads
+    )
+    o = W.window_reverse(o, window, (Z, H, Wd)).to(dt)
+    x1 = x + (o @ proj_wb[0].to(dt) + proj_wb[1].to(dt))
+    h2 = _layernorm_f32(x1, *ln2).to(dt)
+    m = F.gelu(h2 @ mlp_wb[0].to(dt) + mlp_wb[1].to(dt), approximate="tanh")
+    return x1 + m @ mlp_wb[2].to(dt) + mlp_wb[3].to(dt)
+
+
+def _lib():
+    lib = _build.load("fused_block")
+    lib.skt_layernorm_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _F, _P]
+    lib.skt_layernorm_bf16.restype = _I
+    lib.skt_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 9 + [_F, _P]
+    lib.skt_window_attention_bf16.restype = _I
+    return lib
+
+
+def _f32(t):
+    return t.detach().to(torch.float32).contiguous()
+
+
+def _bf16(t):
+    return t.detach().to(torch.bfloat16).contiguous()
+
+
+def layernorm(x2d, scale, bias):
+    """Row LayerNorm of a contiguous bf16 (rows, C) CUDA tensor → bf16."""
+    rows, C = x2d.shape
+    if C % 8:
+        raise ValueError(f"layernorm needs C divisible by 8, got {C}")
+    out = torch.empty_like(x2d)
+    lib = _lib()
+    err = lib.skt_layernorm_bf16(
+        x2d.data_ptr(), _f32(scale).data_ptr(), _f32(bias).data_ptr(), out.data_ptr(),
+        rows, C, _EPS, torch.cuda.current_stream(x2d.device).cuda_stream,
+    )
+    _build.check(lib, err, "layernorm")
+    return out
+
+
+def window_attention(qkv, bias, mask, window, heads):
+    """Windowed MHA of a contiguous bf16 (Z, H, W, 3C) CUDA tensor → (Z, H, W, C).
+
+    ``bias`` (n_types, heads, wlen, wlen) f32 with n_types 1 or nz·nh;
+    ``mask`` (nz, nh, wlen, wlen) f32 or None."""
+    Z, H, Wd, C3 = qkv.shape
+    C = C3 // 3
+    wz, wh, ww = window
+    wlen = wz * wh * ww
+    nz, nh = Z // wz, H // wh
+    hd = C // heads
+    if Z % wz or H % wh or Wd % ww or C % heads:
+        raise ValueError(f"window attention: {tuple(qkv.shape)} does not tile by {window}/{heads} heads")
+    if wlen % 16 or wlen > 256 or hd % 8 or hd > 64:
+        raise ValueError(f"window attention takes wlen % 16 == 0, wlen <= 256, hd % 8 == 0, hd <= 64; got wlen={wlen} hd={hd}")
+    if bias.ndim == 3:
+        bias = bias[None]
+    if bias.shape[1:] != (heads, wlen, wlen) or bias.shape[0] not in (1, nz * nh):
+        raise ValueError(f"earth bias shape {tuple(bias.shape)}")
+    if mask is not None and tuple(mask.shape) != (nz, nh, wlen, wlen):
+        raise ValueError(f"mask shape {tuple(mask.shape)} != {(nz, nh, wlen, wlen)}")
+    lib = _lib()
+    bias = _f32(bias)
+    mask = _f32(mask) if mask is not None else None
+    out = torch.empty((Z, H, Wd, C), dtype=torch.bfloat16, device=qkv.device)
+    err = lib.skt_window_attention_bf16(
+        qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
+        out.data_ptr(), Z, H, Wd, C, heads, wz, wh, ww, bias.shape[0], hd**-0.5,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    _build.check(lib, err, "window_attention")
+    return out
+
+
+def fused_swin_block(
+    x: torch.Tensor,  # (Z, H, W, C) window-padded activation (pre-rolled if shifted)
+    ln1,  # LayerNorm_0 (scale, bias), (C,)
+    qkv_wb,  # ((C, 3C), (3C,))
+    bias: torch.Tensor,  # (n_types, heads, wlen, wlen) or (heads, wlen, wlen)
+    mask: torch.Tensor | None,  # (nz, nh, wlen, wlen) or None
+    proj_wb,  # ((C, C), (C,))
+    ln2,  # LayerNorm_1 (scale, bias)
+    mlp_wb,  # (W1 (C, hidden), b1, W2 (hidden, C), b2)
+    window: tuple[int, int, int],
+    heads: int,
+) -> torch.Tensor:
+    """Whole pre-norm window-attention block; returns (Z, H, W, C) in x's dtype."""
+    if x.device.type == "cpu":
+        return reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads)
+    if x.dtype != torch.bfloat16 or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError(f"fused_swin_block takes a contiguous bf16 (Z, H, W, C) tensor, got {x.dtype} {tuple(x.shape)}")
+    Z, H, Wd, C = x.shape
+    N = Z * H * Wd
+    xf = x.view(N, C)
+    h = layernorm(xf, *ln1)
+    qkv = gemm(h, _bf16(qkv_wb[0]), _f32(qkv_wb[1]))
+    o = window_attention(qkv.view(Z, H, Wd, 3 * C), bias, mask, window, heads)
+    x1 = gemm(o.view(N, C), _bf16(proj_wb[0]), _f32(proj_wb[1]), residual=xf)
+    h2 = layernorm(x1, *ln2)
+    m = gemm(h2, _bf16(mlp_wb[0]), _f32(mlp_wb[1]), gelu=True)
+    out = gemm(m, _bf16(mlp_wb[2]), _f32(mlp_wb[3]), residual=x1)
+    fused_swin_block.launches += 1
+    by_shape = fused_swin_block.launches_by_shape
+    by_shape[x.shape] = by_shape.get(x.shape, 0) + 1
+    return out.view(Z, H, Wd, C)
+
+
+fused_swin_block.launches = 0
+fused_swin_block.launches_by_shape = {}  # Pangu runs two block widths

@@ -1,0 +1,243 @@
+"""K1–K4 of the port against the JAX package.
+
+CPU: each plain PyTorch version matches the JAX Pallas kernel (run in
+interpret mode, as tests/ops/test_fused_block.py runs it) and its XLA
+``reference_*`` twin in f32 at atol 3e-5 (the tolerance of
+tests/ops/test_fused_block.py:49).  The rolls are exact.
+
+JAX is imported inside the CPU tests only: the card's machine has no
+JAX, and runs the GPU tests of this file alone.
+
+GPU (marker ``gpu``, skipped without a card): each hand-written kernel
+against its plain version on the card in bf16.  Tolerance: the two
+differ by bf16 rounding of intermediates (the residual stream above
+all) and f32 summation order, so elementwise
+|kernel − plain| ≤ 2e-2·std(plain) + 2 bf16 ulps of max|plain|
+(2·2⁻⁸·max|plain|); the roll is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from skyrim_tpu_torch.ops import fused_block as FB
+from skyrim_tpu_torch.ops import resample as RS
+from skyrim_tpu_torch.ops import roll as RL
+from skyrim_tpu_torch.ops.gemm import gemm, plain_gemm
+from skyrim_tpu_torch.ops.windows import shift_attention_mask, window_partition, window_reverse
+
+WINDOW = (2, 6, 12)
+
+
+def _block_inputs(shifted, Z=4, H=12, Wd=24, C=32, heads=4, valid=(3, 11, 24), seed=0):
+    """Random block inputs (numpy, f32) with a non-trivial valid extent."""
+    rng = np.random.default_rng(seed)
+    wlen = int(np.prod(WINDOW))
+    nz, nh = Z // WINDOW[0], H // WINDOW[1]
+    hidden = 4 * C
+
+    def n(*shape, s=1.0):
+        return (rng.normal(size=shape) * s).astype(np.float32)
+
+    shift = (1, 3, 6) if shifted else (0, 0, 0)
+    mask = shift_attention_mask((Z, H, Wd), WINDOW, shift, valid)
+    return dict(
+        x=n(Z, H, Wd, C),
+        ln1=(1 + n(C, s=0.1), n(C, s=0.1)),
+        qkv_wb=(n(C, 3 * C, s=C**-0.5), n(3 * C, s=0.1)),
+        bias=n(nz * nh, heads, wlen, wlen, s=0.5),
+        mask=mask,
+        proj_wb=(n(C, C, s=C**-0.5), n(C, s=0.1)),
+        ln2=(1 + n(C, s=0.1), n(C, s=0.1)),
+        mlp_wb=(n(C, hidden, s=C**-0.5), n(hidden, s=0.1), n(hidden, C, s=hidden**-0.5), n(C, s=0.1)),
+    )
+
+
+def _to(tree, fn):
+    if isinstance(tree, tuple):
+        return tuple(_to(t, fn) for t in tree)
+    return None if tree is None else fn(tree)
+
+
+def _args(inp, fn):
+    keys = ("x", "ln1", "qkv_wb", "bias", "mask", "proj_wb", "ln2", "mlp_wb")
+    return [_to(inp[k], fn) for k in keys]
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_swin_block_plain_matches_jax(shifted):
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.fused_block import fused_swin_block_4d, reference_swin_block
+
+    inp = _block_inputs(shifted)
+    assert inp["mask"] is not None  # valid < padded extents: masked either way
+    j_args = _args(inp, jnp.asarray)
+    ref_kernel = np.asarray(fused_swin_block_4d(*j_args, WINDOW, 4, interpret=True))
+    ref_twin = np.asarray(reference_swin_block(*j_args, WINDOW, 4))
+    out = FB.fused_swin_block(*_args(inp, torch.from_numpy), WINDOW, 4).numpy()
+    np.testing.assert_allclose(out, ref_kernel, atol=3e-5, rtol=0)
+    np.testing.assert_allclose(out, ref_twin, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shifts", [(1, 3, 6), (-1, -3, -6), (3, 8, 23), (0, 0, 5), (-5, 13, -30)])
+def test_roll_plain_matches_jax(shifts):
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.roll import roll3d as j_roll3d
+
+    x = np.random.default_rng(0).normal(size=(4, 9, 24, 16)).astype(np.float32)
+    ref = np.asarray(j_roll3d(jnp.asarray(x), shifts, interpret=True))
+    out = RL.roll3d(torch.from_numpy(x), shifts).numpy()
+    np.testing.assert_array_equal(out, ref)
+    back = RL.shift_roll(RL.shift_roll(torch.from_numpy(x), shifts, True), shifts, False)
+    np.testing.assert_array_equal(back.numpy(), x)
+
+
+def test_resample_plain_matches_jax():
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.resample import (
+        fused_downsample as j_fused_downsample,
+        fused_upsample as j_fused_upsample,
+        reference_downsample as j_reference_downsample,
+        reference_upsample as j_reference_upsample,
+    )
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 14, 24, 16)).astype(np.float32)
+    ln = (rng.normal(size=(64,)).astype(np.float32), rng.normal(size=(64,)).astype(np.float32))
+    wb = ((rng.normal(size=(64, 32)) * 0.1).astype(np.float32), rng.normal(size=(32,)).astype(np.float32))
+    jx, jln, jwb = jnp.asarray(x), _to(ln, jnp.asarray), _to(wb, jnp.asarray)
+    out = RS.fused_downsample(torch.from_numpy(x), _to(ln, torch.from_numpy), _to(wb, torch.from_numpy))
+    assert tuple(out.shape) == (3, 7, 12, 32)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_fused_downsample(jx, jln, jwb, interpret=True)), atol=3e-5, rtol=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_reference_downsample(jx, jln, jwb)), atol=3e-5, rtol=0)
+
+    xu = rng.normal(size=(3, 7, 12, 32)).astype(np.float32)
+    wbu = ((rng.normal(size=(32, 64)) * 0.1).astype(np.float32), rng.normal(size=(64,)).astype(np.float32))
+    lnu = (rng.normal(size=(16,)).astype(np.float32), rng.normal(size=(16,)).astype(np.float32))
+    jxu, jwbu, jlnu = jnp.asarray(xu), _to(wbu, jnp.asarray), _to(lnu, jnp.asarray)
+    out = RS.fused_upsample(torch.from_numpy(xu), _to(wbu, torch.from_numpy), _to(lnu, torch.from_numpy))
+    assert tuple(out.shape) == (3, 14, 24, 16)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_fused_upsample(jxu, jwbu, jlnu, interpret=True)), atol=3e-5, rtol=0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_reference_upsample(jxu, jwbu, jlnu)), atol=3e-5, rtol=0)
+
+
+def test_gemm_cpu_takes_plain_version():
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(size=(10, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(8,)).astype(np.float32))
+    before = gemm.launches
+    np.testing.assert_allclose(gemm(a, w, b, gelu=True).numpy(), plain_gemm(a, w, b, gelu=True).numpy())
+    assert gemm.launches == before  # plain path launches nothing
+
+
+# -- on the card ---------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def assert_bf16_close(out, ref):
+    out, ref = out.float(), ref.float()
+    tol = 2e-2 * ref.std() + 2 * 2.0**-8 * ref.abs().max()
+    err = (out - ref).abs()
+    assert torch.isfinite(out).all()
+    assert bool((err <= tol).all()), f"max err {err.max().item():.4g} vs std {ref.std().item():.4g}"
+
+
+def _cuda_args(inp, dev):
+    args = _args(inp, lambda a: torch.from_numpy(a).to(dev))
+    args[0] = args[0].to(torch.bfloat16)
+    return args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(1000, 192, 576), (300, 16, 48), (257, 768, 192), (4096, 384, 1536)])
+@pytest.mark.parametrize("epi", ["bias", "gelu", "residual"])
+def test_gemm_kernel_matches_plain(cuda, M, K, N, epi):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=cuda, generator=g) * K**-0.5).to(torch.bfloat16)
+    b = torch.randn(N, device=cuda, generator=g)
+    r = torch.randn(M, N, device=cuda, generator=g).to(torch.bfloat16) if epi == "residual" else None
+    out = gemm(a, w, b, gelu=epi == "gelu", residual=r)
+    torch.cuda.synchronize()
+    assert_bf16_close(out, plain_gemm(a, w, b, gelu=epi == "gelu", residual=r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("C,heads", [(32, 4), (16, 2), (192, 6)])
+def test_swin_block_kernel_matches_plain(cuda, shifted, C, heads):
+    args = _cuda_args(_block_inputs(shifted, C=C, heads=heads), cuda)
+    before = FB.fused_swin_block.launches
+    out = FB.fused_swin_block(*args, WINDOW, heads)
+    torch.cuda.synchronize()
+    assert FB.fused_swin_block.launches == before + 1
+    assert_bf16_close(out, FB.reference_swin_block(*args, WINDOW, heads))
+
+
+@pytest.mark.gpu
+def test_window_attention_kernel_matches_plain(cuda):
+    args = _cuda_args(_block_inputs(True, C=64, heads=2), cuda)
+    Z, H, Wd, C = args[0].shape
+    qkv = torch.randn(Z, H, Wd, 3 * C, device=cuda).to(torch.bfloat16)
+    out = FB.window_attention(qkv, args[3], args[4], WINDOW, 2)
+    ref = FB.reference_window_attention_qkv(
+        window_partition(qkv, WINDOW), args[3], args[4], Wd // WINDOW[2], 2
+    )
+    torch.cuda.synchronize()
+    assert_bf16_close(out, window_reverse(ref, WINDOW, (Z, H, Wd)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shifts", [(1, 3, 6), (-1, -3, -6), (3, 8, 23)])
+def test_roll_kernel_exact(cuda, shifts):
+    x = torch.randn(4, 9, 24, 16, device=cuda).to(torch.bfloat16)
+    out = RL.roll3d(x, shifts)
+    torch.cuda.synchronize()
+    assert torch.equal(out, RL.plain_roll3d(x, shifts))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,Co", [(16, 32), (192, 384)])
+def test_resample_kernels_match_plain(cuda, C, Co):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(3, 14, 24, C, device=cuda, generator=g).to(torch.bfloat16)
+    ln = (1 + 0.1 * torch.randn(4 * C, device=cuda, generator=g), 0.1 * torch.randn(4 * C, device=cuda, generator=g))
+    wb = (torch.randn(4 * C, Co, device=cuda, generator=g) * (4 * C) ** -0.5, 0.1 * torch.randn(Co, device=cuda, generator=g))
+    out = RS.fused_downsample(x, ln, wb)
+    torch.cuda.synchronize()
+    assert_bf16_close(out, RS.reference_downsample(x, ln, wb))
+
+    xu = torch.randn(3, 7, 12, Co, device=cuda, generator=g).to(torch.bfloat16)
+    wbu = (torch.randn(Co, 4 * C, device=cuda, generator=g) * Co**-0.5, 0.1 * torch.randn(4 * C, device=cuda, generator=g))
+    lnu = (1 + 0.1 * torch.randn(C, device=cuda, generator=g), 0.1 * torch.randn(C, device=cuda, generator=g))
+    out = RS.fused_upsample(xu, wbu, lnu)
+    torch.cuda.synchronize()
+    assert_bf16_close(out, RS.reference_upsample(xu, wbu, lnu))
+
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_unsupported_cuda_input(cuda):
+    """On a CUDA tensor a wrapper launches its kernel or raises: an f32
+    activation is refused, never sent to the plain version."""
+    args = _cuda_args(_block_inputs(False), cuda)
+    args[0] = args[0].float()
+    with pytest.raises(ValueError, match="bf16"):
+        FB.fused_swin_block(*args, WINDOW, 4)
+    a = torch.randn(8, 16, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        gemm(a, a.new_zeros(16, 8), a.new_zeros(8))
+    with pytest.raises(ValueError, match="bf16"):
+        RS.fused_downsample(torch.randn(2, 4, 4, 16, device=cuda), (a, a), (a, a))
