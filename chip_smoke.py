@@ -9,18 +9,27 @@ Phases:
   1. the device, and the card's name and power limit from nvidia-smi;
   2. build every kernel from skyrim_tpu_torch/csrc (one nvcc per source,
      all at once) and print the seconds;
-  3. each kernel at the full-width Pangu shapes in bf16 (K1 at stage 1 and
+  3. each kernel at its full-width main-path shapes in bf16 against its
+     plain PyTorch version on the card, timed with CUDA events beside the
+     plain version and, for K2, torch.roll.  Pangu: K1 at stage 1 and
      stage 2, shifted, and its window attention alone with a strong earth
-     bias; K2 at both shapes; K3; K4) against its plain PyTorch version on
-     the card, timed with CUDA events beside the plain version and, for
-     K2, torch.roll;
-  4. the main path: GlobalModel("pangu", ic_source="synthetic") at
-     721x1440 and full width with seeded random weights, a 4-step
-     forecast with every launch count set to 0 just before and read just
-     after (16 K1, 16 K2, 1 K3, 1 K4 per forward); then rollout(save=True)
-     for 2 steps into a temporary directory and a reload of the files;
-  5. the small test configuration on the card (kernels) against the CPU
-     (plain versions).
+     bias; K2 at both shapes; K3; K4.  GraphCast: K6 once per shape class
+     (the feature-major Cin = 174 embedding, the grid update, the decoder's
+     node update, the Cout = 83 head, the mesh MLPs); K7 at the multimesh
+     block plan, padding rows included; K8 and K9 on the real full-width
+     tile tables (partial tiles in K8), and K9's outputs under two faults
+     (a dropped message, a misread slot bias), which its check must refuse;
+  4. the main paths, each with every launch count set to 0 just before and
+     read just after: GlobalModel("pangu", ic_source="synthetic") at
+     721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward),
+     then GlobalModel("graphcast", ic_source="synthetic"), 721x1440, 83
+     channels, latent 512, 16 rounds, refinement 6, a 4-step forecast
+     (21 K6, 16 K7, 1 K8, 1 K9 per forward; the cache build's launches are
+     counted apart); for each, per-step CUDA-event times, peak memory, one
+     profiled step, and rollout(save=True) for 2 steps into a temporary
+     directory and a reload of the files.  Weights are random, from a seed;
+  5. the small test configurations on the card (kernels) against the CPU
+     (plain versions), 4 steps each.
 
 Prints {"kernels": [...]} on a line of its own, then as the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, on
@@ -42,8 +51,14 @@ H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 # kernel vs plain on the card: bf16 rounding of intermediates (the residual
 # stream above all) and summation order differ, so elementwise
-# |kernel - plain| <= 2e-2 * std(plain) + 2 bf16 ulps of max|plain|
-# (2 * 2**-8 * max|plain|); the roll is exact
+# |kernel - plain| <= 2e-2 * std(plain) + 2 bf16 ulps (2 * 2**-8) of a scale.
+# The scale is max|plain| where a residual stream or a LayerNorm output is
+# rounded to bf16 on the way (the rounding is that of the largest
+# intermediate, not of the output element), and |plain| of the element itself
+# where the output is an f32 sum of a varying number of messages (K7's
+# aggregates; K9's tile partials, one message to hundreds near the poles), so
+# that a missing or wrong message is not hidden under the largest partial's
+# ulps.  The roll is exact.
 TOL_STD, TOL_ULPS = 2e-2, 2 * 2.0**-8
 # K1's window attention alone: its earth bias is drawn at 0.5 (as in
 # tests/test_torch_ops.py), so a missing or misindexed bias table moves the
@@ -88,17 +103,22 @@ def time_ms(torch, fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def compare(torch, out, ref, name: str, exact: bool = False) -> float:
+def over_limit(torch, out, ref, per_element: bool) -> float:
+    """max over elements of |out - ref| / limit (> 1 fails the check)."""
     out, ref = out.float(), ref.float()
+    scale = ref.abs() if per_element else ref.abs().max()
+    return float(((out - ref).abs() / (TOL_STD * ref.std() + TOL_ULPS * scale)).max())
+
+
+def compare(torch, out, ref, name: str, exact: bool = False, per_element: bool = False) -> float:
     check(tuple(out.shape) == tuple(ref.shape), f"{name}: shape {tuple(out.shape)} != {tuple(ref.shape)}")
     check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
-    err = (out - ref).abs()
-    max_err = float(err.max())
+    max_err = float((out.float() - ref.float()).abs().max())
     if exact:
         check(max_err == 0.0, f"{name}: not exact, max err {max_err}")
     else:
-        tol = TOL_STD * ref.std() + TOL_ULPS * ref.abs().max()
-        check(bool((err <= tol).all()), f"{name}: max err {max_err:.4g} over tolerance (std {float(ref.std()):.4g})")
+        ratio = over_limit(torch, out, ref, per_element)
+        check(ratio <= 1, f"{name}: max err {max_err:.4g}, {ratio:.3g}x its limit (std {float(ref.float().std()):.4g})")
     return max_err
 
 
@@ -231,17 +251,169 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
     return rows, attn_err
 
 
+def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
+    """Phase 3, GraphCast: K6-K9 at every full-width main-path shape against
+    their plain versions, on the real static tables of the full model.
+    Returns the kernels' rows and, for two faults fed to K9, how far over
+    its limit each output lies."""
+    from skyrim_tpu_torch.models.graphcast import GraphCastConfig, build_tables
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+    from skyrim_tpu_torch.ops import graph_kernels as GK
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    cfg = GraphCastConfig()
+    t0 = time.perf_counter()
+    t = build_tables(cfg, dev)
+    log(f"GraphCast tables at full width built in {time.perf_counter() - t0:.1f} s")
+    L, H, W = cfg.latent, cfg.lat, cfg.lon
+    N, n_mesh = H * W, t["n_mesh"]
+    cin = 2 * cfg.in_channels + 5 + 3
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+
+    def finish_params():
+        return (randn(L, scale=0.1), (randn(L, L, scale=L**-0.5), randn(L, scale=0.1)),
+                (1 + randn(L, scale=0.1), randn(L, scale=0.1)))
+
+    rows = []
+
+    def row(name, key, source, replaces, err, fn, plain, flops, nbytes, iters=5):
+        b_ms, b_by = bound(flops, nbytes)
+        rows.append(dict(name=name, shape=key, route="cuda", source=source, replaces=replaces,
+                         max_abs_err=err, ms=time_ms(torch, fn, iters), plain_ms=time_ms(torch, plain, 2),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    # K6, one row per shape class of the main path
+    mlps = (  # name, N, Cin, Cin2, Cout, ln, residual, feature-major
+        ("embed_grid", N, cin, 0, L, True, False, True),
+        ("grid_update", N, L, 0, L, True, True, False),
+        ("m2g.MLP_0", N, L, L, L, True, True, False),
+        ("head", N, L, 0, cfg.in_channels, False, False, False),
+        ("mesh MLP", n_mesh, L, L, L, True, True, False),
+    )
+    for name, n, c1, c2, cout, use_ln, use_res, xt in mlps:
+        x = randn(*((c1, n) if xt else (n, c1)), dtype=bf16)
+        args = (x, (randn(c1 + c2, L, scale=(c1 + c2) ** -0.5), randn(L, scale=0.1)),
+                (randn(L, cout, scale=L**-0.5), randn(cout, scale=0.1)),
+                (1 + randn(cout, scale=0.1), randn(cout, scale=0.1)) if use_ln else None)
+        kw = dict(x2=randn(n, c2, dtype=bf16) if c2 else None,
+                  residual=randn(n, cout, dtype=bf16) if use_res else None, x_transposed=xt)
+        out = FM.fused_mlp(*args, **kw)
+        torch.cuda.synchronize()
+        err = compare(torch, out, FM.reference_mlp(*args, **kw), f"K6 {name}")
+        del out
+        flops = 2 * n * ((c1 + c2) * L + L * cout)
+        nbytes = 2 * n * (c1 + c2 + cout * (2 if use_res else 1)) + 2 * ((c1 + c2) * L + L * cout)
+        shape = f"({c1}{'T' if xt else ''}{f'+{c2}' if c2 else ''}, {n})->{L}->{cout}"
+        row(f"K6 fused_mlp {name} {shape}", (n, c1, c2, cout), "skyrim_tpu_torch/csrc/fused_mlp.cu",
+            "skyrim_tpu/ops/fused_mlp.py:117", err,
+            lambda: FM.fused_mlp(*args, **kw), lambda: FM.reference_mlp(*args, **kw), flops, nbytes)
+        del x, args, kw
+        torch.cuda.empty_cache()
+
+    # K7 on the multimesh block plan (its padding rows included)
+    B, M = t["mesh_src_blocks"].shape
+    SB = t["mesh_SB"]
+    local = t["mesh_local"]
+    check(bool((local == SB).any()), "the block plan has no padding rows")
+    args = (randn(B, M, L, dtype=bf16), randn(B, M, L, scale=0.3, dtype=bf16), randn(B, SB, L, scale=0.3, dtype=bf16),
+            local, randn(L, L, scale=L**-0.5), *finish_params(), SB)
+    ne, agg = GK.fused_round_messages(*args)
+    torch.cuda.synchronize()
+    ne_r, agg_r = GK.reference_round_messages(*args)
+    err = max(compare(torch, ne, ne_r, "K7 new edges"),
+              compare(torch, agg, agg_r, "K7 aggregates", per_element=True))
+    del ne, agg, ne_r, agg_r
+    n_edges = int((local < SB).sum())
+    row(f"K7 fused_round_messages ({B}, {M}, {L}) SB {SB}", (B, M, L, SB),
+        "skyrim_tpu_torch/csrc/graph_round.cu+fused_mlp.cu", "skyrim_tpu/ops/graph_kernels.py:364", err,
+        lambda: GK.fused_round_messages(*args), lambda: GK.reference_round_messages(*args),
+        # the work this data needs: the products and the edge and gsrc rows
+        # of the real edges, not of the padding rows; every output written
+        4 * n_edges * L * L, 2 * (2 * n_edges * L + B * M * L + 2 * B * SB * L) + 4 * B * M + 2 * 2 * L * L)
+    del args
+    torch.cuda.empty_cache()
+
+    # K8 on the full-width face tiles (partial tiles in both dimensions)
+    TH, TW, U = t["tile_faces"].shape
+    args = (randn(TH, TW, U, 3 * L, scale=0.3, dtype=bf16), t["tile_local"],
+            randn(H, W, 3 * L, scale=0.3, dtype=bf16), randn(H, W, L, scale=0.3, dtype=bf16),
+            *finish_params(), 3, t["m2g_th"], t["m2g_tw"])
+    out = GK.fused_m2g_tiled(*args)
+    torch.cuda.synchronize()
+    err = compare(torch, out, GK.reference_m2g_tiled(*args), "K8 fused_m2g_tiled")
+    del out
+    row(f"K8 fused_m2g_tiled uniq ({TH}, {TW}, {U}, {3 * L}) -> ({H}, {W}, {L})", None,
+        "skyrim_tpu_torch/csrc/graph_m2g.cu+fused_mlp.cu", "skyrim_tpu/ops/graph_kernels.py:515", err,
+        lambda: GK.fused_m2g_tiled(*args), lambda: GK.reference_m2g_tiled(*args),
+        2 * 3 * N * L * L, 2 * (TH * TW * U * 3 * L + N * 3 * L + 2 * N * L) + 4 * N + 2 * L * L)
+    del args
+    torch.cuda.empty_cache()
+
+    # K9 on the full-width grid-major tiles
+    D, U, th, tw = t["g2m_D"], t["g2m_U"], t["g2m_th"], t["g2m_tw"]
+    TH, TW = H // th, W // tw
+    args = (randn(H, W, L, dtype=bf16), randn(H, W, D * L, scale=0.3, dtype=bf16), t["g2m_local"],
+            *finish_params(), D, U, th, tw)
+    out = GK.fused_g2m_tiled(*args)
+    torch.cuda.synchronize()
+    ref = GK.reference_g2m_tiled(*args)
+    err = compare(torch, out, ref, "K9 fused_g2m_tiled", per_element=True)
+    del out
+    local = t["g2m_local"]  # (TH, TW, D, th * tw), U = empty slot
+    filled = local < U
+    n_edges, n_src = int(filled.sum()), int(filled.any(2).sum())
+    row(f"K9 fused_g2m_tiled ({H}, {W}, {L}) -> ({TH}, {TW}, {U}, {L})", None,
+        "skyrim_tpu_torch/csrc/graph_g2m.cu+fused_mlp.cu", "skyrim_tpu/ops/graph_kernels.py:661", err,
+        lambda: GK.fused_g2m_tiled(*args), lambda: GK.reference_g2m_tiled(*args),
+        # the work this data needs: the products and the bias rows of the
+        # filled slots (the edges), the source rows of the points that have
+        # an edge; not the empty slots.  Every output written.
+        2 * n_edges * L * L, 2 * (n_src * L + n_edges * L + TH * TW * U * L) + 4 * N * D + 2 * L * L)
+
+    # the check's power at this shape: the kernel's outputs under two faults
+    # must fail it -- one message dropped in every tile within 60 degrees of
+    # the equator (where partials sum few messages), and slot 0's bias read
+    # for every slot
+    lat = 90 - 180 * torch.arange(H, device=dev) / (H - 1)
+    tiles = (lat.abs() < 60).view(TH, th).all(1).repeat_interleave(TW).nonzero().squeeze(1)
+    dropped = local.clone()
+    flat = dropped.view(TH * TW, D * th * tw)
+    check(bool((flat[tiles] < U).any(1).all()), "a K9 tile has no message")
+    flat[tiles, (flat[tiles] < U).float().argmax(1)] = U
+    bias0 = args[1].view(H, W, D, L)[:, :, :1].expand(H, W, D, L).reshape(H, W, D * L)
+    faults = {}
+    for fault, fargs in ((f"one message dropped in each of {len(tiles)} tiles", (*args[:2], dropped, *args[3:])),
+                         ("slot 0's bias read for every slot", (args[0], bias0, *args[2:]))):
+        out = GK.fused_g2m_tiled(*fargs)
+        faults[fault] = {rule: over_limit(torch, out, ref, pe) for rule, pe in (("per_element", True), ("max", False))}
+        log(f"K9 fault, {fault}: max err/limit {faults[fault]['per_element']:.4g} under the check's rule "
+            f"(|plain| per element), {faults[fault]['max']:.4g} under 2 ulps of max|plain|")
+        check(faults[fault]["per_element"] > 1, f"K9's check passed a faulty output: {fault}")
+        del out
+    del args, t, ref, dropped, bias0
+    torch.cuda.empty_cache()
+    return rows, faults
+
+
 def counters():
     from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops import graph_kernels as GK
     from skyrim_tpu_torch.ops import resample as RS
     from skyrim_tpu_torch.ops import roll as RL
+    from skyrim_tpu_torch.ops.fused_mlp import fused_mlp
     from skyrim_tpu_torch.ops.gemm import gemm
 
     return {"K1": FB.fused_swin_block, "K2": RL.roll3d, "K3": RS.fused_downsample,
-            "K4": RS.fused_upsample, "gemm": gemm}
+            "K4": RS.fused_upsample, "gemm": gemm, "K6": fused_mlp, "K7": GK.fused_round_messages,
+            "K8": GK.fused_m2g_tiled, "K9": GK.fused_g2m_tiled}
 
 
-BY_SHAPE = ("K1", "K2")  # kernels that run at both block widths
+BY_SHAPE = ("K1", "K2", "K6", "K7")  # kernels that run at several shapes on a path
+MODEL_OF = {"K1": "pangu", "K2": "pangu", "K3": "pangu", "K4": "pangu",
+            "K6": "graphcast", "K7": "graphcast", "K8": "graphcast", "K9": "graphcast"}
 
 
 def reset_counts() -> None:
@@ -252,18 +424,59 @@ def reset_counts() -> None:
         fns[k].launches_by_shape.clear()
 
 
-def main_path(torch) -> dict:
-    """Phase 4: the full-width Pangu forecast through GlobalModel."""
+def read_counts() -> tuple[dict, dict]:
+    fns = counters()
+    counts = {k: fn.launches for k, fn in fns.items()}
+    by_shape = {k: {tuple(s): v for s, v in fns[k].launches_by_shape.items()} for k in BY_SHAPE}
+    return counts, by_shape
+
+
+def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
+    """Launches per n_steps forwards of the main path: every kernel of the
+    port is listed, so the other model's kernels must stay at 0."""
+    counts = dict.fromkeys(MODEL_OF, 0)
+    by_shape = {k: {} for k in BY_SHAPE}
+    if model.name == "pangu":
+        counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps)
+        # per forward: 4 blocks (and rolls) at stage 1/4, 12 at stage 2/3
+        for k in ("K1", "K2"):
+            by_shape[k] = {(8, 186, 360, 192): 4 * n_steps, (8, 96, 180, 384): 12 * n_steps}
+        return counts, by_shape
+    cfg, t = model.cfg, model.tables
+    L, N, rounds = cfg.latent, cfg.lat * cfg.lon, cfg.processor_rounds
+    counts.update(K6=(5 + rounds) * n_steps, K7=rounds * n_steps, K8=n_steps, K9=n_steps)
+    by_shape["K6"] = {
+        (N, model.n_grid_in, 0, L): n_steps,  # embed_grid, feature-major
+        (N, L, 0, L): n_steps,  # grid_update
+        (N, L, L, L): n_steps,  # m2g.MLP_0
+        (N, L, 0, cfg.in_channels): n_steps,  # head
+        (t["n_mesh"], L, L, L): (1 + rounds) * n_steps,  # g2m.MLP_0 and each round's MLP_1
+    }
+    by_shape["K7"] = {(*t["mesh_src_blocks"].shape, L, t["mesh_SB"]): rounds * n_steps}
+    return counts, by_shape
+
+
+def main_path(torch, model_name: str) -> dict:
+    """Phase 4: a full-width forecast through GlobalModel, with the launch
+    counts of the forecast, then per-step times, a profile and a saved
+    rollout."""
     import numpy as np
 
     from skyrim_tpu_torch.core import GlobalModel
     from skyrim_tpu_torch.io import SaveConfig, load_forecast
 
+    reset_counts()
     t0 = time.perf_counter()
-    gm = GlobalModel("pangu", ic_source="synthetic", seed=0, device="cuda")
+    gm = GlobalModel(model_name, ic_source="synthetic", seed=0, device="cuda")
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup_counts = {k: v for k, v in read_counts()[0].items() if v}
+    log(f"{model_name}: set-up {setup_s:.1f} s (tables, parameters, cache), launches {setup_counts}")
+    if model_name == "graphcast":  # the cache: embed_mesh, embed_mm and the two edge embeddings
+        check(setup_counts == {"K6": 4}, f"graphcast cache build launched {setup_counts}, expected 4 K6")
     start = datetime.datetime(2024, 1, 1, 0)
     n_steps = 4
+    shape = (len(gm.model.channels), *gm.model.grid.shape)
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -271,26 +484,23 @@ def main_path(torch) -> dict:
     fc = gm.forecast(start, n_steps=n_steps)
     torch.cuda.synchronize()
     forecast_s = time.perf_counter() - t0
-    fns = counters()
-    counts = {k: fn.launches for k, fn in fns.items()}
-    by_shape = {k: {tuple(s): v for s, v in fns[k].launches_by_shape.items()} for k in BY_SHAPE}
+    counts, by_shape = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"main path: forecast of {n_steps} steps in {forecast_s:.2f} s, launches {counts}, "
+    log(f"{model_name}: forecast of {n_steps} steps in {forecast_s:.2f} s, launches {counts}, "
         f"by shape {by_shape}, peak {peak_gb:.2f} GB allocated")
-    expect = {"K1": 16 * n_steps, "K2": 16 * n_steps, "K3": n_steps, "K4": n_steps}
+    expect, expect_shape = expected_launches(gm.model, n_steps)
     for k, v in expect.items():
-        check(counts[k] == v, f"main path launched {k} {counts[k]} times, expected {v}")
-    # per forward: 4 blocks (and rolls) at stage 1/4, 12 at stage 2/3
-    expect_shape = {(8, 186, 360, 192): 4 * n_steps, (8, 96, 180, 384): 12 * n_steps}
+        check(counts[k] == v, f"{model_name} main path launched {k} {counts[k]} times, expected {v}")
     for k in BY_SHAPE:
-        check(by_shape[k] == expect_shape, f"main path launched {k} by shape {by_shape[k]}, expected {expect_shape}")
-    check(fc.data.shape == (n_steps + 1, 69, 721, 1440), f"forecast shape {fc.data.shape}")
+        check(by_shape[k] == expect_shape[k],
+              f"{model_name} main path launched {k} by shape {by_shape[k]}, expected {expect_shape[k]}")
+    check(fc.data.shape == (n_steps + 1, *shape), f"forecast shape {fc.data.shape}")
     check(bool(np.isfinite(fc.data).all()), "forecast has non-finite values")
     check(float(np.abs(fc.data[1:] - fc.data[:1]).max()) > 0, "forecast did not change the state")
 
     # per-step device time of the same advance the forecast ran
     model, params = gm.model, gm.params
-    state = model.init_state(params, fc.data[0], start_time=start)
+    state, _ = gm._initial_state(start)
     step_ms = []
     for _ in range(n_steps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -299,7 +509,7 @@ def main_path(torch) -> dict:
         e1.record()
         torch.cuda.synchronize()
         step_ms.append(e0.elapsed_time(e1))
-    log(f"main path: per-step ms {['%.2f' % t for t in step_ms]} (step 4 is the 24h net)")
+    log(f"{model_name}: per-step ms {['%.2f' % t for t in step_ms]}")
     profile = profile_step(torch, model, params, state)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -308,20 +518,22 @@ def main_path(torch) -> dict:
         check(len(paths) == 2, f"rollout saved {len(paths)} files")
         for i, p in enumerate(paths):
             f = load_forecast(p)
-            check(f.data.shape == (1, 69, 721, 1440), f"reloaded {p}: shape {f.data.shape}")
+            check(f.data.shape == (1, *shape), f"reloaded {p}: shape {f.data.shape}")
             check(bool(np.isfinite(f.data).all()), f"reloaded {p}: non-finite")
             # the same kernels on the same IC: the saved steps are the forecast's
             diff = float(np.abs(f.data[0] - fc.data[i + 1]).max())
             check(diff <= 1e-3 * float(np.abs(fc.data[i + 1]).max()), f"saved step {i + 1} differs from forecast by {diff}")
         np.testing.assert_array_equal(load_forecast(paths[-1]).data, last.data)
-        log(f"main path: rollout saved {[Path(p).name for p in paths]} and reloaded them")
-    return dict(counts=counts, by_shape=by_shape, setup_s=setup_s, forecast_s=forecast_s,
-                step_ms=step_ms, peak_gb=peak_gb, profile=profile)
+        log(f"{model_name}: rollout saved {[Path(p).name for p in paths]} and reloaded them")
+    del gm, model, params, state, fc
+    torch.cuda.empty_cache()
+    return dict(counts=counts, by_shape=by_shape, setup_launches=setup_counts, setup_s=setup_s,
+                forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile)
 
 
 def profile_step(torch, model, params, state) -> dict:
-    """Device time by kernel over one 6h step, and the device's idle share
-    of the step's host wall time (torch.profiler, CUPTI)."""
+    """Device time by kernel over one step, and the device's idle share of
+    the step's host wall time (torch.profiler, CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -347,35 +559,46 @@ def profile_step(torch, model, params, state) -> dict:
             "top": [[n, ms] for n, ms in top]}
 
 
-def small_config(torch) -> dict:
+def small_config(torch, model_name: str) -> dict:
     """Phase 5: the CPU tests' configuration, card (kernels) vs CPU (plain)."""
     import numpy as np
 
-    from skyrim_tpu_torch.models.pangu import PanguConfig, PanguModel
     from skyrim_tpu_torch.rollout import scan_rollout
 
-    cfg = PanguConfig(lat=49, lon=96, embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 2, 2))
-    x = np.random.default_rng(0).normal(size=(69, 49, 96)).astype(np.float32)
+    start = datetime.datetime(2024, 5, 1, 9)
+    if model_name == "pangu":
+        from skyrim_tpu_torch.models.pangu import PanguConfig, PanguModel
+
+        cfg = PanguConfig(lat=49, lon=96, embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 2, 2))
+        x = np.random.default_rng(0).normal(size=(69, 49, 96)).astype(np.float32)
+        make, key, launches = (lambda device: PanguModel("pangu", cfg=cfg, device=device)), "K1", 32
+    else:
+        from skyrim_tpu_torch.models.graphcast import GraphCastConfig, GraphCastModel
+
+        # tests/test_golden.py:50-53
+        cfg = GraphCastConfig(lat=19, lon=36, in_channels=4, latent=16, processor_rounds=2, mesh_refinements=2)
+        x = np.random.default_rng(0).normal(size=(2, 4, 19, 36)).astype(np.float32)
+        make, key, launches = (lambda device: GraphCastModel(cfg, device=device)), "K7", 8
     outs = {}
     for device in ("cuda", "cpu"):
-        model = PanguModel("pangu", cfg=cfg, device=device)
+        model = make(device)
         params = model.init_params(torch.Generator().manual_seed(0))
         reset_counts()
-        _, ys = scan_rollout(model, params, model.init_state(params, x), 4)
+        _, ys = scan_rollout(model, params, model.init_state(params, x, start_time=start), 4)
         outs[device] = ys.float().cpu().numpy()
         if device == "cuda":
-            check(counters()["K1"].launches == 32, "small config did not run K1 on the card")
+            check(counters()[key].launches == launches, f"small {model_name} config did not run {key} on the card")
     worst = 0.0
     for step in range(4):
         ref, out = outs["cpu"][step].astype(np.float64), outs["cuda"][step].astype(np.float64)
         tol = GOLDEN * ref.std()
         d = out - ref
         check(abs(out.mean() - ref.mean()) < tol and abs(out.std() - ref.std()) < tol,
-              f"small config step {step + 1}: mean/std differ beyond {tol:.3g}")
-        check(float(np.sqrt((d**2).mean())) < tol, f"small config step {step + 1}: rms diff over {tol:.3g}")
-        check(float(np.abs(d).max()) < 10 * tol, f"small config step {step + 1}: max diff over {10 * tol:.3g}")
+              f"small {model_name} config step {step + 1}: mean/std differ beyond {tol:.3g}")
+        check(float(np.sqrt((d**2).mean())) < tol, f"small {model_name} config step {step + 1}: rms diff over {tol:.3g}")
+        check(float(np.abs(d).max()) < 10 * tol, f"small {model_name} config step {step + 1}: max diff over {10 * tol:.3g}")
         worst = max(worst, float(np.abs(d).max() / ref.std()))
-    log(f"small config: card vs CPU over 4 steps, worst max|diff|/std = {worst:.4f}")
+    log(f"small {model_name} config: card vs CPU over 4 steps, worst max|diff|/std = {worst:.4f}")
     return dict(worst_max_over_std=worst)
 
 
@@ -412,19 +635,22 @@ def main() -> int:
         g = torch.Generator(device="cuda").manual_seed(0)
         rows, attn_err = kernel_checks(torch, g)
         log(f"K1 window attention alone, earth bias at {ATTN_BIAS_SCALE}: max_abs_err {attn_err}")
+        gc_rows, k9_faults = graphcast_kernel_checks(torch, g)
+        rows += gc_rows
         for r in rows:
             log(f"kernel {r['name']}: ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
                 f"bound {r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err {r['max_abs_err']:.4g}")
 
-        # 4. the main path
-        mp = main_path(torch)
+        # 4. the main paths
+        mp = {name: main_path(torch, name) for name in ("pangu", "graphcast")}
         for r in rows:
             key, shape = r["name"].split()[0], r.pop("shape")
-            r["launches"] = mp["by_shape"][key].get(shape, 0) if key in BY_SHAPE else mp["counts"][key]
+            run = mp[MODEL_OF[key]]
+            r["launches"] = run["by_shape"][key].get(shape, 0) if key in BY_SHAPE else run["counts"][key]
             check(r["launches"] > 0, f"{r['name']} was not launched on the main path")
 
-        # 5. small configuration, card vs CPU
-        small = small_config(torch)
+        # 5. small configurations, card vs CPU
+        small = {name: small_config(torch, name) for name in ("pangu", "graphcast")}
     except Exception as e:  # every failure ends the run without a result
         log(f"chip_smoke: FAILED: {type(e).__name__}: {e}")
         import traceback
@@ -435,9 +661,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({
-        "main_path": {k: mp[k] for k in ("setup_s", "forecast_s", "step_ms", "peak_gb", "profile")},
+        "main_path": {name: {k: run[k] for k in ("setup_s", "setup_launches", "forecast_s", "step_ms",
+                                                 "peak_gb", "profile")} for name, run in mp.items()},
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
+        "k9_fault_err_over_limit": k9_faults,
         "build_s": build_s,
     }), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)

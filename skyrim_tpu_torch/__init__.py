@@ -7,7 +7,8 @@ kernel written by hand for Hopper (``csrc/``, built at first use by
 tensors take.  Entry points run on the card unless the caller passes
 ``device="cpu"``.  This package imports neither jax nor skyrim_tpu.
 
-Ported so far: Pangu-Weather end to end (``core.GlobalModel("pangu")``).
+Ported so far, end to end: Pangu-Weather (``core.GlobalModel("pangu")``)
+and GraphCast (``core.GlobalModel("graphcast")``).
 """
 
 __version__ = "0.1.0"

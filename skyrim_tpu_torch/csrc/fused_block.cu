@@ -3,8 +3,9 @@
 // block that replaces skyrim_tpu/ops/fused_block.py fused_swin_block_4d
 // (_fused_block_kernel); ops/fused_block.py composes the seven launches.
 //
-// layernorm_kernel: one warp per token row, f32 statistics (flax numerics).
-// Bound: bytes (one read, one write of the activation).
+// skt_layernorm_bf16: rowgemm.cuh's ln_rows_kernel with one row per output,
+// one warp per token row, f32 statistics (flax numerics).  Bound: bytes (one
+// read, one write of the activation).
 //
 // window_attention_kernel: one thread block per (window, head).  It reads the
 // head's q/k/v lanes for the window's wlen tokens straight out of the packed
@@ -23,21 +24,11 @@
 #include <math.h>
 #include <mma.h>
 
-#include "common.cuh"
+#include "rowgemm.cuh"
 
 using namespace nvcuda;
 
 namespace {
-
-__global__ void layernorm_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                                 const float* __restrict__ bias, bf16* __restrict__ out,
-                                 int rows, int C, float eps) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * C;
-  layernorm_row_warp([&](int v) { return xr + v * 8; }, scale, bias, out + (size_t)row * C, C,
-                     eps);
-}
 
 constexpr int ATT_THREADS = 256;
 constexpr int MAX_COLS_PER_LANE = 8;  // wlen <= 256
@@ -182,11 +173,7 @@ __global__ void __launch_bounds__(ATT_THREADS, 2)
 
 extern "C" int skt_layernorm_bf16(const void* x, const void* scale, const void* bias, void* out,
                                   int rows, int C, float eps, void* stream) {
-  const int warps = 8;
-  layernorm_kernel<<<(rows + warps - 1) / warps, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), rows, C, eps);
-  return static_cast<int>(cudaGetLastError());
+  return rowgemm::launch_ln_rows(x, scale, bias, nullptr, out, rows, C, 1, eps, stream);
 }
 
 // A window too large for shared memory fails cudaFuncSetAttribute; the error

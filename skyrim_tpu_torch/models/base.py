@@ -14,6 +14,7 @@ from __future__ import annotations
 import abc
 import dataclasses
 import datetime
+import math
 from typing import Any, ClassVar
 
 import numpy as np
@@ -134,6 +135,32 @@ def _count(params) -> int:
     if isinstance(params, dict):
         return sum(_count(v) for v in params.values())
     return int(params.numel())
+
+
+def _truncated_normal(shape, std, generator):
+    """N(0, std²) truncated to ±2 std, by inverse CDF (jax's truncated_normal)."""
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
+    t = torch.empty(shape).uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+    return t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+
+
+@torch.no_grad()
+def init_flax_params_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """flax's initialisers by leaf name: kernels lecun_normal (truncated,
+    fan_in = prod(shape[:-1])), earth_bias truncated_normal(0.02), biases
+    zeros, LayerNorm scales ones.  Draws in sorted flax-path order."""
+    for name, p in sorted(net.named_parameters()):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            fan_in = math.prod(p.shape[:-1])
+            p.copy_(_truncated_normal(p.shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator))
+        elif leaf == "earth_bias":
+            p.copy_(_truncated_normal(p.shape, 0.02, generator))
+        elif leaf == "scale":
+            p.fill_(1.0)
+        else:
+            p.zero_()
+    return net
 
 
 def make_norm_params(n_channels: int, mean=None, std=None, device="cpu") -> dict:

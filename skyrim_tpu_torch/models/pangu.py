@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
-import math
 
 import numpy as np
 import torch
@@ -36,6 +35,7 @@ from skyrim_tpu_torch.models.base import (
     ModelState,
     PrognosticModel,
     denormalize,
+    init_flax_params_,
     make_norm_params,
     normalize,
 )
@@ -329,35 +329,6 @@ class PanguNet(nn.Module):
         return y[:Hin]
 
 
-# -- flax's initialisers ------------------------------------------------------
-
-
-def _truncated_normal(shape, std, generator):
-    """N(0, std²) truncated to ±2 std, by inverse CDF (jax's truncated_normal)."""
-    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
-    t = torch.empty(shape).uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
-    return t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
-
-
-@torch.no_grad()
-def init_pangu_net_(net: PanguNet, generator: torch.Generator) -> PanguNet:
-    """flax's initialisers by leaf name: kernels lecun_normal (truncated,
-    fan_in = prod(shape[:-1])), earth_bias truncated_normal(0.02), biases
-    zeros, LayerNorm scales ones.  Draws in sorted flax-path order."""
-    for name, p in sorted(net.named_parameters()):
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf == "kernel":
-            fan_in = math.prod(p.shape[:-1])
-            p.copy_(_truncated_normal(p.shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator))
-        elif leaf == "earth_bias":
-            p.copy_(_truncated_normal(p.shape, 0.02, generator))
-        elif leaf == "scale":
-            p.fill_(1.0)
-        else:
-            p.zero_()
-    return net
-
-
 class PanguModel(PrognosticModel):
     """69-channel Pangu with hierarchical 6h/24h stepping.
 
@@ -387,7 +358,7 @@ class PanguModel(PrognosticModel):
         H, Wd = self.cfg.lat, self.cfg.lon
 
         def net():
-            return init_pangu_net_(PanguNet(self.cfg), g).to(self.device).eval().requires_grad_(False)
+            return init_flax_params_(PanguNet(self.cfg), g).to(self.device).eval().requires_grad_(False)
 
         params = {
             "net6": net(),

@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skyrim_tpu_torch"
-LIBS = ("gemm", "fused_block", "roll", "resample")
+LIBS = ("gemm", "fused_block", "roll", "resample", "fused_mlp", "graph_round", "graph_m2g", "graph_g2m")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",

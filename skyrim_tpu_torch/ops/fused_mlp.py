@@ -1,0 +1,189 @@
+"""Row MLP (K6) and the row kernels that K7-K9 share.
+
+K6 replaces ``skyrim_tpu/ops/fused_mlp.py`` ``fused_mlp`` (Pallas body
+``_mlp_kernel``): ``[residual +] LN?(Dense₂(swish(Dense₁(x ‖ x2))))`` over
+rows, GraphCast's node and edge MLPs.  ``x2`` feeds the first layer's
+trailing kernel rows (the concat is never built); ``x_transposed`` takes x
+feature-major (Cin, N) and reads it in place; the residual is added after
+the LayerNorm, in the compute dtype.
+
+Kernels (csrc/fused_mlp.cu with csrc/rowgemm.cuh): the first GEMM with a
+split-K first layer and an f32 swish epilogue, the second GEMM with its
+bias (and the residual when there is no LayerNorm), then the LayerNorm
+rows kernel, which adds the residual.  Rows that are not 16-byte aligned
+(Cin 174, 3, 4) or feature-major load element by element inside the same
+GEMM.  Bound on this card: operations (1.09 TFLOP for a 512→512→512 MLP
+over the 1,038,240 grid rows, 1.10 ms at 989 TFLOP/s bf16).
+
+``reference_finish`` is the shared plain version of the per-edge message
+math of K7-K9 (JAX ``_finish_f32``/``reference_finish``): swish(h + b0)
+in f32 → compute dtype → Dense → + b → compute dtype → LayerNorm (f32
+statistics, fast variance, eps 1e-6) → compute dtype.
+
+On a CPU tensor ``fused_mlp`` runs ``reference_mlp``; on a CUDA tensor it
+launches the kernels or raises.  ``fused_mlp.launches`` counts wrapper
+calls that launched, ``launches_by_shape`` the same by (N, Cin, Cin2,
+Cout).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32, _layernorm_f32
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ACT_NONE, _ACT_SWISH = 0, 1  # rowgemm::Act
+
+
+def _swish_f32(h: torch.Tensor) -> torch.Tensor:
+    return h * torch.sigmoid(h)
+
+
+def reference_finish(h, b0, wb, ln, dt):
+    """Plain finish: ``h`` the f32 sum of the first layer's parts."""
+    h = _swish_f32(h.float() + b0.float()).to(dt)
+    y = (h.float() @ wb[0].to(dt).float() + wb[1].float()).to(dt)
+    return _layernorm_f32(y, *ln).to(dt)
+
+
+def reference_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False):
+    """Plain PyTorch version of K6 (f32 products of compute-dtype operands)."""
+    dt = x.dtype
+    if x_transposed:
+        x = x.T
+    cin = x.shape[1]
+    w1 = w1b1[0].to(dt).float()
+    h = x.float() @ w1[:cin]
+    if x2 is not None:
+        h = h + x2.float() @ w1[cin:]
+    h = _swish_f32(h + w1b1[1].float()).to(dt)
+    y = (h.float() @ w2b2[0].to(dt).float() + w2b2[1].float()).to(dt)
+    if ln is not None:
+        y = _layernorm_f32(y, *ln).to(dt)
+    if residual is not None:
+        y = (residual.float() + y.float()).to(dt)
+    return y
+
+
+def _lib():
+    lib = _build.load("fused_mlp")
+    lib.skt_mlp_gemm.argtypes = [_P, _L, _L, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+    lib.skt_ln_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    lib.skt_segment_sum.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    for fn in (lib.skt_mlp_gemm, lib.skt_ln_rows, lib.skt_segment_sum):
+        fn.restype = _I
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _aligned(*ts) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def require(t: torch.Tensor, shape, name: str, dtype=torch.bfloat16) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and ``shape``."""
+    if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: expected a contiguous {dtype} CUDA tensor {tuple(shape)}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+
+
+def mlp_gemm(a, w, b, *, a2=None, swish=False, residual=None, transposed=False):
+    """One launch of the row GEMM: ``act(a ‖ a2 @ w + b)`` [+ residual] → bf16.
+
+    ``a`` (M, K1) rows, or (K1, M) feature-major with ``transposed``;
+    ``a2`` (M, K2) rows; ``w`` (K1 + K2, N) bf16; ``b`` (N,) f32."""
+    K1, M = a.shape if transposed else a.shape[::-1]
+    K2 = 0 if a2 is None else a2.shape[1]
+    N = w.shape[1]
+    require(a, a.shape, "mlp_gemm a")
+    require(w, (K1 + K2, N), "mlp_gemm w")
+    require(b, (N,), "mlp_gemm b", torch.float32)
+    if a2 is not None:
+        require(a2, (M, K2), "mlp_gemm a2")
+    if residual is not None:
+        require(residual, (M, N), "mlp_gemm residual")
+    s1m, s1k = (1, M) if transposed else (K1, 1)
+    vec = int(not transposed and K1 % 8 == 0 and K2 % 8 == 0 and _aligned(a, a2))
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    lib = _lib()
+    err = lib.skt_mlp_gemm(
+        a.data_ptr(), s1m, s1k, K1, a2.data_ptr() if a2 is not None else None, K2,
+        w.data_ptr(), b.data_ptr(), residual.data_ptr() if residual is not None else None,
+        out.data_ptr(), M, N, _ACT_SWISH if swish else _ACT_NONE, vec, _stream(a),
+    )
+    _build.check(lib, err, "mlp_gemm")
+    return out
+
+
+def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
+    """``bf16([residual +] Σ_{k<nsum} bf16(LN(y[r·nsum + k])))`` per output row r.
+    ``out`` may be ``y`` itself when nsum == 1."""
+    R, C = y.shape[0] // nsum, y.shape[1]
+    if C % 8 or nsum not in (1, 3) or y.shape[0] % nsum:
+        raise ValueError(
+            f"ln_rows takes C % 8 == 0, nsum 1 or 3 and rows divisible by nsum, got {tuple(y.shape)}, nsum {nsum}"
+        )
+    require(y, y.shape, "ln_rows y")
+    if residual is not None:
+        require(residual, (R, C), "ln_rows residual")
+    out = torch.empty((R, C), dtype=torch.bfloat16, device=y.device) if out is None else out
+    require(out, (R, C), "ln_rows out")
+    scale, bias = _f32(ln[0]), _f32(ln[1])
+    lib = _lib()
+    err = lib.skt_ln_rows(
+        y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(), R, C, nsum, _EPS, _stream(y),
+    )
+    _build.check(lib, err, "ln_rows")
+    return out
+
+
+def segment_sum(x, local, S):
+    """(G·R, C) rows and (G, R) int32 ids → (G, S, C): per group, the f32 sum
+    of the rows with each id in [0, S), in row order, as bf16."""
+    G, R = local.shape
+    C = x.shape[1]
+    require(x, (G * R, C), "segment_sum x")
+    require(local, (G, R), "segment_sum local", torch.int32)
+    out = torch.empty((G, S, C), dtype=torch.bfloat16, device=x.device)
+    lib = _lib()
+    err = lib.skt_segment_sum(x.data_ptr(), local.data_ptr(), out.data_ptr(), G, R, S, C, _stream(x))
+    _build.check(lib, err, "segment_sum")
+    return out
+
+
+def fused_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False):
+    """``[residual +] LN?(Dense₂(swish(Dense₁(x ‖ x2))))`` over rows → (N, Cout).
+
+    x: (N, Cin), or (Cin, N) with ``x_transposed``; w1b1: ((Cin [+ Cin2], H),
+    (H,)); w2b2: ((H, Cout), (Cout,)); ln: optional (scale, bias) over Cout;
+    x2: optional (N, Cin2); residual: optional (N, Cout)."""
+    if x.device.type == "cpu":
+        return reference_mlp(x, w1b1, w2b2, ln, x2=x2, residual=residual, x_transposed=x_transposed)
+    if x.dtype != torch.bfloat16 or x.ndim != 2:
+        raise ValueError(f"fused_mlp takes a bf16 2-d input, got {x.dtype} {tuple(x.shape)}")
+    Cin, N = x.shape if x_transposed else x.shape[::-1]
+    Cout = w2b2[0].shape[1]
+    if ln is not None and Cout % 8:
+        raise ValueError(f"fused_mlp's LayerNorm takes Cout % 8 == 0, got {Cout}")
+    h = mlp_gemm(x, _bf16(w1b1[0]), _f32(w1b1[1]), a2=x2, swish=True, transposed=x_transposed)
+    y = mlp_gemm(h, _bf16(w2b2[0]), _f32(w2b2[1]), residual=residual if ln is None else None)
+    del h
+    out = y if ln is None else ln_rows(y, ln, residual=residual, out=y)
+    fused_mlp.launches += 1
+    key = (N, Cin, 0 if x2 is None else x2.shape[1], Cout)
+    fused_mlp.launches_by_shape[key] = fused_mlp.launches_by_shape.get(key, 0) + 1
+    return out
+
+
+fused_mlp.launches = 0
+fused_mlp.launches_by_shape = {}  # (N, Cin, Cin2, Cout)

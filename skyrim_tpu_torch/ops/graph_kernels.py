@@ -1,0 +1,220 @@
+"""GraphCast's message-passing kernels K7-K9.
+
+- K7 ``fused_round_messages`` replaces ``skyrim_tpu/ops/graph_kernels.py``
+  ``fused_round_messages`` (body ``_round_kernel``): one multimesh
+  processor round over dst-sorted edge blocks — dst-row expansion, edge
+  GEMM, finish, residual edge update, segment aggregation.
+  csrc/graph_round.cu + csrc/fused_mlp.cu.
+- K8 ``fused_m2g_tiled`` replaces ``fused_m2g_tiled`` (body
+  ``_m2g_tiled_kernel``): the mesh→grid decoder over face tiles, the sum
+  over the 3 slots of finish(face row + bias + dst row).
+  csrc/graph_m2g.cu + csrc/fused_mlp.cu.
+- K9 ``fused_g2m_tiled`` replaces ``fused_g2m_tiled`` (body
+  ``_g2m_tiled_kernel``): the grid→mesh encoder, grid-major over spatial
+  tiles, returning (TH, TW, U, L) tile partials.
+  csrc/graph_g2m.cu + csrc/fused_mlp.cu.
+
+The TPU kernels expand and aggregate with one-hot matmuls on the MXU;
+here an expansion is an indexed load and an aggregation a segmented sum
+in f32 (csrc/rowgemm.cuh).  Each slot sum (K8, K9) is taken in f32 and
+rounded once.  Bounds and designs are in the CUDA sources' headers.
+
+Each wrapper takes its plain PyTorch version (``reference_*``) on a CPU
+tensor and launches the kernels or raises on a CUDA tensor; ``launches``
+counts wrapper calls that launched (K7 also ``launches_by_shape``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops.fused_block import _bf16, _f32
+from skyrim_tpu_torch.ops.fused_mlp import (
+    _stream,
+    ln_rows,
+    mlp_gemm,
+    reference_finish,
+    require,
+    segment_sum,
+)
+from skyrim_tpu_torch.ops.graph import block_onehot
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+# --- plain versions ----------------------------------------------------------
+
+
+def reference_round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB):
+    """One processor round over (B, M, L) edge blocks → (new_edges, agg (B, SB, L))."""
+    B, M, L = edges.shape
+    dt = edges.dtype
+    oh = block_onehot(local, SB, torch.float32)  # (B, SB, M)
+    expand = torch.einsum("bsm,bsd->bmd", oh, staged.float())
+    h = edges.float() @ we.to(dt).float() + gsrc.float() + expand
+    m = reference_finish(h, b0, wb, ln, dt)
+    ne = (edges.float() + m.float()).to(dt)
+    agg = torch.einsum("bsm,bmd->bsd", oh, ne.float()).to(dt)
+    return ne, agg
+
+
+def reference_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
+    """Σ_k finish(wide_k + bias_k + ad) over flat rows; wide/bias_w (N, deg·L),
+    ad (N, L) → (N, L), the slot sum in f32."""
+    L = wide.shape[1] // deg
+    agg = None
+    for k in range(deg):
+        sl = slice(k * L, (k + 1) * L)
+        h = wide[:, sl].float() + bias_w[:, sl].float() + ad.float()
+        m = reference_finish(h, b0, wb, ln, wide.dtype).float()
+        agg = m if agg is None else agg + m
+    return agg.to(wide.dtype)
+
+
+def reference_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
+    """Per-point face row from the tile tables, then the fixed-degree sum."""
+    H, W = local_hw.shape
+    KL = bias_hw.shape[-1]
+    dev = uniq.device
+    ti = torch.arange(H, device=dev) // th
+    tj = torch.arange(W, device=dev) // tw
+    wide = uniq[ti[:, None], tj[None, :], local_hw.long()]  # (H, W, KL)
+    agg = reference_fixed_degree_messages(
+        wide.reshape(H * W, KL), bias_hw.reshape(H * W, KL), ad_hw.reshape(H * W, -1), b0, wb, ln, deg
+    )
+    return agg.reshape(H, W, -1)
+
+
+def reference_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw):
+    """Grid-major encoder messages + per-tile aggregation into (TH, TW, U, L)."""
+    H, W, L = asrc_hw.shape
+    dt = asrc_hw.dtype
+    TH, TW = H // th, W // tw
+    acc = torch.zeros((TH * TW, U + 1, L), dtype=torch.float32, device=asrc_hw.device)
+    for k in range(D):
+        h = asrc_hw.float() + bias_hw[:, :, k * L : (k + 1) * L].float()
+        m = reference_finish(h.reshape(H * W, L), b0, wb, ln, dt).float()
+        m = m.reshape(TH, th, TW, tw, L).permute(0, 2, 1, 3, 4).reshape(TH * TW, th * tw, L)
+        idx = local_t[:, :, k, :].reshape(TH * TW, th * tw).long()
+        acc.scatter_add_(1, idx[..., None].expand(-1, -1, L), m)  # id U = empty slot
+    return acc[:, :U].to(dt).reshape(TH, TW, U, L)
+
+
+# --- kernels -------------------------------------------------------------------
+
+
+def _lib(name: str, fn: str, argtypes):
+    lib = _build.load(name)
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = _I
+    return lib
+
+
+def fused_round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB):
+    """One multimesh processor round over dst-sorted edge blocks.
+
+    edges/gsrc: (B, M, L) edge latents and gathered src-part rows; staged:
+    (B, SB, L) dst-part rows per block segment; local: (B, M) int32 block-local
+    segment ids (== SB ⇒ padding); we: (L, L) edge-part kernel slice; b0:
+    (L,); wb: ((L, L), (L,)); ln: (scale, bias).  Returns (new_edges (B, M,
+    L), agg (B, SB, L))."""
+    if edges.device.type == "cpu":
+        return reference_round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB)
+    B, M, L = edges.shape
+    if L % 8:
+        raise ValueError(f"fused_round_messages takes L % 8 == 0, got {L}")
+    require(edges, (B, M, L), "round edges")
+    require(gsrc, (B, M, L), "round gsrc")
+    require(staged, (B, SB, L), "round staged")
+    require(local, (B, M), "round local", torch.int32)
+    rows = B * M
+    e2 = edges.view(rows, L)
+    h = torch.empty((rows, L), dtype=torch.bfloat16, device=edges.device)
+    we, b0 = _bf16(we), _f32(b0)  # held until the launch is queued
+    lib = _lib("graph_round", "skt_round_gemm", [_P] * 7 + [_I] * 4 + [_P])
+    err = lib.skt_round_gemm(
+        e2.data_ptr(), we.data_ptr(), b0.data_ptr(), gsrc.data_ptr(), staged.data_ptr(),
+        local.data_ptr(), h.data_ptr(), rows, L, M, SB, _stream(edges),
+    )
+    _build.check(lib, err, "round_gemm")
+    y = mlp_gemm(h, _bf16(wb[0]), _f32(wb[1]))
+    del h
+    ne = ln_rows(y, ln, residual=e2, out=y)
+    agg = segment_sum(ne, local, SB)
+    fused_round_messages.launches += 1
+    key = (B, M, L, SB)
+    fused_round_messages.launches_by_shape[key] = fused_round_messages.launches_by_shape.get(key, 0) + 1
+    return ne.view(B, M, L), agg
+
+
+fused_round_messages.launches = 0
+fused_round_messages.launches_by_shape = {}  # (B, M, L, SB)
+
+
+def fused_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
+    """Fixed-degree mesh→grid messages over (th, tw) spatial tiles.
+
+    uniq: (TH, TW, U, deg·L) per-tile unique wide face rows; local_hw: (H, W)
+    int32 index of each point into its tile's rows (from
+    ``ops.graph.build_face_tiles``); bias_hw: (H, W, deg·L); ad_hw: (H, W, L).
+    The tiles need not divide the grid.  Returns (H, W, L)."""
+    if uniq.device.type == "cpu":
+        return reference_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw)
+    H, W = local_hw.shape
+    TH, TW, U, KL = uniq.shape
+    L = KL // deg
+    if deg != 3 or L % 8 or (TH, TW) != (-(-H // th), -(-W // tw)):
+        raise ValueError(f"fused_m2g_tiled: deg {deg} (takes 3), L {L} (% 8), tiles {(TH, TW)} for {(H, W)}/{(th, tw)}")
+    require(local_hw, (H, W), "m2g local", torch.int32)
+    require(bias_hw, (H, W, KL), "m2g bias")
+    require(ad_hw, (H, W, L), "m2g ad")
+    require(uniq, (TH, TW, U, KL), "m2g uniq")
+    y = torch.empty((3 * H * W, L), dtype=torch.bfloat16, device=uniq.device)
+    b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
+    lib = _lib("graph_m2g", "skt_m2g_gemm", [_P] * 8 + [_I] * 7 + [_P])
+    err = lib.skt_m2g_gemm(
+        uniq.data_ptr(), local_hw.data_ptr(), bias_hw.data_ptr(), ad_hw.data_ptr(), b0.data_ptr(),
+        w.data_ptr(), b.data_ptr(), y.data_ptr(), H, W, L, U, th, tw, TW, _stream(uniq),
+    )
+    _build.check(lib, err, "m2g_gemm")
+    out = ln_rows(y, ln, nsum=3)
+    fused_m2g_tiled.launches += 1
+    return out.view(H, W, L)
+
+
+fused_m2g_tiled.launches = 0
+
+
+def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw):
+    """Grid-major grid→mesh messages over (th, tw) spatial tiles.
+
+    asrc_hw: (H, W, L) per-point src-part rows; bias_hw: (H, W, D·L) cached
+    static per-slot bias; local_t: (TH, TW, D, th·tw) int32 slot → tile-local
+    dst index (== U ⇒ empty).  Returns (TH, TW, U, L) tile partials."""
+    if asrc_hw.device.type == "cpu":
+        return reference_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw)
+    H, W, L = asrc_hw.shape
+    if H % th or W % tw or L % 8:
+        raise ValueError(f"fused_g2m_tiled: tiles {(th, tw)} must cover {(H, W)} exactly, L {L} % 8")
+    TH, TW = H // th, W // tw
+    require(asrc_hw, (H, W, L), "g2m asrc")
+    require(bias_hw, (H, W, D * L), "g2m bias")
+    require(local_t, (TH, TW, D, th * tw), "g2m local", torch.int32)
+    y = torch.empty((H * W * D, L), dtype=torch.bfloat16, device=asrc_hw.device)
+    b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
+    lib = _lib("graph_g2m", "skt_g2m_gemm", [_P] * 6 + [_I] * 6 + [_P])
+    err = lib.skt_g2m_gemm(
+        asrc_hw.data_ptr(), bias_hw.data_ptr(), b0.data_ptr(), w.data_ptr(),
+        b.data_ptr(), y.data_ptr(), H, W, L, D, th, tw, _stream(asrc_hw),
+    )
+    _build.check(lib, err, "g2m_gemm")
+    m = ln_rows(y, ln, out=y)
+    out = segment_sum(m, local_t.view(TH * TW, D * th * tw), U)
+    fused_g2m_tiled.launches += 1
+    return out.view(TH, TW, U, L)
+
+
+fused_g2m_tiled.launches = 0

@@ -130,6 +130,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         GlobalModel("pangu", ic_source="synthetic", model_kwargs={"cfg": PanguConfig(**CFG)})
     assert PanguModel("pangu", cfg=PanguConfig(**CFG), device="cpu").device.type == "cpu"
+    from skyrim_tpu_torch.models.graphcast import GraphCastConfig, GraphCastModel
+
+    tiny = GraphCastConfig(lat=19, lon=36, in_channels=4, latent=16, processor_rounds=2, mesh_refinements=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GraphCastModel(tiny)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GlobalModel("graphcast", ic_source="synthetic", model_kwargs={"cfg": tiny})
 
 
 def test_port_imports_no_jax_and_no_skyrim_tpu():
@@ -139,9 +146,11 @@ def test_port_imports_no_jax_and_no_skyrim_tpu():
         "names = [m.name for m in pkgutil.walk_packages(skyrim_tpu_torch.__path__, 'skyrim_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "gc = {'skyrim_tpu_torch.models.graphcast', 'skyrim_tpu_torch.ops.graph_kernels',\n"
+        "      'skyrim_tpu_torch.ops.fused_mlp', 'skyrim_tpu_torch.ops.graph', 'skyrim_tpu_torch.data.solar'}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'skyrim_tpu'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 15 else 0)\n"
+        "print(len(names), bad, sorted(gc - set(sys.modules)))\n"
+        "sys.exit(1 if bad or gc - set(sys.modules) or len(names) < 20 else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -1,0 +1,426 @@
+"""GraphCast's static tables, forcings and kernels K6-K9 against the JAX package.
+
+CPU:
+- the port's table builders (ops/graph.py, grid.py) give the JAX
+  package's tables: integer tables exactly, features to 1e-6;
+- the TISR and clock forcings match the JAX versions to 1e-5 relative;
+- each plain version of K6-K9 matches the JAX Pallas kernel (run in
+  interpret mode, as tests/ops/test_fused_mlp.py runs it) and its XLA
+  ``reference_*`` twin on the same numpy inputs: in f32 at atol 2e-5 (the
+  tolerance of tests/ops/test_fused_mlp.py:242; 1e-4 relative as well for
+  the aggregates, which sum several messages), in bf16 at the golden
+  tolerance 3e-2·std(reference) on the mean, the spread and the RMS of
+  the difference, 10× that elementwise (the two round intermediates at
+  different points: the JAX twins add and apply swish in bf16).
+
+JAX is imported inside the CPU tests only: the card's machine has no JAX
+and runs the GPU tests of this file alone.
+
+GPU (marker ``gpu``, skipped without a card): each kernel against its
+plain version on the card in bf16, at small shapes that take the awkward
+paths (Cin 3, 4 and feature-major 174, Cout 83, padding rows, tiles that
+do not divide the grid).  Tolerance, as for K1-K4: elementwise
+|kernel − plain| ≤ 2e-2·std(plain) + 2 bf16 ulps of max|plain|.
+"""
+
+import datetime
+
+import numpy as np
+import pytest
+import torch
+
+from skyrim_tpu_torch.ops import fused_mlp as FM
+from skyrim_tpu_torch.ops import graph as G
+from skyrim_tpu_torch.ops import graph_kernels as GK
+
+
+def _n(rng, *shape, s=1.0):
+    return (rng.normal(size=shape) * s).astype(np.float32)
+
+
+def _t(tree, dtype=torch.float32, device="cpu"):
+    if isinstance(tree, tuple):
+        return tuple(_t(t, dtype, device) for t in tree)
+    if tree is None:
+        return None
+    a = np.asarray(tree)
+    if a.dtype.kind in "iu":
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+    return torch.from_numpy(a).to(device, dtype)
+
+
+def _j(tree, dtype=None):
+    import jax.numpy as jnp
+
+    if isinstance(tree, tuple):
+        return tuple(_j(t, dtype) for t in tree)
+    if tree is None:
+        return None
+    a = np.asarray(tree)
+    return jnp.asarray(a, a.dtype if a.dtype.kind in "iu" else (dtype or jnp.float32))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _close_f32(out, ref, agg=False):
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-5, rtol=1e-4 if agg else 0)
+
+
+def _close_bf16(out, ref):
+    """The golden tolerance tol = 3e-2·std(ref) (tests/test_golden.py:74) on
+    the mean, the spread and the RMS of the difference, 10·tol elementwise."""
+    out, ref = _np(out).astype(np.float64), _np(ref).astype(np.float64)
+    tol = 3e-2 * ref.std()
+    d = out - ref
+    assert abs(out.mean() - ref.mean()) < tol and abs(out.std() - ref.std()) < tol
+    assert np.sqrt((d**2).mean()) < tol and np.abs(d).max() < 10 * tol, (np.abs(d).max(), tol)
+
+
+# --- tables ------------------------------------------------------------------
+
+
+def _assert_tables_equal(out: dict, ref: dict):
+    assert sorted(out) == sorted(ref)
+    for k, r in ref.items():
+        o = out[k]
+        if isinstance(r, np.ndarray) and r.dtype.kind == "f":
+            assert o.shape == r.shape and o.dtype == r.dtype, k
+            np.testing.assert_allclose(o, r, atol=1e-6, rtol=0, err_msg=k)
+        elif isinstance(r, np.ndarray):
+            np.testing.assert_array_equal(o, r, err_msg=k)
+            assert o.dtype == r.dtype, k
+        else:
+            assert o == r, k
+
+
+def test_multimesh_equals_jax():
+    from skyrim_tpu.grid import icosahedral_multimesh as j_mesh
+
+    from skyrim_tpu_torch.grid import icosahedral_multimesh
+
+    _assert_tables_equal(
+        {k: v for k, v in icosahedral_multimesh(2).items() if k != "per_level_edge_counts"},
+        {k: v for k, v in j_mesh(2).items() if k != "per_level_edge_counts"},
+    )
+    assert icosahedral_multimesh(2)["per_level_edge_counts"] == j_mesh(2)["per_level_edge_counts"]
+
+
+def test_build_graphs_equals_jax():
+    from skyrim_tpu.ops.graph import build_graphs as j_build
+
+    _assert_tables_equal(G.build_graphs(19, 36, 2), j_build(19, 36, 2))
+
+
+@pytest.mark.parametrize("target_rows,block_multiple", [(1024, 1), (64, 4)])
+def test_block_plan_and_padding_equal_jax(target_rows, block_multiple):
+    from skyrim_tpu.ops import graph as JG
+
+    g = G.build_graphs(19, 36, 2)
+    for dst, n_seg, feats in ((g["mesh_dst"], g["n_mesh"], (g["mesh_src"], g["mesh_efeat"])),
+                              (g["g2m_dst"], g["n_mesh"], (g["g2m_src"], g["g2m_efeat"]))):
+        plan = G.build_block_plan(dst, n_seg, target_rows=target_rows, block_multiple=block_multiple)
+        ref = JG.build_block_plan(dst, n_seg, target_rows=target_rows, block_multiple=block_multiple)
+        _assert_tables_equal(plan, ref)
+        for a in feats:
+            np.testing.assert_array_equal(G.pad_rows_to_blocks(a, plan), JG.pad_rows_to_blocks(a, ref))
+
+
+def test_face_tiles_equal_jax():
+    """Random faces on an 11x18 grid in 4x8 tiles (partial tiles in both
+    dimensions, tests/ops/test_fused_mlp.py:367) and the 19x36 graph's."""
+    from skyrim_tpu.ops.graph import build_face_tiles as j_tiles
+
+    face_hw = np.random.default_rng(1).integers(0, 7, size=(11, 18)).astype(np.int32)
+    _assert_tables_equal(G.build_face_tiles(face_hw, th=4, tw=8), j_tiles(face_hw, th=4, tw=8))
+    g = G.build_graphs(19, 36, 2)
+    face = g["m2g_face"].reshape(19, 36)
+    _assert_tables_equal(G.build_face_tiles(face, th=8, tw=16), j_tiles(face, th=8, tw=16))
+
+
+def _random_g2m_edges(H=12, W=20, n_mesh=9, seed=0):
+    """Random sparse edges, out-degree 0..3 (tests/ops/test_fused_mlp.py:305)."""
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for p in range(H * W):
+        for d in rng.choice(n_mesh, size=rng.integers(0, 4), replace=False):
+            src.append(p)
+            dst.append(int(d))
+    return np.asarray(src), np.asarray(dst), rng.normal(size=(len(src), 4)).astype(np.float32)
+
+
+def test_g2m_tiles_equal_jax():
+    from skyrim_tpu.ops.graph import build_g2m_tiles as j_tiles
+    from skyrim_tpu.ops.graph import pick_exact_tile as j_pick
+
+    src, dst, ef = _random_g2m_edges()
+    _assert_tables_equal(G.build_g2m_tiles(src, dst, ef, 12, 20, 9), j_tiles(src, dst, ef, 12, 20, 9))
+    g = G.build_graphs(19, 36, 2)
+    args = (g["g2m_src"], g["g2m_dst"], g["g2m_efeat"], 19, 36, g["n_mesh"])
+    _assert_tables_equal(G.build_g2m_tiles(*args), j_tiles(*args))
+    for n, t, m in ((721, 16, 1), (1440, 192, 16), (19, 16, 1), (36, 192, 16)):
+        assert G.pick_exact_tile(n, t, m) == j_pick(n, t, m)
+
+
+def test_block_helpers_match_jax():
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops import graph as JG
+
+    g = G.build_graphs(19, 36, 2)
+    plan = G.build_block_plan(g["mesh_dst"], g["n_mesh"], target_rows=64)
+    rng = np.random.default_rng(3)
+    blocks = _n(rng, *plan["local"].shape, 8)
+    seg_vals = _n(rng, plan["n_seg"], 8)
+    np.testing.assert_allclose(
+        G.block_segment_sum(torch.from_numpy(blocks), plan).numpy(),
+        np.asarray(JG.block_segment_sum(jnp.asarray(blocks), plan)), atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        G.block_expand_dst(torch.from_numpy(seg_vals), plan).numpy(),
+        np.asarray(JG.block_expand_dst(jnp.asarray(seg_vals), plan)), atol=2e-5, rtol=1e-5)
+    oh = G.block_onehot(torch.from_numpy(plan["local"]), plan["SB"], torch.float32)
+    np.testing.assert_array_equal(oh.numpy(), np.asarray(JG.block_onehot(plan, jnp.float32)))
+
+
+# --- forcings ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("when", [datetime.datetime(2024, 1, 1, 6), datetime.datetime(1999, 7, 14, 17, 30)])
+def test_forcings_match_jax(when):
+    """Both packages round the epoch seconds to float32 (the JAX state holds
+    float32 days); the fields then agree to 1e-5 relative."""
+    from skyrim_tpu.data.solar import clock_features_jax, toa_incident_solar_radiation_jax
+
+    from skyrim_tpu_torch.data.solar import clock_features, toa_incident_solar_radiation
+    from skyrim_tpu_torch.grid import LatLonGrid
+
+    grid = LatLonGrid(19, 36)
+    days = (when - datetime.datetime(1970, 1, 1)).total_seconds() / 86400.0
+    sec32 = np.float32(days) * np.float32(86400.0)
+    sec = torch.tensor(days, dtype=torch.float32) * 86400.0
+    assert sec.item() == float(sec32)
+    ref = np.asarray(toa_incident_solar_radiation_jax(sec32, grid.lat, grid.lon, integration_hours=6.0))
+    out = toa_incident_solar_radiation(sec, grid.lat, grid.lon, integration_hours=6.0).numpy()
+    assert ref.max() > 0 and out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * ref.max())
+    ref = np.asarray(clock_features_jax(sec32, grid.lat, grid.lon))
+    np.testing.assert_allclose(clock_features(sec, grid.lat, grid.lon).numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+# --- K6 plain ----------------------------------------------------------------
+
+MLP_CASES = {
+    # name: (N, Cin, Cin2, H, Cout, ln, residual, x_transposed)
+    "ln": (700, 24, 0, 48, 16, True, False, False),
+    "no_ln": (700, 24, 0, 48, 16, False, False, False),
+    "x2_residual": (516, 24, 16, 48, 24, True, True, False),
+    "transposed": (700, 21, 0, 48, 16, True, False, True),
+    "head_cout83": (300, 32, 0, 32, 83, False, False, False),
+    "no_ln_residual": (300, 16, 0, 32, 16, False, True, False),
+}
+
+
+def _mlp_inputs(spec, seed=0):
+    N, Cin, Cin2, H, Cout, ln, res, xt = spec
+    rng = np.random.default_rng(seed)
+    x = _n(rng, Cin, N) if xt else _n(rng, N, Cin)
+    return dict(
+        x=x,
+        w1b1=(_n(rng, Cin + Cin2, H, s=0.2), _n(rng, H, s=0.1)),
+        w2b2=(_n(rng, H, Cout, s=0.2), _n(rng, Cout, s=0.1)),
+        ln=(_n(rng, Cout), _n(rng, Cout)) if ln else None,
+        x2=_n(rng, N, Cin2) if Cin2 else None,
+        residual=_n(rng, N, Cout) if res else None,
+    ), xt
+
+
+@pytest.mark.parametrize("case", sorted(MLP_CASES))
+def test_plain_mlp_matches_jax(case):
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.fused_mlp import fused_mlp as j_fused
+    from skyrim_tpu.ops.fused_mlp import reference_mlp as j_ref
+
+    a, xt = _mlp_inputs(MLP_CASES[case])
+    order = ("x", "w1b1", "w2b2", "ln")
+    for dt, jdt, close in ((torch.float32, jnp.float32, _close_f32), (torch.bfloat16, jnp.bfloat16, _close_bf16)):
+        out = FM.reference_mlp(*(_t(a[k], dt) for k in order), x2=_t(a["x2"], dt),
+                               residual=_t(a["residual"], dt), x_transposed=xt)
+        assert out.dtype == dt
+        jx = _j(a["x"], jdt)
+        jkw = dict(x2=_j(a["x2"], jdt), residual=_j(a["residual"], jdt), x_transposed=xt)
+        jargs = (_j(a["w1b1"]), _j(a["w2b2"]), _j(a["ln"]))
+        close(out, j_fused(jx, *jargs, interpret=True, **jkw))
+        close(out, j_ref(jx, *jargs, **jkw))
+    # the CPU wrapper is the plain version
+    torch.testing.assert_close(FM.fused_mlp(*(_t(a[k]) for k in order), x2=_t(a["x2"]),
+                                            residual=_t(a["residual"]), x_transposed=xt),
+                               FM.reference_mlp(*(_t(a[k]) for k in order), x2=_t(a["x2"]),
+                                                residual=_t(a["residual"]), x_transposed=xt))
+
+
+# --- K7-K9 plain ---------------------------------------------------------------
+
+
+def _finish_params(rng, L):
+    return _n(rng, L, s=0.1), (_n(rng, L, L, s=0.2), _n(rng, L, s=0.1)), (_n(rng, L), _n(rng, L))
+
+
+def _round_inputs(B=4, M=64, SB=16, L=16, seed=23):
+    """As tests/ops/test_fused_mlp.py:142: sorted local ids with padding."""
+    rng = np.random.default_rng(seed)
+    local = np.sort(rng.integers(0, SB + 1, size=(B, M)), axis=-1).astype(np.int32)
+    assert (local == SB).any()  # padding rows are on the path
+    b0, wb, ln = _finish_params(rng, L)
+    return (_n(rng, B, M, L), _n(rng, B, M, L, s=0.3), _n(rng, B, SB, L, s=0.3), local,
+            _n(rng, L, L, s=0.2), b0, wb, ln, SB)
+
+
+def test_plain_round_matches_jax():
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.graph_kernels import fused_round_messages as j_fused
+    from skyrim_tpu.ops.graph_kernels import reference_round_messages as j_ref
+
+    a = _round_inputs()
+    for dt, jdt, close in ((torch.float32, jnp.float32, _close_f32), (torch.bfloat16, jnp.bfloat16, _close_bf16)):
+        ne, agg = GK.fused_round_messages(*_t(a[:3], dt), _t(a[3]), *_t(a[4:8]), a[8])
+        jin = (*_j(a[:3], jdt), _j(a[3]), *_j(a[4:8]))
+        for j_ne, j_agg in (j_fused(*jin, a[8], interpret=True), j_ref(*jin, a[8])):
+            close(ne, j_ne)
+            if dt == torch.float32:
+                _close_f32(agg, j_agg, agg=True)
+            else:
+                close(agg, j_agg)
+
+
+def _m2g_inputs(H=11, W=18, L=16, n_faces=7, th=4, tw=8, seed=1):
+    """As tests/ops/test_fused_mlp.py:367: tiles that do not divide the grid."""
+    rng = np.random.default_rng(seed)
+    face_hw = rng.integers(0, n_faces, size=(H, W)).astype(np.int32)
+    ft = G.build_face_tiles(face_hw, th=th, tw=tw)
+    assert H % th and W % tw
+    uniq = _n(rng, n_faces, 3 * L)[ft["tile_faces"]]
+    b0, wb, ln = _finish_params(rng, L)
+    return (uniq, ft["tile_local"], _n(rng, H, W, 3 * L, s=0.3), _n(rng, H, W, L, s=0.3), b0, wb, ln, 3,
+            ft["th"], ft["tw"])
+
+
+def test_plain_m2g_matches_jax():
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.graph_kernels import fused_m2g_tiled as j_fused
+    from skyrim_tpu.ops.graph_kernels import reference_m2g_tiled as j_ref
+
+    a = _m2g_inputs()
+    for dt, jdt, close in ((torch.float32, jnp.float32, _close_f32), (torch.bfloat16, jnp.bfloat16, _close_bf16)):
+        out = GK.fused_m2g_tiled(_t(a[0], dt), _t(a[1]), *_t(a[2:4], dt), *_t(a[4:7]), *a[7:])
+        assert out.shape == (11, 18, 16) and out.dtype == dt
+        jin = (_j(a[0], jdt), _j(a[1]), *_j(a[2:4], jdt), *_j(a[4:7]), *a[7:])
+        close(out, j_fused(*jin, interpret=True))
+        close(out, j_ref(*jin))
+
+
+def _g2m_inputs(H=12, W=20, L=16, seed=0):
+    src, dst, ef = _random_g2m_edges(H, W, seed=seed)
+    gt = G.build_g2m_tiles(src, dst, ef, H, W, 9)
+    rng = np.random.default_rng(seed + 1)
+    b0, wb, ln = _finish_params(rng, L)
+    assert (gt["local"] == gt["U"]).any()  # empty slots are on the path
+    return (_n(rng, H, W, L), _n(rng, H, W, gt["D"] * L, s=0.3), gt["local"], b0, wb, ln,
+            gt["D"], gt["U"], gt["th"], gt["tw"]), gt
+
+
+def test_plain_g2m_matches_jax():
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.graph_kernels import fused_g2m_tiled as j_fused
+    from skyrim_tpu.ops.graph_kernels import reference_g2m_tiled as j_ref
+
+    a, _ = _g2m_inputs()
+    for dt, jdt, close in ((torch.float32, jnp.float32, _close_f32), (torch.bfloat16, jnp.bfloat16, _close_bf16)):
+        out = GK.fused_g2m_tiled(*_t(a[:2], dt), _t(a[2]), *_t(a[3:6]), *a[6:])
+        jin = (*_j(a[:2], jdt), _j(a[2]), *_j(a[3:6]), *a[6:])
+        for ref in (j_fused(*jin, interpret=True), j_ref(*jin)):
+            if dt == torch.float32:
+                _close_f32(out, ref, agg=True)
+            else:
+                close(out, ref)
+
+
+# --- GPU: kernels against their plain versions --------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _close_card(out, ref):
+    out, ref = out.float(), ref.float()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    tol = 2e-2 * ref.std() + 2 * 2.0**-8 * ref.abs().max()
+    assert ((out - ref).abs() <= tol).all(), (float((out - ref).abs().max()), float(tol))
+
+
+GPU_MLP_CASES = {
+    # name: (N, Cin, Cin2, H, Cout, ln, residual, x_transposed)
+    "embed_grid_cin174_transposed": (1000, 174, 0, 64, 64, True, False, True),
+    "embed_mesh_cin3": (1000, 3, 0, 64, 64, True, False, False),
+    "edge_embed_cin4": (1000, 4, 0, 64, 64, True, False, False),
+    "mesh_x2_residual": (1000, 64, 64, 64, 64, True, True, False),
+    "head_cout83": (1000, 64, 0, 64, 83, False, False, False),
+    "no_ln_residual": (1000, 64, 0, 128, 64, False, True, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_MLP_CASES))
+def test_mlp_kernel_matches_plain(cuda, case):
+    a, xt = _mlp_inputs(GPU_MLP_CASES[case])
+    order = ("x", "w1b1", "w2b2", "ln")
+    args = [_t(a[k], torch.bfloat16 if k == "x" else torch.float32, cuda) for k in order]
+    kw = dict(x2=_t(a["x2"], torch.bfloat16, cuda), residual=_t(a["residual"], torch.bfloat16, cuda),
+              x_transposed=xt)
+    before = FM.fused_mlp.launches
+    out = FM.fused_mlp(*args, **kw)
+    torch.cuda.synchronize()
+    assert FM.fused_mlp.launches == before + 1
+    _close_card(out, FM.reference_mlp(*args, **kw))
+
+
+@pytest.mark.gpu
+def test_round_kernel_matches_plain_with_padding(cuda):
+    a = _round_inputs(B=6, M=256, SB=48, L=64)
+    bf = torch.bfloat16
+    args = (*_t(a[:3], bf, cuda), _t(a[3], device=cuda), *_t(a[4:8], device=cuda), a[8])
+    ne, agg = GK.fused_round_messages(*args)
+    torch.cuda.synchronize()
+    ne_r, agg_r = GK.reference_round_messages(*args)
+    _close_card(ne, ne_r)
+    _close_card(agg, agg_r)
+
+
+@pytest.mark.gpu
+def test_m2g_kernel_matches_plain_partial_tiles(cuda):
+    a = _m2g_inputs(H=37, W=70, L=64, n_faces=40, th=8, tw=16)
+    bf = torch.bfloat16
+    args = (_t(a[0], bf, cuda), _t(a[1], device=cuda), *_t(a[2:4], bf, cuda), *_t(a[4:7], device=cuda), *a[7:])
+    out = GK.fused_m2g_tiled(*args)
+    torch.cuda.synchronize()
+    _close_card(out, GK.reference_m2g_tiled(*args))
+
+
+@pytest.mark.gpu
+def test_g2m_kernel_matches_plain(cuda):
+    a, _ = _g2m_inputs(H=24, W=40, L=64)
+    bf = torch.bfloat16
+    args = (*_t(a[:2], bf, cuda), _t(a[2], device=cuda), *_t(a[3:6], device=cuda), *a[6:])
+    out = GK.fused_g2m_tiled(*args)
+    torch.cuda.synchronize()
+    _close_card(out, GK.reference_g2m_tiled(*args))
