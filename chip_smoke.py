@@ -18,7 +18,17 @@ Phases:
      node update, the Cout = 83 head, the mesh MLPs); K7 at the multimesh
      block plan, padding rows included; K8 and K9 on the real full-width
      tile tables (partial tiles in K8), and K9's outputs under two faults
-     (a dropped message, a misread slot bias), which its check must refuse;
+     (a dropped message, a misread slot bias), which its check must refuse.
+     The op layer: K5, K10 and K11 on one qkv at Pangu stage 1 and stage 2
+     (124 and 64 bias types at 0.5, shifted mask), the three outputs equal
+     after the relayout, K11 beside scaled_dot_product_attention (timed
+     only); K5 and K1 at FuXi's V1 trunk geometry (window (1, 6, 12), wlen
+     72, hd 64); K12 over the grid rows and the mesh edges; K13 over the grid
+     rows, deg 3; K14 on the full-width grid->mesh block plan (target_rows
+     8192, padding rows included) and its output with one row dropped per
+     block, which its check must refuse.  These ops are entry points of their
+     own: each row's launch count is read around one call of the public
+     wrapper, the count set to 0 just before;
   4. the main paths, each with every launch count set to 0 just before and
      read just after: GlobalModel("pangu", ic_source="synthetic") at
      721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward),
@@ -27,7 +37,11 @@ Phases:
      (21 K6, 16 K7, 1 K8, 1 K9 per forward; the cache build's launches are
      counted apart); for each, per-step CUDA-event times, peak memory, one
      profiled step, and rollout(save=True) for 2 steps into a temporary
-     directory and a reload of the files.  Weights are random, from a seed;
+     directory and a reload of the files.  Weights are random, from a seed.
+     Then the module path: the full-width net's stage-1 and stage-2
+     EarthAttention3D modules (one unshifted, one shifted block each),
+     forward(x, mask) against the plain composition, 4 K5 launches and no K1
+     (K5's stage rows report this count, 2 per stage);
   5. the small test configurations on the card (kernels) against the CPU
      (plain versions), 4 steps each.
 
@@ -189,7 +203,7 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(
             name=f"K1 fused_swin_block {stage} {tuple(x.shape)}", shape=tuple(x.shape),
-            route="cuda", source="skyrim_tpu_torch/csrc/fused_block.cu+gemm.cu",
+            route="cuda", source="skyrim_tpu_torch/csrc/fused_block.cu+attention.cuh+gemm.cu",
             replaces="skyrim_tpu/ops/fused_block.py:202", max_abs_err=err,
             ms=time_ms(torch, lambda: FB.fused_swin_block(*args, window, heads), 10),
             plain_ms=time_ms(torch, lambda: FB.reference_swin_block(*args, window, heads), 3),
@@ -398,22 +412,257 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     return rows, faults
 
 
+def op_row(torch, rows, name, source, replaces, wrapper, args, plain, flops, nbytes, *,
+           per_element=False, library=None, iters=5):
+    """One row of an op-layer kernel: the public wrapper against its plain
+    version on the same inputs, then one counted call (the op is its own
+    entry point), then the times.  Returns the wrapper's output."""
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    err = compare(torch, out, ref, name, per_element=per_element)
+    del ref
+    wrapper.launches = 0
+    again = wrapper(*args)
+    torch.cuda.synchronize()
+    launches = wrapper.launches
+    check(launches == 1, f"{name}: one call of the wrapper counted {launches} launches")
+    check(bool(torch.equal(again, out)), f"{name}: two runs on the same inputs differ")
+    del again
+    b_ms, b_by = bound(flops, nbytes)
+    rows.append(dict(
+        name=name, shape=None, route="cuda", source=source, replaces=replaces, launches=launches,
+        max_abs_err=err, ms=time_ms(torch, lambda: wrapper(*args), iters),
+        plain_ms=time_ms(torch, lambda: plain(*args), 2), bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(torch, library, iters) if library else None,
+    ))
+    return out
+
+
+def attention_op_checks(torch, g) -> list[dict]:
+    """Phase 3, the attention ops: K5, K10, K11 at Pangu's two stage shapes on
+    one qkv (bias at ATTN_BIAS_SCALE, shifted mask), then K5 and K1 at FuXi's
+    V1 trunk geometry.  Returns the rows; K5's stage rows carry the shape
+    under which the module path counts its launches."""
+    import torch.nn.functional as F
+
+    from skyrim_tpu_torch.ops import flash_window_attention as FA
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops.windows import shift_attention_mask, window_partition
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    src = "skyrim_tpu_torch/csrc/window_attention.cu+attention.cuh"
+    jax_src = "skyrim_tpu/ops/flash_window_attention.py"
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+
+    def attn_work(n_win, heads, wlen, hd, bias, mask):
+        C = heads * hd
+        return (4 * n_win * heads * wlen * wlen * hd,
+                2 * n_win * wlen * 4 * C + 4 * bias.numel() + (4 * mask.numel() if mask is not None else 0))
+
+    rows = []
+    window, wlen = (2, 6, 12), 144
+    for stage, (Z, H, Wd, C, heads, valid_h) in (("stage 1/4", (8, 186, 360, 192, 6, 181)),
+                                                 ("stage 2/3", (8, 96, 180, 384, 12, 91))):
+        nz, nh, nw = Z // 2, H // 6, Wd // 12
+        n_win, hd = nz * nh * nw, C // heads
+        mask = torch.from_numpy(shift_attention_mask((Z, H, Wd), window, (1, 3, 6), (Z, valid_h, Wd))).to(dev)
+        bias = randn(nz * nh, heads, wlen, wlen, scale=ATTN_BIAS_SCALE)
+        qkv = randn(Z, H, Wd, 3 * C, dtype=bf16)
+        flops, nbytes = attn_work(n_win, heads, wlen, hd, bias, mask)
+        out5 = op_row(torch, rows, f"K5 fused_window_attention_4d {stage} {tuple(qkv.shape)}", src, f"{jax_src}:226",
+                      FA.fused_window_attention_4d, (qkv, bias, mask, window, heads),
+                      FA.reference_window_attention_4d, flops, nbytes, iters=10)
+        rows[-1]["shape"] = (Z, H, Wd, C)  # the module path's launches at this width
+        parts = window_partition(qkv, window).contiguous()
+        del qkv
+        out10 = op_row(torch, rows, f"K10 fused_window_attention {stage} {tuple(parts.shape)}", src, f"{jax_src}:105",
+                       FA.fused_window_attention, (parts, bias, mask, nw, heads),
+                       FA.reference_window_attention_qkv, flops, nbytes, iters=10)
+        compare(torch, out10, window_partition(out5, window), f"K10 against K5 after the partition, {stage}", exact=True)
+        del out5
+        q, k, v = parts.view(n_win, wlen, 3, heads, hd).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+        del parts
+        # the yardstick: one library call on the same inputs, the additive
+        # bias + mask as a materialised bf16 attn_mask; timed, used nowhere
+        attn_mask = (bias[:, None] + mask.view(nz * nh, 1, 1, wlen, wlen)).to(bf16)
+        attn_mask = attn_mask.expand(nz * nh, nw, heads, wlen, wlen).reshape(n_win, heads, wlen, wlen)
+        out11 = op_row(torch, rows, f"K11 flash_window_attention {stage} {tuple(q.shape)}", src, f"{jax_src}:358",
+                       FA.flash_window_attention, (q, k, v, bias, mask, nw),
+                       FA.reference_window_attention, flops, nbytes, iters=10,
+                       library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
+        compare(torch, out11.transpose(1, 2).reshape(n_win, wlen, C), out10,
+                f"K11 against K10 after the head merge, {stage}", exact=True)
+        sdpa = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+        log(f"{stage}: max |scaled_dot_product_attention - K11| = {float((sdpa.float() - out11.float()).abs().max()):.4g}")
+        del q, k, v, out10, out11, sdpa, attn_mask, bias, mask
+        torch.cuda.empty_cache()
+
+    # FuXi's V1 trunk (and FengWu's fuser): window (1, 6, 12), wlen 72, hd 64,
+    # one bias table, the latitude padding 90 -> 96 and the shift in the mask
+    window, wlen, dims, C, heads = (1, 6, 12), 72, (1, 96, 180), 1536, 24
+    Z, H, Wd = dims
+    mask = torch.from_numpy(shift_attention_mask(dims, window, (0, 3, 6), (1, 90, 180))).to(dev)
+    check(tuple(mask.shape) == (1, 16, wlen, wlen), f"FuXi-geometry mask shape {tuple(mask.shape)}")
+    bias = randn(heads, wlen, wlen, scale=ATTN_BIAS_SCALE)
+    qkv = randn(Z, H, Wd, 3 * C, dtype=bf16)
+    flops, nbytes = attn_work(16 * 15, heads, wlen, C // heads, bias, mask)
+    op_row(torch, rows, f"K5 fused_window_attention_4d FuXi V1 trunk {tuple(qkv.shape)}", src, f"{jax_src}:226",
+           FA.fused_window_attention_4d, (qkv, bias, mask, window, heads),
+           FA.reference_window_attention_4d, flops, nbytes, iters=10)
+    del qkv
+    hidden, N = 4 * C, Z * H * Wd
+    args = (
+        randn(Z, H, Wd, C, dtype=bf16),
+        (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+        (randn(C, 3 * C, scale=C**-0.5), randn(3 * C, scale=0.1)),
+        randn(heads, wlen, wlen, scale=0.02), mask,
+        (randn(C, C, scale=C**-0.5), randn(C, scale=0.1)),
+        (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+        (randn(C, hidden, scale=C**-0.5), randn(hidden, scale=0.1),
+         randn(hidden, C, scale=hidden**-0.5), randn(C, scale=0.1)),
+        window, heads,
+    )
+    op_row(torch, rows, f"K1 fused_swin_block FuXi V1 trunk {(Z, H, Wd, C)}",
+           "skyrim_tpu_torch/csrc/fused_block.cu+attention.cuh+gemm.cu", "skyrim_tpu/ops/fused_block.py:202",
+           FB.fused_swin_block, args, FB.reference_swin_block,
+           2 * N * C * (4 * C + 2 * hidden) + 4 * 16 * 15 * heads * wlen * wlen * (C // heads),
+           2 * N * C * 2 + 2 * C * (4 * C + 2 * hidden) + 4 * args[3].numel() + 4 * mask.numel(), iters=10)
+    del args, mask, bias
+    torch.cuda.empty_cache()
+    return rows
+
+
+def message_op_checks(torch, g) -> tuple[list[dict], float]:
+    """Phase 3, the finish and untiled message ops at GraphCast's full width:
+    K12 over the grid rows and the mesh edges, K13 over the grid rows (deg 3),
+    K14 on the grid->mesh block plan.  Returns the rows and how far over its
+    limit K14's output lies with one row dropped per block."""
+    from skyrim_tpu_torch.models.graphcast import GraphCastConfig
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+    from skyrim_tpu_torch.ops import graph as G
+    from skyrim_tpu_torch.ops import graph_kernels as GK
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    cfg = GraphCastConfig()
+    L, N = cfg.latent, cfg.lat * cfg.lon
+    graphs = G.build_graphs(cfg.lat, cfg.lon, cfg.mesh_refinements)  # cached by the tables' build
+    src = "skyrim_tpu_torch/csrc/graph_finish.cu+fused_mlp.cu"
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+
+    def finish_params(cout=L):
+        return (randn(L, scale=0.1), (randn(L, cout, scale=L**-0.5), randn(cout, scale=0.1)),
+                (1 + randn(cout, scale=0.1), randn(cout, scale=0.1)))
+
+    rows = []
+    for what, n in (("grid rows", N), ("mesh edges", len(graphs["mesh_dst"]))):
+        args = (randn(n, L, dtype=bf16), *finish_params())
+        op_row(torch, rows, f"K12 fused_finish {what} ({n}, {L})->{L}", src, "skyrim_tpu/ops/fused_mlp.py:247",
+               FM.fused_finish, args, lambda x, b0, wb, ln: FM.reference_finish(x, b0, wb, ln, bf16),
+               2 * n * L * L, 2 * n * 2 * L + 2 * L * L)
+        del args
+        torch.cuda.empty_cache()
+
+    deg = 3
+    args = (randn(N, deg * L, scale=0.3, dtype=bf16), randn(N, deg * L, scale=0.3, dtype=bf16),
+            randn(N, L, scale=0.3, dtype=bf16), *finish_params(), deg)
+    op_row(torch, rows, f"K13 fused_fixed_degree_messages ({N}, {deg}x{L}) -> ({N}, {L})", src,
+           "skyrim_tpu/ops/graph_kernels.py:112", GK.fused_fixed_degree_messages, args,
+           GK.reference_fixed_degree_messages, 2 * N * deg * L * L, 2 * N * (2 * deg * L + 2 * L) + 2 * L * L, iters=3)
+    del args
+    torch.cuda.empty_cache()
+
+    plan = G.build_block_plan(graphs["g2m_dst"], graphs["n_mesh"], target_rows=8192)
+    B, M = plan["local"].shape
+    SB, E = plan["SB"], plan["E"]
+    local = torch.from_numpy(plan["local"]).to(dev)
+    check(bool((local == SB).any()), "the grid->mesh block plan has no padding rows")
+    check(int((local < SB).sum()) == E, "the block plan's real rows are not the grid->mesh edges")
+    args = (randn(B, M, L, dtype=bf16), randn(B, M, L, scale=0.3, dtype=bf16), local, *finish_params(), SB)
+    op_row(torch, rows, f"K14 fused_block_messages ({B}, {M}, {L}) SB {SB}", src, "skyrim_tpu/ops/graph_kernels.py:223",
+           GK.fused_block_messages, args, GK.reference_block_messages,
+           # the work this data needs: the products and the source and bias
+           # rows of the real edges, not of the padding rows; every output written
+           2 * E * L * L, 2 * (2 * E * L + B * SB * L) + 4 * B * M + 2 * L * L, per_element=True, iters=3)
+    # the check's power at this shape: with the first real row of every block
+    # dropped from the aggregation, the kernel's output must fail it
+    dropped = local.clone()
+    check(bool((dropped < SB).any(1).all()), "a block of the plan has no real row")
+    dropped[torch.arange(B, device=dev), (dropped < SB).float().argmax(1)] = SB
+    ref = GK.reference_block_messages(*args)
+    fault = over_limit(torch, GK.fused_block_messages(*args[:2], dropped, *args[3:]), ref, True)
+    log(f"K14 fault, one row dropped in each of {B} blocks: max err/limit {fault:.4g}")
+    check(fault > 1, "K14's check passed an output with a row dropped per block")
+    del args, ref, dropped, local
+    torch.cuda.empty_cache()
+    return rows, fault
+
+
+def module_path(torch, net, g) -> dict:
+    """The slice's own path: EarthAttention3D.forward of a full-width net's
+    stage-1 and stage-2 modules (an unshifted and a shifted block each) against
+    the plain composition, with K5's launches counted and no K1 launch."""
+    from skyrim_tpu_torch.models.pangu import _mask_tensor
+    from skyrim_tpu_torch.ops import flash_window_attention as FA
+
+    dev = torch.device("cuda")
+    cfg = net.cfg
+    window = tuple(cfg.window)
+    by_shape, errs = {}, {}
+    reset_counts()
+    for s, valid_h in ((0, 181), (1, 91)):
+        C = cfg.embed_dim * (1 if s == 0 else 2)
+        dims = (8, -(-valid_h // window[1]) * window[1], 360 // (1 if s == 0 else 2))
+        x = (torch.randn(*dims, C, device=dev, generator=g)).to(torch.bfloat16)
+        before = FA.fused_window_attention_4d.launches
+        for name in net.stages[s][:2]:
+            blk = getattr(net, name)
+            attn = blk.EarthAttention3D_0
+            shift = tuple(w // 2 for w in window) if blk.shifted else (0, 0, 0)
+            mask = _mask_tensor(dims, window, shift, (8, valid_h, dims[2]), dev)
+            out = attn(x, mask)
+            torch.cuda.synchronize()
+            qkv = x @ attn.qkv.kernel.to(x.dtype) + attn.qkv.bias.to(x.dtype)
+            ref = FA.reference_window_attention_4d(qkv, attn.expanded_bias(), mask, window, attn.heads)
+            ref = ref @ attn.proj.kernel.to(x.dtype) + attn.proj.bias.to(x.dtype)
+            errs[f"{name}{' shifted' if blk.shifted else ''}"] = compare(torch, out, ref, f"EarthAttention3D.forward {name}")
+            del out, qkv, ref
+        by_shape[(*dims, C)] = FA.fused_window_attention_4d.launches - before
+    counts, _ = read_counts()
+    log(f"module path: EarthAttention3D.forward max_abs_err {errs}, launches {counts}")
+    check(counts["K5"] == 4, f"the module path launched K5 {counts['K5']} times, expected 4")
+    check(all(v == 0 for k, v in counts.items() if k != "K5"), f"the module path launched other kernels: {counts}")
+    torch.cuda.empty_cache()
+    return dict(by_shape=by_shape, max_abs_err=errs)
+
+
 def counters():
+    from skyrim_tpu_torch.ops import flash_window_attention as FA
     from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops import graph_kernels as GK
     from skyrim_tpu_torch.ops import resample as RS
     from skyrim_tpu_torch.ops import roll as RL
-    from skyrim_tpu_torch.ops.fused_mlp import fused_mlp
+    from skyrim_tpu_torch.ops.fused_mlp import fused_finish, fused_mlp
     from skyrim_tpu_torch.ops.gemm import gemm
 
     return {"K1": FB.fused_swin_block, "K2": RL.roll3d, "K3": RS.fused_downsample,
-            "K4": RS.fused_upsample, "gemm": gemm, "K6": fused_mlp, "K7": GK.fused_round_messages,
-            "K8": GK.fused_m2g_tiled, "K9": GK.fused_g2m_tiled}
+            "K4": RS.fused_upsample, "K5": FA.fused_window_attention_4d, "gemm": gemm, "K6": fused_mlp,
+            "K7": GK.fused_round_messages, "K8": GK.fused_m2g_tiled, "K9": GK.fused_g2m_tiled,
+            "K10": FA.fused_window_attention, "K11": FA.flash_window_attention, "K12": fused_finish,
+            "K13": GK.fused_fixed_degree_messages, "K14": GK.fused_block_messages}
 
 
 BY_SHAPE = ("K1", "K2", "K6", "K7")  # kernels that run at several shapes on a path
 MODEL_OF = {"K1": "pangu", "K2": "pangu", "K3": "pangu", "K4": "pangu",
-            "K6": "graphcast", "K7": "graphcast", "K8": "graphcast", "K9": "graphcast"}
+            "K6": "graphcast", "K7": "graphcast", "K8": "graphcast", "K9": "graphcast",
+            # entry points of the op layer and of one module: no forecast launches them
+            "K5": "ops", "K10": "ops", "K11": "ops", "K12": "ops", "K13": "ops", "K14": "ops"}
 
 
 def reset_counts() -> None:
@@ -456,7 +705,7 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     return counts, by_shape
 
 
-def main_path(torch, model_name: str) -> dict:
+def main_path(torch, model_name: str, g) -> dict:
     """Phase 4: a full-width forecast through GlobalModel, with the launch
     counts of the forecast, then per-step times, a profile and a saved
     rollout."""
@@ -525,10 +774,11 @@ def main_path(torch, model_name: str) -> dict:
             check(diff <= 1e-3 * float(np.abs(fc.data[i + 1]).max()), f"saved step {i + 1} differs from forecast by {diff}")
         np.testing.assert_array_equal(load_forecast(paths[-1]).data, last.data)
         log(f"{model_name}: rollout saved {[Path(p).name for p in paths]} and reloaded them")
+    modules = module_path(torch, params["net6"], g) if model_name == "pangu" else None
     del gm, model, params, state, fc
     torch.cuda.empty_cache()
     return dict(counts=counts, by_shape=by_shape, setup_launches=setup_counts, setup_s=setup_s,
-                forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile)
+                forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile, modules=modules)
 
 
 def profile_step(torch, model, params, state) -> dict:
@@ -636,18 +886,22 @@ def main() -> int:
         rows, attn_err = kernel_checks(torch, g)
         log(f"K1 window attention alone, earth bias at {ATTN_BIAS_SCALE}: max_abs_err {attn_err}")
         gc_rows, k9_faults = graphcast_kernel_checks(torch, g)
-        rows += gc_rows
+        msg_rows, k14_fault = message_op_checks(torch, g)
+        rows += gc_rows + attention_op_checks(torch, g) + msg_rows
         for r in rows:
             log(f"kernel {r['name']}: ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
                 f"bound {r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err {r['max_abs_err']:.4g}")
 
         # 4. the main paths
-        mp = {name: main_path(torch, name) for name in ("pangu", "graphcast")}
+        mp = {name: main_path(torch, name, g) for name in ("pangu", "graphcast")}
         for r in rows:
             key, shape = r["name"].split()[0], r.pop("shape")
-            run = mp[MODEL_OF[key]]
-            r["launches"] = run["by_shape"][key].get(shape, 0) if key in BY_SHAPE else run["counts"][key]
-            check(r["launches"] > 0, f"{r['name']} was not launched on the main path")
+            if "launches" not in r:  # a forecast's kernel: its launches on that forecast
+                run = mp[MODEL_OF[key]]
+                r["launches"] = run["by_shape"][key].get(shape, 0) if key in BY_SHAPE else run["counts"][key]
+            elif shape is not None:  # K5 at a Pangu stage: its launches on the module path
+                r["launches"] = mp["pangu"]["modules"]["by_shape"].get(shape, 0)
+            check(r["launches"] > 0, f"{r['name']} was not launched on its path")
 
         # 5. small configurations, card vs CPU
         small = {name: small_config(torch, name) for name in ("pangu", "graphcast")}
@@ -666,6 +920,8 @@ def main() -> int:
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
         "k9_fault_err_over_limit": k9_faults,
+        "k14_fault_err_over_limit": k14_fault,
+        "module_path_max_abs_err": mp["pangu"]["modules"]["max_abs_err"],
         "build_s": build_s,
     }), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)

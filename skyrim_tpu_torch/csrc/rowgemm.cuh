@@ -1,6 +1,6 @@
 // Row-GEMM building blocks: the tiled GEMM of every port kernel that
-// multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6-K9), and the
-// row kernels GraphCast's four share.
+// multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6-K9; K12-K14
+// in graph_finish.cu), and the row kernels the GraphCast kernels share.
 //
 // The four GraphCast TPU kernels (skyrim_tpu/ops/fused_mlp.py fused_mlp and
 // ops/graph_kernels.py fused_round_messages / fused_m2g_tiled /
@@ -16,7 +16,7 @@
 //                   unaligned rows, or a computed prologue such as a gather +
 //                   swish) and whose f32 results go to an epilogue functor.
 //   ln_rows_kernel  one warp per output row: out = bf16([res +] sum_k
-//                   bf16(LN(y[row * nsum + k]))), sum in f32, nsum 1 or 3,
+//                   bf16(LN(y[row * nsum + k]))), sum in f32, nsum 1 to 4,
 //                   through common.cuh's layernorm_rows_warp; also Pangu's
 //                   LayerNorm (fused_block.cu, nsum 1).
 //   segsum_kernel   out[g, s, :] = sum of the rows r of group g with
@@ -284,12 +284,12 @@ inline int launch_ln_rows(const void* y, const void* scale, const void* bias, co
   const bf16 *yb = static_cast<const bf16*>(y), *rb = static_cast<const bf16*>(res);
   const float *sf = static_cast<const float*>(scale), *bf = static_cast<const float*>(bias);
   bf16* ob = static_cast<bf16*>(out);
-  if (nsum == 1) {  // every LayerNorm but K8's
-    ln_rows_kernel<1><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps);
-  } else if (nsum == 3) {  // K8's three slots
-    ln_rows_kernel<3><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  switch (nsum) {  // 1: every LayerNorm but K8's and K13's; 3: their triangle slots
+    case 1: ln_rows_kernel<1><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
+    case 2: ln_rows_kernel<2><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
+    case 3: ln_rows_kernel<3><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
+    case 4: ln_rows_kernel<4><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

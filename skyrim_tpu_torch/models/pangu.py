@@ -14,7 +14,8 @@ Module and parameter names follow the flax tree of the JAX package
 ``PanguBlock_3/EarthAttention3D_0/qkv/kernel``), Dense kernels are
 (in, out), so one checkpoint serves both packages (params.py).  Every
 block runs through K1 (ops/fused_block.py) between two K2 rolls
-(ops/roll.py) when shifted; DownSample/UpSample run K3/K4
+(ops/roll.py) when shifted; ``EarthAttention3D.forward``, which no block
+calls, runs attention alone through K5 (ops/flash_window_attention.py); DownSample/UpSample run K3/K4
 (ops/resample.py).  The patch embed/recover products stay
 ``torch.matmul``.
 """
@@ -40,6 +41,7 @@ from skyrim_tpu_torch.models.base import (
     normalize,
 )
 from skyrim_tpu_torch.ops import windows as W
+from skyrim_tpu_torch.ops.flash_window_attention import fused_window_attention_4d
 from skyrim_tpu_torch.ops.fused_block import fused_swin_block
 from skyrim_tpu_torch.ops.resample import fused_downsample, fused_upsample
 from skyrim_tpu_torch.ops.roll import shift_roll
@@ -109,12 +111,17 @@ class ConvParams(nn.Module):
 
 
 class EarthAttention3D(nn.Module):
-    """Window attention parameters with the earth-specific bias: one table
-    per (z, lat) window position (windows differing only in lon share it),
-    laid out (n_types, heads, table) so expansion is a last-axis gather."""
+    """Window attention with the earth-specific bias: one table per (z, lat)
+    window position (windows differing only in lon share it), laid out
+    (n_types, heads, table) so expansion is a last-axis gather.
+
+    ``PanguBlock`` hands these parameters to K1; ``forward`` is the module's
+    own path, attention alone through K5."""
 
     def __init__(self, dim: int, heads: int, window, n_type_windows: int):
         super().__init__()
+        self.heads = heads
+        self.window = tuple(window)
         self.earth_bias = nn.Parameter(
             torch.empty(n_type_windows, heads, W.earth_bias_table_size(window))
         )
@@ -125,6 +132,15 @@ class EarthAttention3D(nn.Module):
 
     def expanded_bias(self) -> torch.Tensor:
         return self.earth_bias[:, :, self.bias_index]  # (n_types, heads, wlen, wlen)
+
+    def forward(self, x, mask):
+        """x (Z, H, W, C) padded to window multiples, ``mask`` the shift mask
+        or None → (Z, H, W, C): qkv Dense → K5 → proj Dense.  The two Dense
+        products are plain matmuls, as in the JAX module."""
+        dt = x.dtype
+        qkv = x @ self.qkv.kernel.to(dt) + self.qkv.bias.to(dt)
+        out = fused_window_attention_4d(qkv, self.expanded_bias(), mask, self.window, self.heads)
+        return out.to(dt) @ self.proj.kernel.to(dt) + self.proj.bias.to(dt)
 
 
 _MASKS: dict = {}

@@ -24,12 +24,17 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "skyrim_tpu_torch"
-LIBS = ("gemm", "fused_block", "roll", "resample", "fused_mlp", "graph_round", "graph_m2g", "graph_g2m")
+LIBS = (
+    "gemm", "fused_block", "window_attention", "roll", "resample",
+    "fused_mlp", "graph_finish", "graph_round", "graph_m2g", "graph_g2m",
+)  # fmt: skip
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
     "-shared", "-Xcompiler", "-fPIC",
 )  # fmt: skip
+
+MAX_SMEM = 232448  # dynamic shared memory a Hopper block can ask for (227 KB)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

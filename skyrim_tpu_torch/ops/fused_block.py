@@ -15,8 +15,8 @@ Design: the TPU kernel keeps a whole window tile in VMEM; a Hopper
 thread block has 227 KB of shared memory, less than the packed qkv of
 one 144-token window at C = 384 with its scores, so the block runs as
 seven launches of hand-written kernels: LN1 (csrc/fused_block.cu) →
-qkv GEMM+bias (csrc/gemm.cu) → window attention (csrc/fused_block.cu)
-→ proj GEMM+bias+residual → LN2 → fc1 GEMM+bias+GELU → fc2
+qkv GEMM+bias (csrc/gemm.cu) → window attention (csrc/attention.cuh,
+the kernel of K5, any wlen and hd that fit shared memory) → proj GEMM+bias+residual → LN2 → fc1 GEMM+bias+GELU → fc2
 GEMM+bias+residual.  LN and the GEMMs are per token and run on the flat
 (Z·H·W, C) view; the attention kernel reads q/k/v straight out of
 (Z, H, W, 3C) by index math, so no window relayout touches memory.  The
@@ -37,7 +37,11 @@ import torch
 import torch.nn.functional as F
 
 from skyrim_tpu_torch.ops import _build
-from skyrim_tpu_torch.ops import windows as W
+from skyrim_tpu_torch.ops.flash_window_attention import (
+    attention_4d,
+    reference_window_attention_4d,
+    reference_window_attention_qkv,  # noqa: F401  (the attention-alone checks of K1 reach it here)
+)
 from skyrim_tpu_torch.ops.gemm import gemm
 
 _EPS = 1e-6
@@ -53,43 +57,12 @@ def _layernorm_f32(t, scale, bias):
     return h * scale.float() + bias.float()
 
 
-def reference_window_attention(q, k, v, bias, mask, n_lon_windows):
-    """(nWin, heads, wlen, hd) q/k/v → softmax(q kᵀ·scale + bias + mask) v."""
-    n_win, heads, wlen, hd = q.shape
-    s = torch.einsum("whqd,whkd->whqk", q.float(), k.float()) * (hd**-0.5)
-    if bias.ndim == 3:
-        bias = bias[None]
-    nt = bias.shape[0]
-    s = s.reshape(nt, n_win // nt, heads, wlen, wlen) + bias[:, None].float()
-    s = s.reshape(n_win, heads, wlen, wlen)
-    if mask is not None:
-        nz, nh = mask.shape[:2]
-        s = s.reshape(nz, nh, n_lon_windows, heads, wlen, wlen) + mask[:, :, None, None]
-        s = s.reshape(n_win, heads, wlen, wlen)
-    s = torch.softmax(s, dim=-1)
-    return torch.einsum("whqk,whkd->whqd", s, v.float()).to(q.dtype)
-
-
-def reference_window_attention_qkv(qkv, bias, mask, n_lon_windows, heads):
-    """Packed (nWin, wlen, 3C) qkv → (nWin, wlen, C)."""
-    n_win, wlen, c3 = qkv.shape
-    C = c3 // 3
-    parts = qkv.reshape(n_win, wlen, 3, heads, C // heads)
-    q, k, v = (parts[:, :, i].transpose(1, 2) for i in range(3))
-    out = reference_window_attention(q, k, v, bias, mask, n_lon_windows)
-    return out.transpose(1, 2).reshape(n_win, wlen, C)
-
-
 def reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads):
     """Plain PyTorch version of K1 (JAX ``reference_swin_block``)."""
     dt = x.dtype
-    Z, H, Wd, C = x.shape
     h = _layernorm_f32(x, *ln1).to(dt)
     qkv = h @ qkv_wb[0].to(dt) + qkv_wb[1].to(dt)
-    o = reference_window_attention_qkv(
-        W.window_partition(qkv, window), bias, mask, Wd // window[2], heads
-    )
-    o = W.window_reverse(o, window, (Z, H, Wd)).to(dt)
+    o = reference_window_attention_4d(qkv, bias, mask, window, heads).to(dt)
     x1 = x + (o @ proj_wb[0].to(dt) + proj_wb[1].to(dt))
     h2 = _layernorm_f32(x1, *ln2).to(dt)
     m = F.gelu(h2 @ mlp_wb[0].to(dt) + mlp_wb[1].to(dt), approximate="tanh")
@@ -100,7 +73,7 @@ def _lib():
     lib = _build.load("fused_block")
     lib.skt_layernorm_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _F, _P]
     lib.skt_layernorm_bf16.restype = _I
-    lib.skt_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 9 + [_F, _P]
+    lib.skt_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 10 + [_F, _P]
     lib.skt_window_attention_bf16.restype = _I
     return lib
 
@@ -129,37 +102,14 @@ def layernorm(x2d, scale, bias):
 
 
 def window_attention(qkv, bias, mask, window, heads):
-    """Windowed MHA of a contiguous bf16 (Z, H, W, 3C) CUDA tensor → (Z, H, W, C).
+    """K1's windowed MHA of a contiguous bf16 (Z, H, W, 3C) CUDA tensor →
+    (Z, H, W, C): the kernel of ``ops/flash_window_attention.py``'s K5, built
+    into this block's library.
 
-    ``bias`` (n_types, heads, wlen, wlen) f32 with n_types 1 or nz·nh;
-    ``mask`` (nz, nh, wlen, wlen) f32 or None."""
-    Z, H, Wd, C3 = qkv.shape
-    C = C3 // 3
-    wz, wh, ww = window
-    wlen = wz * wh * ww
-    nz, nh = Z // wz, H // wh
-    hd = C // heads
-    if Z % wz or H % wh or Wd % ww or C % heads:
-        raise ValueError(f"window attention: {tuple(qkv.shape)} does not tile by {window}/{heads} heads")
-    if wlen % 16 or wlen > 256 or hd % 8 or hd > 64:
-        raise ValueError(f"window attention takes wlen % 16 == 0, wlen <= 256, hd % 8 == 0, hd <= 64; got wlen={wlen} hd={hd}")
-    if bias.ndim == 3:
-        bias = bias[None]
-    if bias.shape[1:] != (heads, wlen, wlen) or bias.shape[0] not in (1, nz * nh):
-        raise ValueError(f"earth bias shape {tuple(bias.shape)}")
-    if mask is not None and tuple(mask.shape) != (nz, nh, wlen, wlen):
-        raise ValueError(f"mask shape {tuple(mask.shape)} != {(nz, nh, wlen, wlen)}")
+    ``bias`` (n_types, heads, wlen, wlen) with n_types 1 or nz·nh, or 3-D;
+    ``mask`` (nz, nh, wlen, wlen) or None."""
     lib = _lib()
-    bias = _f32(bias)
-    mask = _f32(mask) if mask is not None else None
-    out = torch.empty((Z, H, Wd, C), dtype=torch.bfloat16, device=qkv.device)
-    err = lib.skt_window_attention_bf16(
-        qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-        out.data_ptr(), Z, H, Wd, C, heads, wz, wh, ww, bias.shape[0], hd**-0.5,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    _build.check(lib, err, "window_attention")
-    return out
+    return attention_4d(qkv, bias, mask, window, heads, lib, lib.skt_window_attention_bf16, "window_attention")
 
 
 def fused_swin_block(

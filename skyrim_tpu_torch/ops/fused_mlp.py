@@ -1,4 +1,5 @@
-"""Row MLP (K6) and the row kernels that K7-K9 share.
+"""Row MLP (K6), the finish alone (K12) and the row kernels that K7-K9 and
+K13-K14 share.
 
 K6 replaces ``skyrim_tpu/ops/fused_mlp.py`` ``fused_mlp`` (Pallas body
 ``_mlp_kernel``): ``[residual +] LN?(Dense₂(swish(Dense₁(x ‖ x2))))`` over
@@ -15,15 +16,25 @@ rows kernel, which adds the residual.  Rows that are not 16-byte aligned
 GEMM.  Bound on this card: operations (1.09 TFLOP for a 512→512→512 MLP
 over the 1,038,240 grid rows, 1.10 ms at 989 TFLOP/s bf16).
 
-``reference_finish`` is the shared plain version of the per-edge message
-math of K7-K9 (JAX ``_finish_f32``/``reference_finish``): swish(h + b0)
-in f32 → compute dtype → Dense → + b → compute dtype → LayerNorm (f32
-statistics, fast variance, eps 1e-6) → compute dtype.
+K12 ``fused_finish`` replaces ``fused_finish`` of the same JAX module
+(Pallas body ``_finish_kernel``): ``LN(Dense(swish(x + b0)))`` over rows,
+the second half of a factored edge MLP.  Kernels (csrc/graph_finish.cu):
+the row GEMM with the f32 swish prologue computed in its A loader and the
+bias epilogue, then the LayerNorm rows kernel.  Cout may differ from L;
+both are multiples of 8, N is any.  Bound on this card: bytes (2.13 GB in
+and out over the 1,038,240 grid rows at L 512, 0.63 ms at 3.35 TB/s,
+against 0.54 TFLOP).
 
-On a CPU tensor ``fused_mlp`` runs ``reference_mlp``; on a CUDA tensor it
-launches the kernels or raises.  ``fused_mlp.launches`` counts wrapper
-calls that launched, ``launches_by_shape`` the same by (N, Cin, Cin2,
-Cout).
+``reference_finish`` is its plain version and the shared plain version of
+the per-edge message math of K7-K9, K13 and K14 (JAX
+``_finish_f32``/``reference_finish``): swish(h + b0) in f32 → compute
+dtype → Dense → + b → compute dtype → LayerNorm (f32 statistics, fast
+variance, eps 1e-6) → compute dtype.
+
+On a CPU tensor ``fused_mlp`` runs ``reference_mlp`` and ``fused_finish``
+``reference_finish``; on a CUDA tensor they launch the kernels or raise.
+``<wrapper>.launches`` counts wrapper calls that launched,
+``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout).
 """
 
 from __future__ import annotations
@@ -79,6 +90,14 @@ def _lib():
     return lib
 
 
+def _finish_lib():
+    lib = _build.load("graph_finish")
+    lib.skt_finish_gemm.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+    lib.skt_fixed_degree_gemm.argtypes = [_P] * 7 + [_I] * 3 + [_P]
+    lib.skt_finish_gemm.restype = lib.skt_fixed_degree_gemm.restype = _I
+    return lib
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -94,6 +113,13 @@ def require(t: torch.Tensor, shape, name: str, dtype=torch.bfloat16) -> None:
             f"{name}: expected a contiguous {dtype} CUDA tensor {tuple(shape)}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} (contiguous={t.is_contiguous()})"
         )
+
+
+def require_rows16(name: str, *ts) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (its rows of
+    L % 8 == 0 bf16 values then load 16 bytes at a time)."""
+    if not _aligned(*ts):
+        raise ValueError(f"{name}: inputs must start on a 16-byte boundary")
 
 
 def mlp_gemm(a, w, b, *, a2=None, swish=False, residual=None, transposed=False):
@@ -128,9 +154,9 @@ def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
     """``bf16([residual +] Σ_{k<nsum} bf16(LN(y[r·nsum + k])))`` per output row r.
     ``out`` may be ``y`` itself when nsum == 1."""
     R, C = y.shape[0] // nsum, y.shape[1]
-    if C % 8 or nsum not in (1, 3) or y.shape[0] % nsum:
+    if C % 8 or nsum not in (1, 2, 3, 4) or y.shape[0] % nsum:
         raise ValueError(
-            f"ln_rows takes C % 8 == 0, nsum 1 or 3 and rows divisible by nsum, got {tuple(y.shape)}, nsum {nsum}"
+            f"ln_rows takes C % 8 == 0, nsum 1 to 4 and rows divisible by nsum, got {tuple(y.shape)}, nsum {nsum}"
         )
     require(y, y.shape, "ln_rows y")
     if residual is not None:
@@ -149,9 +175,13 @@ def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
 
 def segment_sum(x, local, S):
     """(G·R, C) rows and (G, R) int32 ids → (G, S, C): per group, the f32 sum
-    of the rows with each id in [0, S), in row order, as bf16."""
+    of the rows with each id in [0, S), in row order, as bf16.  A block keeps
+    its group's S x 128 f32 sums and R ids in shared memory: S·512 + R·4
+    bytes must fit a block's 227 KB."""
     G, R = local.shape
     C = x.shape[1]
+    if S * 512 + R * 4 > _build.MAX_SMEM:
+        raise ValueError(f"segment_sum: S {S}, R {R} need {S * 512 + R * 4} bytes of shared memory, over {_build.MAX_SMEM}")
     require(x, (G * R, C), "segment_sum x")
     require(local, (G, R), "segment_sum local", torch.int32)
     out = torch.empty((G, S, C), dtype=torch.bfloat16, device=x.device)
@@ -159,6 +189,44 @@ def segment_sum(x, local, S):
     err = lib.skt_segment_sum(x.data_ptr(), local.data_ptr(), out.data_ptr(), G, R, S, C, _stream(x))
     _build.check(lib, err, "segment_sum")
     return out
+
+
+def finish_gemm(x, add, b0, wb):
+    """One launch of the row GEMM with the finish prologue:
+    ``bf16(bf16(swish(x [+ add] + b0)) @ W + b)`` for (M, L) rows → (M, Cout)."""
+    M, L = x.shape
+    Cout = wb[0].shape[1]
+    if L % 8 or tuple(wb[0].shape) != (L, Cout):
+        raise ValueError(f"finish takes L % 8 == 0 and a ({L}, Cout) kernel, got L {L}, kernel {tuple(wb[0].shape)}")
+    require(x, (M, L), "finish x")
+    if add is not None:
+        require(add, (M, L), "finish bias rows")
+    require_rows16("finish", x, add)
+    b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
+    y = torch.empty((M, Cout), dtype=torch.bfloat16, device=x.device)
+    lib = _finish_lib()
+    err = lib.skt_finish_gemm(
+        x.data_ptr(), add.data_ptr() if add is not None else None, b0.data_ptr(), w.data_ptr(),
+        b.data_ptr(), y.data_ptr(), M, L, Cout, _stream(x),
+    )
+    _build.check(lib, err, "finish_gemm")
+    return y
+
+
+def fused_finish(x, b0, wb, ln):
+    """``LN(Dense(swish(x + b0)))`` over rows (K12).  x: (N, L); b0: (L,); wb:
+    ((L, Cout), (Cout,)); ln: (scale, bias) over Cout.  Returns (N, Cout)."""
+    if x.device.type == "cpu":
+        return reference_finish(x, b0, wb, ln, x.dtype)
+    if x.ndim != 2 or wb[0].shape[1] % 8:
+        raise ValueError(f"fused_finish takes (N, L) rows and Cout % 8 == 0, got {tuple(x.shape)} -> {wb[0].shape[1]}")
+    y = finish_gemm(x, None, b0, wb)
+    out = ln_rows(y, ln, out=y)
+    fused_finish.launches += 1
+    return out
+
+
+fused_finish.launches = 0
 
 
 def fused_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False):

@@ -1,4 +1,5 @@
-"""GraphCast's message-passing kernels K7-K9.
+"""GraphCast's message-passing kernels K7-K9 and their untiled
+predecessors K13-K14.
 
 - K7 ``fused_round_messages`` replaces ``skyrim_tpu/ops/graph_kernels.py``
   ``fused_round_messages`` (body ``_round_kernel``): one multimesh
@@ -14,10 +15,21 @@
   tiles, returning (TH, TW, U, L) tile partials.
   csrc/graph_g2m.cu + csrc/fused_mlp.cu.
 
+- K13 ``fused_fixed_degree_messages`` replaces ``fused_fixed_degree_messages``
+  (body ``_m2g_kernel``): K8 on flat wide rows, without the tile lookup; any
+  ``deg`` from 1 to 4.  csrc/graph_finish.cu + csrc/fused_mlp.cu.
+- K14 ``fused_block_messages`` replaces ``fused_block_messages`` (body
+  ``_g2m_kernel``): grid→mesh messages over block-plan rows, finish(src +
+  bias) then the sum of each block's rows into its SB segments; ``local``
+  need not be sorted, ``local == SB`` marks padding.  A block's SB·512 + M·4
+  bytes of sums and ids must fit 227 KB of shared memory (the full-width
+  plan, M 8192 and SB 328, takes 200,704).  csrc/graph_finish.cu +
+  csrc/fused_mlp.cu.
+
 The TPU kernels expand and aggregate with one-hot matmuls on the MXU;
 here an expansion is an indexed load and an aggregation a segmented sum
-in f32 (csrc/rowgemm.cuh).  Each slot sum (K8, K9) is taken in f32 and
-rounded once.  Bounds and designs are in the CUDA sources' headers.
+in f32 (csrc/rowgemm.cuh).  Each slot sum (K8, K9, K13) is taken in f32
+and rounded once.  Bounds and designs are in the CUDA sources' headers.
 
 Each wrapper takes its plain PyTorch version (``reference_*``) on a CPU
 tensor and launches the kernels or raises on a CUDA tensor; ``launches``
@@ -33,11 +45,14 @@ import torch
 from skyrim_tpu_torch.ops import _build
 from skyrim_tpu_torch.ops.fused_block import _bf16, _f32
 from skyrim_tpu_torch.ops.fused_mlp import (
+    _finish_lib,
     _stream,
+    finish_gemm,
     ln_rows,
     mlp_gemm,
     reference_finish,
     require,
+    require_rows16,
     segment_sum,
 )
 from skyrim_tpu_torch.ops.graph import block_onehot
@@ -72,6 +87,18 @@ def reference_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
         m = reference_finish(h, b0, wb, ln, wide.dtype).float()
         agg = m if agg is None else agg + m
     return agg.to(wide.dtype)
+
+
+def reference_block_messages(src_rows, bias_b, local, b0, wb, ln, SB):
+    """Per block finish(src + bias), then the f32 sum of the rows with each
+    local id < SB → (B, SB, L); id SB is a padding row."""
+    B, M, L = src_rows.shape
+    dt = src_rows.dtype
+    m = reference_finish((src_rows.float() + bias_b.float()).reshape(B * M, L), b0, wb, ln, dt)
+    acc = torch.zeros((B, SB + 1, L), dtype=torch.float32, device=src_rows.device)
+    idx = torch.where((local >= 0) & (local < SB), local, SB).long()
+    acc.scatter_add_(1, idx[..., None].expand(-1, -1, L), m.float().reshape(B, M, L))
+    return acc[:, :SB].to(dt)
 
 
 def reference_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
@@ -218,3 +245,64 @@ def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw):
 
 
 fused_g2m_tiled.launches = 0
+
+
+def fused_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
+    """Fixed-degree messages per row: Σ_k finish(wide_k + bias_k + ad) (K13).
+
+    wide/bias_w: (N, deg·L) source rows and cached bias, slot-major lane
+    slices; ad: (N, L) dst-part rows; b0: (L,); wb: ((L, L), (L,)); ln over L;
+    deg 1 to 4.  Returns (N, L)."""
+    if wide.device.type == "cpu":
+        return reference_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg)
+    if wide.ndim != 2 or deg not in (1, 2, 3, 4) or wide.shape[1] % (8 * deg) or wide.shape[0] * deg >= 2**31:
+        raise ValueError(f"fused_fixed_degree_messages takes (N, deg·L) rows, deg 1 to 4, L % 8 == 0, got {tuple(wide.shape)}, deg {deg}")
+    N, KL = wide.shape
+    L = KL // deg
+    require(wide, (N, KL), "fixed-degree wide")
+    require(bias_w, (N, KL), "fixed-degree bias")
+    require(ad, (N, L), "fixed-degree ad")
+    require_rows16("fused_fixed_degree_messages", wide, bias_w, ad)
+    if tuple(wb[0].shape) != (L, L):
+        raise ValueError(f"fused_fixed_degree_messages: kernel {tuple(wb[0].shape)} for L {L}")
+    y = torch.empty((N * deg, L), dtype=torch.bfloat16, device=wide.device)
+    b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
+    lib = _finish_lib()
+    err = lib.skt_fixed_degree_gemm(
+        wide.data_ptr(), bias_w.data_ptr(), ad.data_ptr(), b0.data_ptr(), w.data_ptr(), b.data_ptr(),
+        y.data_ptr(), N, L, deg, _stream(wide),
+    )
+    _build.check(lib, err, "fixed_degree_gemm")
+    out = ln_rows(y, ln, nsum=deg)
+    fused_fixed_degree_messages.launches += 1
+    return out
+
+
+fused_fixed_degree_messages.launches = 0
+
+
+def fused_block_messages(src_rows, bias_b, local, b0, wb, ln, SB):
+    """Per block finish(src + bias), then segment aggregation (K14).
+
+    src_rows/bias_b: (B, M, L) pre-gathered source rows and cached bias in the
+    layout of ``ops.graph.build_block_plan``; local: (B, M) int32 block-local
+    segment ids in any order (== SB ⇒ padding); returns (B, SB, L) block
+    aggregates (unpack with the plan's ``unpack`` outside)."""
+    if src_rows.device.type == "cpu":
+        return reference_block_messages(src_rows, bias_b, local, b0, wb, ln, SB)
+    if src_rows.ndim != 3:
+        raise ValueError(f"fused_block_messages takes (B, M, L) rows, got {tuple(src_rows.shape)}")
+    B, M, L = src_rows.shape
+    require(src_rows, (B, M, L), "block src rows")
+    require(bias_b, (B, M, L), "block bias rows")
+    require(local, (B, M), "block local", torch.int32)
+    if tuple(wb[0].shape) != (L, L):
+        raise ValueError(f"fused_block_messages: kernel {tuple(wb[0].shape)} for L {L}")
+    y = finish_gemm(src_rows.view(B * M, L), bias_b.view(B * M, L), b0, wb)
+    m = ln_rows(y, ln, out=y)
+    out = segment_sum(m, local, SB)
+    fused_block_messages.launches += 1
+    return out
+
+
+fused_block_messages.launches = 0
