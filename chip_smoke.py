@@ -16,13 +16,21 @@ Phases:
      bias; K2 at both shapes; K3; K4.  GraphCast: K6 once per shape class
      (the feature-major Cin = 174 embedding, the grid update, the decoder's
      node update, the Cout = 83 head, the mesh MLPs); K7 at the multimesh
-     block plan, padding rows included; K8 and K9 on the real full-width
+     block plan, padding rows included, then with the ids of every block
+     shuffled, with one block made of padding rows only, twice on the same
+     inputs (the same bits), and with one real edge dropped per block, which
+     its check must refuse; the row GEMM alone at ragged shapes (M = 40,962;
+     N = 83; K = 174 feature-major; K = 1,024 split 512 + 512) against
+     torch.matmul in f32, and its rate on K7's second product and K6's grid
+     update beside torch.matmul's (timed only); K8 and K9 on the real full-width
      tile tables (partial tiles in K8), and K9's outputs under two faults
      (a dropped message, a misread slot bias), which its check must refuse.
      The op layer: K5, K10 and K11 on one qkv at Pangu stage 1 and stage 2
      (124 and 64 bias types at 0.5, shifted mask), the three outputs equal
      after the relayout, K11 beside scaled_dot_product_attention (timed
-     only); K5 and K1 at FuXi's V1 trunk geometry (window (1, 6, 12), wlen
+     only), each row named with the kernel body its shape takes
+     (ops/flash_window_attention.py attention_body); K5 and K1 at FuXi's V1
+     trunk geometry (window (1, 6, 12), wlen
      72, hd 64); K12 over the grid rows and the mesh edges; K13 over the grid
      rows, deg 3; K14 on the full-width grid->mesh block plan (target_rows
      8192, padding rows included) and its output with one row dropped per
@@ -147,6 +155,7 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
     from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops import resample as RS
     from skyrim_tpu_torch.ops import roll as RL
+    from skyrim_tpu_torch.ops.flash_window_attention import attention_body
     from skyrim_tpu_torch.ops.windows import shift_attention_mask, window_partition, window_reverse
 
     dev = torch.device("cuda")
@@ -202,7 +211,8 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
         nbytes = 2 * N * C * 2 + 2 * C * (4 * C + 2 * hidden) + args[3].numel() * 4 + args[4].numel() * 4
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(
-            name=f"K1 fused_swin_block {stage} {tuple(x.shape)}", shape=tuple(x.shape),
+            name=f"K1 fused_swin_block {stage} {tuple(x.shape)} [attention: {attention_body(wlen, C // heads)} body]",
+            shape=tuple(x.shape),
             route="cuda", source="skyrim_tpu_torch/csrc/fused_block.cu+attention.cuh+gemm.cu",
             replaces="skyrim_tpu/ops/fused_block.py:202", max_abs_err=err,
             ms=time_ms(torch, lambda: FB.fused_swin_block(*args, window, heads), 10),
@@ -268,8 +278,8 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
 def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     """Phase 3, GraphCast: K6-K9 at every full-width main-path shape against
     their plain versions, on the real static tables of the full model.
-    Returns the kernels' rows and, for two faults fed to K9, how far over
-    its limit each output lies."""
+    Returns the kernels' rows and, for two faults fed to K9 and one to K7,
+    how far over its limit each output lies."""
     from skyrim_tpu_torch.models.graphcast import GraphCastConfig, build_tables
     from skyrim_tpu_torch.ops import fused_mlp as FM
     from skyrim_tpu_torch.ops import graph_kernels as GK
@@ -339,10 +349,39 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     ne_r, agg_r = GK.reference_round_messages(*args)
     err = max(compare(torch, ne, ne_r, "K7 new edges"),
               compare(torch, agg, agg_r, "K7 aggregates", per_element=True))
-    del ne, agg, ne_r, agg_r
+    # two calls on the same inputs: the same bits (no atomics in the aggregation)
+    ne2, agg2 = GK.fused_round_messages(*args)
+    check(bool(torch.equal(ne, ne2)) and bool(torch.equal(agg, agg2)), "K7: two runs on the same inputs differ")
+    del ne, ne2, agg2, ne_r
+    # the check's power at this shape: with the first real edge of every block
+    # dropped from the plan, the kernel's aggregates must fail it
+    dropped = local.clone()
+    check(bool((dropped < SB).any(1).all()), "a block of the multimesh plan has no real edge")
+    dropped[torch.arange(B, device=dev), (dropped < SB).float().argmax(1)] = SB
+    k7_fault = over_limit(torch, GK.fused_round_messages(*args[:3], dropped, *args[4:])[1], agg_r, True)
+    log(f"K7 fault, one edge dropped in each of {B} blocks: max err/limit {k7_fault:.4g}")
+    check(k7_fault > 1, "K7's check passed aggregates with an edge dropped per block")
+    del agg, agg_r, dropped
+    # the ids of every block in a shuffled order (the aggregation's run
+    # detection sees short runs), and one block of padding rows only
+    shuffled = torch.gather(local, 1, torch.argsort(torch.rand(B, M, device=dev, generator=g), dim=1))
+    padding = local.clone()
+    padding[B // 2] = SB
+    for what, loc in (("unsorted local", shuffled), ("an all-padding block", padding)):
+        vargs = (*args[:3], loc, *args[4:])
+        ne, agg = GK.fused_round_messages(*vargs)
+        torch.cuda.synchronize()
+        ne_r, agg_r = GK.reference_round_messages(*vargs)
+        v_err = max(compare(torch, ne, ne_r, f"K7 new edges, {what}"),
+                    compare(torch, agg, agg_r, f"K7 aggregates, {what}", per_element=True))
+        log(f"K7 with {what}: max_abs_err {v_err:.4g}")
+        if loc is padding:
+            check(not bool(agg[B // 2].any()), "K7: a block of padding rows aggregated something")
+        del ne, agg, ne_r, agg_r
+    del shuffled, padding
     n_edges = int((local < SB).sum())
     row(f"K7 fused_round_messages ({B}, {M}, {L}) SB {SB}", (B, M, L, SB),
-        "skyrim_tpu_torch/csrc/graph_round.cu+fused_mlp.cu", "skyrim_tpu/ops/graph_kernels.py:364", err,
+        "skyrim_tpu_torch/csrc/graph_round.cu+rowgemm.cuh+fused_mlp.cu", "skyrim_tpu/ops/graph_kernels.py:364", err,
         lambda: GK.fused_round_messages(*args), lambda: GK.reference_round_messages(*args),
         # the work this data needs: the products and the edge and gsrc rows
         # of the real edges, not of the padding rows; every output written
@@ -409,7 +448,50 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
         del out
     del args, t, ref, dropped, bias0
     torch.cuda.empty_cache()
+    faults[f"K7: one edge dropped in each of {B} blocks"] = {"per_element": k7_fault}
     return rows, faults
+
+
+def row_gemm_checks(torch, g) -> list[dict]:
+    """Phase 3, the row GEMM alone (csrc/rowgemm.cuh through skt_mlp_gemm): its
+    ragged edges against torch.matmul in f32 on the same bf16 operands, within
+    the kernel tolerance; then its rate on K7's second product and K6's grid
+    update, with torch.matmul in bf16 on the same operands timed beside it
+    (the yardstick: called nowhere in the port)."""
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+
+    out = []
+    for what, M, K1, K2, N, xt in (("M 40,962", 40962, 512, 0, 512, False), ("N 83", 40962, 512, 0, 83, False),
+                                   ("K 174 feature-major", 40962, 174, 0, 512, True),
+                                   ("K 1,024 split 512 + 512", 40962, 512, 512, 512, False)):
+        a = randn(*((K1, M) if xt else (M, K1)), dtype=bf16)
+        a2 = randn(M, K2, dtype=bf16) if K2 else None
+        w, b = randn(K1 + K2, N, scale=(K1 + K2) ** -0.5, dtype=bf16), randn(N, scale=0.1)
+        c = FM.mlp_gemm(a, w, b, a2=a2, transposed=xt)
+        torch.cuda.synchronize()
+        rows = a.T.float() if xt else a.float()
+        ref = (rows if a2 is None else torch.cat([rows, a2.float()], dim=1)) @ w.float() + b
+        out.append(dict(name=f"row GEMM, {what}: ({M}, {K1 + K2}) @ ({K1 + K2}, {N})",
+                        max_abs_err=compare(torch, c, ref, f"row GEMM, {what}")))
+        del a, a2, w, b, c, rows, ref
+    for what, M in (("K7's second product", 322 * 1024), ("K6 grid_update, one product", 721 * 1440)):
+        K = N = 512
+        a, w, b = randn(M, K, dtype=bf16), randn(K, N, scale=K**-0.5, dtype=bf16), randn(N, scale=0.1)
+        ms = time_ms(torch, lambda: FM.mlp_gemm(a, w, b), 10)
+        lib_ms = time_ms(torch, lambda: torch.matmul(a, w), 10)
+        out.append(dict(name=f"row GEMM, {what}: ({M}, {K}) @ ({K}, {N})", ms=ms, tflops=2 * M * K * N / ms / 1e9,
+                        library_ms=lib_ms, library_tflops=2 * M * K * N / lib_ms / 1e9))
+        del a, w, b
+    for r in out:
+        log("  ".join(f"{k} {v:.4g}" if isinstance(v, float) else str(v) for k, v in r.items()))
+    torch.cuda.empty_cache()
+    return out
 
 
 def op_row(torch, rows, name, source, replaces, wrapper, args, plain, flops, nbytes, *,
@@ -473,13 +555,14 @@ def attention_op_checks(torch, g) -> list[dict]:
         bias = randn(nz * nh, heads, wlen, wlen, scale=ATTN_BIAS_SCALE)
         qkv = randn(Z, H, Wd, 3 * C, dtype=bf16)
         flops, nbytes = attn_work(n_win, heads, wlen, hd, bias, mask)
-        out5 = op_row(torch, rows, f"K5 fused_window_attention_4d {stage} {tuple(qkv.shape)}", src, f"{jax_src}:226",
+        body = f"[{FA.attention_body(wlen, hd)} body]"
+        out5 = op_row(torch, rows, f"K5 fused_window_attention_4d {stage} {tuple(qkv.shape)} {body}", src, f"{jax_src}:226",
                       FA.fused_window_attention_4d, (qkv, bias, mask, window, heads),
                       FA.reference_window_attention_4d, flops, nbytes, iters=10)
         rows[-1]["shape"] = (Z, H, Wd, C)  # the module path's launches at this width
         parts = window_partition(qkv, window).contiguous()
         del qkv
-        out10 = op_row(torch, rows, f"K10 fused_window_attention {stage} {tuple(parts.shape)}", src, f"{jax_src}:105",
+        out10 = op_row(torch, rows, f"K10 fused_window_attention {stage} {tuple(parts.shape)} {body}", src, f"{jax_src}:105",
                        FA.fused_window_attention, (parts, bias, mask, nw, heads),
                        FA.reference_window_attention_qkv, flops, nbytes, iters=10)
         compare(torch, out10, window_partition(out5, window), f"K10 against K5 after the partition, {stage}", exact=True)
@@ -490,7 +573,7 @@ def attention_op_checks(torch, g) -> list[dict]:
         # bias + mask as a materialised bf16 attn_mask; timed, used nowhere
         attn_mask = (bias[:, None] + mask.view(nz * nh, 1, 1, wlen, wlen)).to(bf16)
         attn_mask = attn_mask.expand(nz * nh, nw, heads, wlen, wlen).reshape(n_win, heads, wlen, wlen)
-        out11 = op_row(torch, rows, f"K11 flash_window_attention {stage} {tuple(q.shape)}", src, f"{jax_src}:358",
+        out11 = op_row(torch, rows, f"K11 flash_window_attention {stage} {tuple(q.shape)} {body}", src, f"{jax_src}:358",
                        FA.flash_window_attention, (q, k, v, bias, mask, nw),
                        FA.reference_window_attention, flops, nbytes, iters=10,
                        library=lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask))
@@ -510,7 +593,8 @@ def attention_op_checks(torch, g) -> list[dict]:
     bias = randn(heads, wlen, wlen, scale=ATTN_BIAS_SCALE)
     qkv = randn(Z, H, Wd, 3 * C, dtype=bf16)
     flops, nbytes = attn_work(16 * 15, heads, wlen, C // heads, bias, mask)
-    op_row(torch, rows, f"K5 fused_window_attention_4d FuXi V1 trunk {tuple(qkv.shape)}", src, f"{jax_src}:226",
+    body = f"[{FA.attention_body(wlen, C // heads)} body]"
+    op_row(torch, rows, f"K5 fused_window_attention_4d FuXi V1 trunk {tuple(qkv.shape)} {body}", src, f"{jax_src}:226",
            FA.fused_window_attention_4d, (qkv, bias, mask, window, heads),
            FA.reference_window_attention_4d, flops, nbytes, iters=10)
     del qkv
@@ -526,7 +610,7 @@ def attention_op_checks(torch, g) -> list[dict]:
          randn(hidden, C, scale=hidden**-0.5), randn(C, scale=0.1)),
         window, heads,
     )
-    op_row(torch, rows, f"K1 fused_swin_block FuXi V1 trunk {(Z, H, Wd, C)}",
+    op_row(torch, rows, f"K1 fused_swin_block FuXi V1 trunk {(Z, H, Wd, C)} [attention: {FA.attention_body(wlen, C // heads)} body]",
            "skyrim_tpu_torch/csrc/fused_block.cu+attention.cuh+gemm.cu", "skyrim_tpu/ops/fused_block.py:202",
            FB.fused_swin_block, args, FB.reference_swin_block,
            2 * N * C * (4 * C + 2 * hidden) + 4 * 16 * 15 * heads * wlen * wlen * (C // heads),
@@ -886,6 +970,7 @@ def main() -> int:
         rows, attn_err = kernel_checks(torch, g)
         log(f"K1 window attention alone, earth bias at {ATTN_BIAS_SCALE}: max_abs_err {attn_err}")
         gc_rows, k9_faults = graphcast_kernel_checks(torch, g)
+        gemm_rows = row_gemm_checks(torch, g)
         msg_rows, k14_fault = message_op_checks(torch, g)
         rows += gc_rows + attention_op_checks(torch, g) + msg_rows
         for r in rows:
@@ -919,7 +1004,8 @@ def main() -> int:
                                                  "peak_gb", "profile")} for name, run in mp.items()},
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
-        "k9_fault_err_over_limit": k9_faults,
+        "k9_k7_fault_err_over_limit": k9_faults,
+        "row_gemm": gemm_rows,
         "k14_fault_err_over_limit": k14_fault,
         "module_path_max_abs_err": mp["pangu"]["modules"]["max_abs_err"],
         "build_s": build_s,

@@ -14,6 +14,18 @@ extern "C" const char* skt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Streaming multiprocessors of the current device (persistent kernels size
+// their grids by it).
+inline int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -44,12 +56,101 @@ __device__ __forceinline__ void load8(const bf16* p, float* f) {
   }
 }
 
+// 8 f32 values, or the first n of them and 0 for the rest: two 16-byte loads
+// where all 8 are there and p is 16-byte aligned.
+__device__ __forceinline__ void load8f(const float* p, int n, float* f) {
+  if (n == 8 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const float4 lo = reinterpret_cast<const float4*>(p)[0], hi = reinterpret_cast<const float4*>(p)[1];
+    f[0] = lo.x, f[1] = lo.y, f[2] = lo.z, f[3] = lo.w;
+    f[4] = hi.x, f[5] = hi.y, f[6] = hi.z, f[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) f[u] = u < n ? p[u] : 0.f;
+  }
+}
+
 __device__ __forceinline__ void store8(bf16* p, const float* f) {
   uint4 u;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// --- asynchronous copies, tensor-core fragments ---------------------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
+               "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.  Plain: thread l holds (row l / 4, columns
+// 2 (l % 4), +1) of each matrix; .trans: (rows 2 (l % 4), +1, column l / 4).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row-major fragments) * b (16 x 8), bf16 in, f32 out.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// Tensor-core accumulators give the 4 lanes of a quad 2 consecutive columns
+// each of four 8-column tiles: x[t] = columns 2q, 2q + 1 of tile t in lane q.
+// After two exchanges (with lane q ^ 2, then q ^ 1) lane q holds all 8 columns
+// of tile q in v.
+__device__ __forceinline__ void quad_transpose(const float (&x)[4][2], float (&v)[8]) {
+  const unsigned full = 0xffffffffu;
+  const bool b0 = threadIdx.x & 1, b1 = threadIdx.x & 2;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    // keep tiles 2 b1 and 2 b1 + 1 (a, b), send the other two to lane q ^ 2
+    const float oa = b1 ? x[2][e] : x[0][e], ob = b1 ? x[3][e] : x[1][e];
+    const float ra = __shfl_xor_sync(full, b1 ? x[0][e] : x[2][e], 2);
+    const float rb = __shfl_xor_sync(full, b1 ? x[1][e] : x[3][e], 2);
+    // keep tile 2 b1 + b0 = q, send the other (both halves) to lane q ^ 1
+    const float k0 = b0 ? ob : oa, k1 = b0 ? rb : ra;  // tile q from lanes q, q ^ 2
+    const float r0 = __shfl_xor_sync(full, b0 ? oa : ob, 1);  // ... from lane q ^ 1
+    const float r1 = __shfl_xor_sync(full, b0 ? ra : rb, 1);  // ... from lane q ^ 3
+    // slot p takes the value that came from lane p
+    const float lo_a = b1 ? k1 : k0, lo_b = b1 ? r1 : r0;  // from lanes 0, 1: this lane's bit 0, the other
+    const float hi_a = b1 ? k0 : k1, hi_b = b1 ? r0 : r1;  // from lanes 2, 3
+    v[0 + e] = b0 ? lo_b : lo_a;
+    v[2 + e] = b0 ? lo_a : lo_b;
+    v[4 + e] = b0 ? hi_b : hi_a;
+    v[6 + e] = b0 ? hi_a : hi_b;
+  }
 }
 
 // One warp layer-normalizes NSUM rows of `width` bf16 values each (width %

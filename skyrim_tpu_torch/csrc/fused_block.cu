@@ -7,10 +7,9 @@
 // one warp per token row, f32 statistics (flax numerics).  Bound: bytes (one
 // read, one write of the activation).
 //
-// skt_window_attention_bf16: attention.cuh's window_attention_kernel on the
-// packed (Z, H, W, 3C) qkv of the block's GEMM, one thread block per (window,
-// head), tokens addressed in place (Packed4D); design, limits and bound are in
-// attention.cuh.
+// skt_window_attention_bf16: attention.cuh's bodies on the packed (Z, H, W, 3C)
+// qkv of the block's GEMM, tokens addressed in place (Packed4D); `body` as in
+// window_attention.cu; designs, limits and bound are in attention.cuh.
 #include "attention.cuh"
 #include "rowgemm.cuh"
 
@@ -24,10 +23,10 @@ extern "C" int skt_layernorm_bf16(const void* x, const void* scale, const void* 
 extern "C" int skt_window_attention_bf16(const void* qkv, const void* bias, const void* mask,
                                          void* out, int Z, int H, int W, int C, int heads, int wz,
                                          int wh, int ww, int n_types, int vec, float scale,
-                                         void* stream) {
+                                         int body, void* stream) {
   const int nz = Z / wz, nh = H / wh, nw = W / ww, hd = C / heads;
   attention::Packed4D addr{static_cast<const bf16*>(qkv), static_cast<bf16*>(out), H, W, C, hd,
                            wz, wh, ww, nh, nw};
   return attention::launch(addr, bias, mask, nz * nh * nw, heads, wz * wh * ww, hd, nw, n_types,
-                           nz * nh, vec, scale, stream);
+                           nz * nh, vec, scale, body, stream);
 }

@@ -12,7 +12,10 @@
 //                 aligned (Cin 174, 3, 4)
 //   skt_mlp_gemm  y = bf16(h @ W2 + b2)   (no LN: + residual here)
 //   skt_ln_rows   out = bf16(res + bf16(LN(y)))   (residual after the LN)
-// skt_segment_sum is the deterministic segmented sum of K7 and K9.
+// skt_segment_sum is the deterministic segmented sum of K7, K9 and K14.  The
+// GEMM is rowgemm.cuh's: wgmma fed by TMA in persistent blocks on aligned rows,
+// ~450 TFLOP/s at 512 wide on an H100, 46 % of the bf16 peak (torch.matmul on
+// the same operands: ~600); a cp.async ring under a loader functor elsewhere.
 //
 // Bound on this card: operations.  At full width a grid MLP does
 // 2 * N * (Cin * H + H * Cout) = 1.09 TFLOP (N = 1,038,240, 512 -> 512 -> 512)

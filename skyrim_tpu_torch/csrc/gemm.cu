@@ -3,7 +3,7 @@
 // The matrix products inside the TPU kernels K1 (skyrim_tpu/ops/fused_block.py
 // _fused_block_kernel: qkv, proj, both MLP layers), K3 (ops/resample.py
 // _down_kernel) and K4 (_up_kernel) run here, on the tiled GEMM of rowgemm.cuh
-// (WMMA 16x16x16 bf16 -> mma.sync, two-stage cp.async ring).  A is (M, K)
+// (wgmma.mma_async on 128 x BN x 64 tiles fed by TMA, persistent blocks).  A is (M, K)
 // row-major bf16, B is the Dense kernel (K, N) row-major bf16 (flax layout,
 // x @ W), bias is f32 (N,), accumulation is f32 on the tensor cores.
 //
@@ -24,7 +24,9 @@ namespace {
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(k * (x + 0.044715f * x * x * x)));
+  float t;  // tanh.approx: relative error 2^-11, below the bf16 rounding of the result
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(t) : "f"(k * (x + 0.044715f * x * x * x)));
+  return 0.5f * x * (1.f + t);
 }
 
 // N % 8 == 0, so a lane's 8 columns are always whole: 16-byte accesses.
@@ -35,8 +37,10 @@ struct EpiGemm {
   int N, epi;
 
   __device__ __forceinline__ void operator()(int gr, int gc, float* v, int) const {
+    float b[8];
+    load8f(bias + gc, 8, b);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] += bias[gc + u];
+    for (int u = 0; u < 8; ++u) v[u] += b[u];
     if (epi == 1) {
 #pragma unroll
       for (int u = 0; u < 8; ++u) v[u] = gelu_tanh(bf16_round(v[u]));

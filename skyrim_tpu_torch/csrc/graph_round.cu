@@ -10,8 +10,16 @@
 // The TPU kernel expands staged and aggregates with one-hot matmuls on the
 // MXU; here the expansion is an indexed load in this file's GEMM epilogue and
 // the aggregation the segmented sum of rowgemm.cuh.  Four launches:
-// skt_round_gemm (here), skt_mlp_gemm, skt_ln_rows with the edges as the
-// residual, skt_segment_sum (fused_mlp.cu).
+//   skt_round_gemm   h = bf16(swish(e @ We + gsrc + staged[local] + b0)) on the
+//                    wgmma row GEMM, the expansion in its epilogue (here)
+//   skt_mlp_gemm     y = bf16(h @ W + b)                     (fused_mlp.cu)
+//   skt_ln_rows      ne = bf16(e + bf16(LN(y)))              (fused_mlp.cu)
+//   skt_segment_sum  agg from ne                             (fused_mlp.cu)
+// h, y and ne round-trip device memory.  (The second Dense with its LayerNorm
+// and residual as one launch, a block 64 rows x all 512 columns on the cp.async
+// ring so that y stays on the chip, took 1.24 ms against 0.39 + 0.40 ms for
+// the two launches on an H100 at full width -- one block an SM, its LayerNorm
+// epilogue not hidden behind another block's products -- and was not kept.)
 //
 // Bound on this card: operations.  At full width (B, M, L) = (322, 1024, 512)
 // the two Dense products are 4 * B * M * L^2 = 346 GFLOP on 1.13 GB of edges,
@@ -35,8 +43,10 @@ struct EpiRound {
     float gs[8], st[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     load8(gsrc + (size_t)row * N + col, gs);
     if (hit) load8(staged + ((size_t)(row / M) * SB + l) * N + col, st);
+    float b[8];
+    load8f(b0 + col, 8, b);
 #pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = rowgemm::swish(v[u] + gs[u] + st[u] + b0[col + u]);
+    for (int u = 0; u < 8; ++u) v[u] = rowgemm::swish(v[u] + gs[u] + st[u] + b[u]);
     store8(out + (size_t)row * N + col, v);
   }
 };

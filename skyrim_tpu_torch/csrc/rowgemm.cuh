@@ -7,54 +7,62 @@
 // fused_g2m_tiled) all run rows through "prologue -> Dense -> epilogue ->
 // LayerNorm -> aggregate".  At L = 512 the two 512x512 bf16 weights (1 MB) do
 // not fit the 227 KB of shared memory a Hopper block has, so each is a short
-// chain of launches of the three kernels here:
+// chain of launches of the kernels here:
 //
-//   rowgemm_kernel  C = epi(A @ W): a tiled bf16 GEMM (f32 accumulation on the
-//                   tensor cores, WMMA -> mma.sync, 128 x BN x 32 tiles, 8
-//                   warps, two-stage shared-memory ring) whose A tile comes
-//                   from a loader functor (plain rows with cp.async, strided or
-//                   unaligned rows, or a computed prologue such as a gather +
-//                   swish) and whose f32 results go to an epilogue functor.
+//   rowgemm_kernel  C = epi(A @ W), bf16 in, f32 accumulation in registers by
+//                   wgmma.mma_async (gemm_mainloop below): a 128 x BN x 64
+//                   tile a block, two warpgroups of 64 rows each, a ring of
+//                   three slices in dynamic shared memory filled by cp.async
+//                   two slices ahead of the multiply, one barrier a slice, two
+//                   blocks an SM.  Both tiles lie in the 128-byte swizzle: A
+//                   K-major, W (K, N) row-major as the MN-major B operand (the
+//                   instruction's transpose bit).  The A tile comes from a
+//                   loader functor whose chunk(row, k, dst) writes 16 bytes,
+//                   the swizzle's unit (strided or unaligned rows, or a
+//                   computed prologue such as a gather + swish); the f32
+//                   results go to an epilogue functor 8 consecutive columns at
+//                   a time, straight from the accumulators after a quad
+//                   exchange.  Ragged M, N and K edges are zero-filled on load
+//                   and masked at the store.
+//   rowgemm_tma_kernel  the same product under the same epilogue functors for
+//                   plain aligned rows (ARows<true>, N % 128 or % 192 == 0):
+//                   persistent blocks, the slices brought by TMA (tensor maps
+//                   made in launch_rowgemm_tma, completion on mbarriers) by one
+//                   thread while two warpgroups multiply; launch_rowgemm takes
+//                   it wherever the operands allow.
 //   ln_rows_kernel  one warp per output row: out = bf16([res +] sum_k
 //                   bf16(LN(y[row * nsum + k]))), sum in f32, nsum 1 to 4,
 //                   through common.cuh's layernorm_rows_warp; also Pangu's
 //                   LayerNorm (fused_block.cu, nsum 1).
 //   segsum_kernel   out[g, s, :] = sum of the rows r of group g with
-//                   local[g, r] == s, in f32, in row order (deterministic),
-//                   then bf16; local values outside [0, S) are skipped.  One
-//                   block per (group, 128 columns), the S x 128 f32 sums in
-//                   shared memory, each thread owning one column.
-//
-// Not yet wgmma/TMA, and the intermediates between the launches round-trip
-// device memory: later work.
+//                   local[g, r] == s, in f32, then bf16; local values outside
+//                   [0, S) are skipped.  One block per (group, 128 columns),
+//                   the S x 128 f32 sums in shared memory; a thread owns two
+//                   columns, walks the rows in order, 16 loads a batch and the
+//                   next batch in flight, sums
+//                   a run of equal ids in registers and touches the table only
+//                   where the id changes.  No atomics: each column has one
+//                   owner, so the result is the same bits on every run, and
+//                   for ids in sorted order the f32 sum in row order.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time, not linked
 #include <math.h>
-#include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace rowgemm {
 
-using namespace nvcuda;
+constexpr int BK = 64, THREADS = 256;  // a k slice of 128 bytes: one swizzle row
+constexpr int STAGES = 3;              // slices in a ring, of either kernel
+constexpr int SEG_COLS = 128;          // columns per segsum block (two per thread)
 
-constexpr int BM = 128, BK = 32, THREADS = 256;
-constexpr int SEG_COLS = 128;  // columns per segsum block (one per thread)
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float swish(float x) { return x / (1.f + expf(-x)); }
+// x * sigmoid(x) with the fast exponential and division (each within 2 ulps
+// in f32, far below the bf16 rounding that follows): 8 of these run per
+// 16-byte chunk in the computed prologues and per epilogue call.
+__device__ __forceinline__ float swish(float x) { return __fdividef(x, 1.f + __expf(-x)); }
 
 enum Act { ACT_NONE = 0, ACT_SWISH = 1 };
 
@@ -140,9 +148,11 @@ struct EpiStore {
         for (int u = 0; u < nv; ++u) r[u] = __bfloat162float(res[(size_t)row * N + col + u]);
       }
     }
+    float b[8];
+    load8f(bias + col, nv, b);
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      float t = v[u] + (u < nv ? bias[col + u] : 0.f);
+      float t = v[u] + b[u];
       if (act == ACT_SWISH) t = swish(t);
       if (res) t = bf16_round(t) + r[u];
       v[u] = t;
@@ -151,91 +161,382 @@ struct EpiStore {
   }
 };
 
-// C[M, N] = epi(A[M, K] @ W[K, N]).  grid (ceil(N / BN), ceil(M / BM)): the
-// N tiles of one row block run side by side, so its A tile (or computed
-// prologue) is read from device memory once and from L2 after.
-template <int BN, class ALoad, class Epi>
-__global__ void __launch_bounds__(THREADS)
-    rowgemm_kernel(ALoad aload, const bf16* __restrict__ W, Epi epi, int M, int N, int K) {
-  constexpr int WM = 32, WN = BN / 2, FM = WM / 16, FN = WN / 16;
-  constexpr int LDA = BK + 8, LDB = BN + 8;  // +8 bf16 of padding against bank conflicts
-  __shared__ __align__(128) bf16 As[2][BM * LDA];
-  __shared__ __align__(128) bf16 Bs[2][BK * LDB];
+// --- wgmma ------------------------------------------------------------------------
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+// Shared-memory matrix descriptor, 128-byte swizzle.  Tiles are made of atoms
+// of 8 rows x 128 bytes (1024 bytes, 1024-byte aligned), the 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8).
+__device__ __forceinline__ uint64_t wgmma_desc(unsigned saddr, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
-#pragma unroll
-  for (int i = 0; i < FM; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes (cp.async, st.shared) made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
-  auto load_tile = [&](int kt, int s) {
+// d (64 x N, f32) += a (64 x 16, K-major) * b (16 x N, N-major), both in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96], uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db));
+}
+
+// Block tile 128 x BN over the whole K: warpgroup wg takes rows [64 wg, +64)
+// and every column.
+template <int BN>
+struct Tile {
+  static constexpr int BM = 128;
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2, STAGE = A_BYTES + B_BYTES;
+  static_assert(BN == 64 || BN == 128, "whole swizzle atoms, a wgmma width");
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024;  // + alignment
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// acc = A[m0 .. m0 + 128, :] @ W[:, n0 .. n0 + BN] for this thread's warpgroup.
+// Slice kt lives in ring slot kt % STAGES: A as 128 rows of 128 bytes, W as
+// (BN / 64) x 8 atoms, atom (j, i) holding k rows 8i .. 8i + 7 of columns
+// 64j .. 64j + 63.  Slice kt + STAGES - 1 is loaded while slice kt multiplies:
+// its slot was read by slice kt - 1, whose wgmma every warpgroup has waited
+// for before this slice's barrier.  That keeps two slices of loads in the air
+// and leaves it to the SM's other block to fill the tensor cores while this
+// one drains.
+template <int BN, class ALoad>
+__device__ __forceinline__ void gemm_mainloop(const ALoad& aload, const bf16* __restrict__ W, int m0,
+                                              int n0, int N, int K, unsigned char* ring,
+                                              float (&acc)[BN / 2]) {
+  using T = Tile<BN>;
+  constexpr int D = STAGES - 1;  // slices loaded ahead
+  const int tid = threadIdx.x, wg = tid >> 7;
+
+  auto load_slice = [&](int kt) {
+    unsigned char* As = ring + (kt % STAGES) * T::STAGE;
+    unsigned char* Bs = As + T::A_BYTES;
     const int k0 = kt * BK;
-    for (int c = tid; c < BM * (BK / 8); c += THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      aload.chunk(m0 + r, k0 + kc, &As[s][r * LDA + kc]);
+#pragma unroll
+    for (int c = tid; c < T::BM * (BK / 8); c += THREADS) {
+      const int r = c >> 3, kc = c & 7;
+      aload.chunk(m0 + r, k0 + kc * 8, reinterpret_cast<bf16*>(As + r * 128 + ((kc ^ (r & 7)) << 4)));
     }
+#pragma unroll
     for (int c = tid; c < BK * (BN / 8); c += THREADS) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      load_b_chunk(W, K, N, k0 + r, n0 + nc, &Bs[s][r * LDB + nc]);
+      const int kr = c / (BN / 8), nc = c % (BN / 8);
+      unsigned char* dst = Bs + ((nc >> 3) * (BK / 8) + (kr >> 3)) * 1024 + (kr & 7) * 128 +
+                           (((nc & 7) ^ (kr & 7)) << 4);
+      load_b_chunk(W, K, N, k0 + kr, n0 + nc * 8, reinterpret_cast<bf16*>(dst));
     }
-    cp_async_commit();
   };
 
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
   const int nk = (K + BK - 1) / BK;
-  load_tile(0, 0);
+#pragma unroll
+  for (int kt = 0; kt < D; ++kt) {
+    if (kt < nk) load_slice(kt);
+    cp_async_commit();
+  }
+  // W atoms of one k16 step: 2 along K (stride 1024), BN / 64 along N (stride 8192)
+  // (the descriptor's leading offset steps along N, its stride offset along K)
+  constexpr unsigned B_N_STRIDE = (BK / 8) * 1024, B_K_STRIDE = 1024;
   for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(kt + 1, s ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<D - 1>();
+    fence_async_shared();
     __syncthreads();
+    const unsigned a0 = smem_addr(ring + (kt % STAGES) * T::STAGE) + wg * 64 * 128;
+    const unsigned b0 = smem_addr(ring + (kt % STAGES) * T::STAGE + T::A_BYTES);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[FN];
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-        wmma::load_matrix_sync(a[i], &As[s][(wm * WM + i * 16) * LDA + kk], LDA);
-#pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[s][kk * LDB + wn * WN + j * 16], LDB);
-#pragma unroll
-      for (int i = 0; i < FM; ++i)
-#pragma unroll
-        for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_bf16<BN>(acc, wgmma_desc(a0 + ks * 32, 16, 1024),
+                     wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
+    wgmma_commit();
+    if (kt + D < nk) load_slice(kt + D);
+    cp_async_commit();
+    wgmma_wait<0>();
   }
+}
 
-  // epilogue: each fragment through a per-warp 16 x 16 f32 scratch (in As,
-  // free after the last barrier); a lane owns 8 consecutive columns of a row
-  constexpr int LDS = 20;
-  float* scratch = reinterpret_cast<float*>(&As[0][0]) + warp * (16 * LDS);
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
+// The accumulators of a warpgroup's 64 x WN tile, handed to f(row, col, v) as
+// 8 consecutive columns of one row (rows and columns relative to the tile):
+// lane (g, q) of warp w holds rows 16w + g and + 8, columns 8j + 2q, + 1 of
+// every 8-column tile j; a quad exchanges four tiles at a time.
+template <int WN, class F>
+__device__ __forceinline__ void for_each_8(const float (&acc)[WN / 2], F f) {
+  const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+  for (int j4 = 0; j4 < WN / 32; ++j4) {
 #pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      wmma::store_matrix_sync(scratch, acc[i][j], LDS, wmma::mem_row_major);
-      __syncwarp();
-      const int gr = m0 + wm * WM + i * 16 + r;
-      const int gc = n0 + wn * WN + j * 16 + c0;
-      if (gr < M && gc < N) {
-        float v[8];
+    for (int h = 0; h < 2; ++h) {
+      float x[4][2], v[8];
 #pragma unroll
-        for (int u = 0; u < 8; ++u) v[u] = scratch[r * LDS + c0 + u];
-        epi(gr, gc, v, min(8, N - gc));
+      for (int t = 0; t < 4; ++t) {
+        x[t][0] = acc[(j4 * 4 + t) * 4 + 2 * h];
+        x[t][1] = acc[(j4 * 4 + t) * 4 + 2 * h + 1];
       }
-      __syncwarp();
+      quad_transpose(x, v);
+      f(w * 16 + g + 8 * h, (j4 * 4 + q) * 8, v);
     }
   }
+}
+
+// --- TMA and mbarriers ---------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Returns once the barrier's phase of this parity is complete.  A wait that
+// lasts seconds means a lost arrival: trap, so that the launch fails instead
+// of holding the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 4000000000LL) __trap();
+  }
+}
+// The box of `map` at (c0 innermost, c1) -> shared memory; its bytes complete on `bar`.
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A tensor map over a row-major bf16 matrix (rows x cols, row stride ld
+// elements) with boxes of box_rows x 64 columns in the 128-byte swizzle: what
+// a box writes is what gemm_mainloop's loaders write, rows of 128 bytes with
+// chunk c of row r at c ^ (r % 8).  Rows and columns beyond the matrix read as
+// 0.  Returns a cudaError_t: cudaErrorNotSupported where CUDA offers no
+// encoder, cudaErrorInvalidValue where the encoder refuses the operands.
+inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                            uint64_t ld, uint32_t box_rows) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                             const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+                             CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+                             CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {ld * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, box_rows}, step[2] = {1, 1};
+  const CUresult res =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return static_cast<int>(res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue);
+}
+
+// The row GEMM for aligned rows (ARows<true>; N % 128 == 0, or % 192 == 0 for
+// Pangu's 192 and 576): persistent blocks that walk the tiles, 128 rows x BN
+// columns each.  One thread keeps TMA loads in flight into a ring of
+// STAGES slices (A 128 x 64, W 64 x BN, in gemm_mainloop's layout);
+// two warpgroups multiply, 64 rows x BN columns each, and hand their
+// accumulators to the epilogue functor while the loads of the block's next
+// tile are already under way.  full[s] completes when the bytes of slot s have
+// landed, empty[s] when the eight multiplying warps have read them.  BLOCKS:
+// two blocks an SM at BN 128 (one warp of loads, 288 threads), so that one
+// block's epilogue runs under the other's products; one at BN 192 (a
+// warpgroup of loads that hands its registers to the other two).
+template <int BN>
+struct TmaTile {
+  static constexpr int BM = 128;
+  static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2, STAGE = A_BYTES + B_BYTES;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024 + 2 * STAGES * sizeof(uint64_t);
+  static_assert(BN % 64 == 0 && SMEM <= 232448, "fits a block");
+};
+constexpr int tma_threads(int blocks) { return blocks == 1 ? 384 : 288; }
+
+template <int BN, int BLOCKS, class Epi>
+__global__ void __launch_bounds__(tma_threads(BLOCKS), BLOCKS)
+    rowgemm_tma_kernel(__grid_constant__ const CUtensorMap mapA1,
+                       __grid_constant__ const CUtensorMap mapA2,
+                       __grid_constant__ const CUtensorMap mapW, Epi epi, int M, int N, int K1, int K,
+                       int tiles) {
+  using T = TmaTile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  const unsigned full0 = smem_addr(ring + STAGES * T::STAGE), empty0 = full0 + STAGES * 8;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int tiles_n = N / BN, nk = (K + BK - 1) / BK;
+  int stage = 0;
+  unsigned phase = 0;
+  if (wg == 2) {
+    if constexpr (BLOCKS == 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid != 256) return;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * T::BM, n0 = (tile % tiles_n) * BN;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1);  // passes at once the first time round
+        const unsigned full = full0 + 8 * stage, slot = smem_addr(ring + stage * T::STAGE);
+        mbar_expect_tx(full, T::STAGE);
+        const int k0 = kt * BK;
+        if (k0 < K1)
+          tma_load_2d(slot, &mapA1, full, k0, m0);
+        else
+          tma_load_2d(slot, &mapA2, full, k0 - K1, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(slot + T::A_BYTES + j * (BK / 8) * 1024, &mapW, full, n0 + 64 * j, k0);
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+    }
+  } else {
+    if constexpr (BLOCKS == 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    constexpr unsigned B_N_STRIDE = (BK / 8) * 1024, B_K_STRIDE = 1024;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * T::BM, n0 = (tile % tiles_n) * BN;
+      float acc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(full0 + 8 * stage, phase);
+        const unsigned a0 = smem_addr(ring + stage * T::STAGE) + wg * 64 * 128;
+        const unsigned b0 = smem_addr(ring + stage * T::STAGE + T::A_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < BK / 16; ++ks)
+          wgmma_bf16<BN>(acc, wgmma_desc(a0 + ks * 32, 16, 1024),
+                         wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
+        wgmma_commit();
+        wgmma_wait<0>();
+        if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * stage);
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+      for_each_8<BN>(acc, [&](int r, int c, float* v) {
+        const int gr = m0 + wg * 64 + r, gc = n0 + c;
+        if (gr < M) epi(gr, gc, v, 8);
+      });
+    }
+  }
+}
+
+constexpr int TMA_NOT_TAKEN = -1;
+
+// Launches rowgemm_tma_kernel where the operands allow it: 16-byte aligned
+// bases and row strides, N a multiple of 128 or 192, and a split first part
+// that ends on a slice.  TMA_NOT_TAKEN for other shapes: the caller takes
+// rowgemm_kernel.  A CUDA without the encoder, or an encoder that refuses
+// operands that passed these tests, is an error and goes back to the wrapper,
+// which raises.
+template <class Epi>
+int launch_rowgemm_tma(const ARows<true>& a, const bf16* W, const Epi& epi, int M, int N, int K,
+                       cudaStream_t st) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (M <= 0 || (N % 128 && N % 192) || a.s1k != 1 || a.s1m % 8 || a.K1 % 8 || a.K2 % 8 ||
+      !aligned(a.a1) || !aligned(W) || (a.K2 && (a.K1 % BK || !aligned(a.a2))))
+    return TMA_NOT_TAKEN;
+  const int blocks = N % 128 ? 1 : 2, bn = N % 128 ? 192 : 128;
+  const long long tiles = (long long)(N / bn) * ((M + 127) / 128);
+  if (tiles > 0x7fffffffLL) return TMA_NOT_TAKEN;
+  CUtensorMap mapA1, mapA2, mapW;
+  if (int err = make_tensor_map(&mapA1, a.a1, M, a.K1, a.s1m, 128)) return err;
+  if (int err = make_tensor_map(&mapW, W, K, N, N, BK)) return err;
+  mapA2 = mapA1;
+  if (a.K2)
+    if (int err = make_tensor_map(&mapA2, a.a2, M, a.K2, a.K2, 128)) return err;
+  auto go = [&](auto kernel, size_t smem) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int resident = blocks * sm_count();
+    const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
+    kernel<<<grid, tma_threads(blocks), smem, st>>>(mapA1, mapA2, mapW, epi, M, N, a.K1, K, (int)tiles);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (bn == 128) return go(rowgemm_tma_kernel<128, 2, Epi>, TmaTile<128>::SMEM);
+  return go(rowgemm_tma_kernel<192, 1, Epi>, TmaTile<192>::SMEM);
+}
+
+// C[M, N] = epi(A[M, K] @ W[K, N]).  One block a tile, the column blocks of
+// one row block next to each other in the grid, so its A tile (or computed
+// prologue) is read from device memory once and from L2 after.  (A persistent
+// block walking several tiles with the next tile's loads in flight during the
+// epilogue measured 17 % slower on an H100: the two blocks of an SM then run
+// their epilogues in step.)
+template <int BN, class ALoad, class Epi>
+__global__ void __launch_bounds__(THREADS, 2)
+    rowgemm_kernel(ALoad aload, const bf16* __restrict__ W, Epi epi, int M, int N, int K) {
+  using T = Tile<BN>;
+  static_assert(T::SMEM <= 113 * 1024, "two blocks an SM");
+  extern __shared__ unsigned char smem_raw[];
+  const int tiles_n = (N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * T::BM, n0 = (blockIdx.x % tiles_n) * BN;
+  float acc[BN / 2];
+  gemm_mainloop<BN>(aload, W, m0, n0, N, K, align1024(smem_raw), acc);
+  const int wg = threadIdx.x >> 7;
+  for_each_8<BN>(acc, [&](int r, int c, float* v) {
+    const int gr = m0 + wg * 64 + r, gc = n0 + c;
+    if (gr < M && gc < N) epi(gr, gc, v, min(8, N - gc));
+  });
 }
 
 template <class ALoad, class Epi>
@@ -243,14 +544,21 @@ int launch_rowgemm(const ALoad& aload, const void* W, const Epi& epi, int M, int
                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* w = static_cast<const bf16*>(W);
-  const int mb = (M + BM - 1) / BM;
-  if (mb > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);  // grid.y limit
-  if (N % 128 == 0) {
-    rowgemm_kernel<128><<<dim3(N / 128, mb), THREADS, 0, st>>>(aload, w, epi, M, N, K);
-  } else {
-    rowgemm_kernel<64><<<dim3((N + 63) / 64, mb), THREADS, 0, st>>>(aload, w, epi, M, N, K);
+  if constexpr (std::is_same<ALoad, ARows<true>>::value) {
+    const int err = launch_rowgemm_tma(aload, w, epi, M, N, K, st);
+    if (err != TMA_NOT_TAKEN) return err;
   }
-  return static_cast<int>(cudaGetLastError());
+  auto go = [&](auto kernel, int bn, size_t smem) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long tiles = (long long)((N + bn - 1) / bn) * ((M + 127) / 128);
+    if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    kernel<<<(unsigned)tiles, THREADS, smem, st>>>(aload, w, epi, M, N, K);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (N % 128 == 0) return go(rowgemm_kernel<128, ALoad, Epi>, 128, Tile<128>::SMEM);
+  return go(rowgemm_kernel<64, ALoad, Epi>, 64, Tile<64>::SMEM);
 }
 
 // out[row] = bf16([res[row] +] sum_{k < NSUM} bf16(LN(y[row * NSUM + k]))),
@@ -294,38 +602,62 @@ inline int launch_ln_rows(const void* y, const void* scale, const void* bias, co
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (G, S, C) bf16; x (G * R, C) bf16; local (G, R) int32.
-__global__ void __launch_bounds__(SEG_COLS)
+// out (G, S, C) bf16; x (G * R, C) bf16; local (G, R) int32; C even.
+constexpr int SEG_THREADS = SEG_COLS / 2, SEG_ROWS = 16;  // rows a batch; two batches in flight
+
+__global__ void __launch_bounds__(SEG_THREADS)
     segsum_kernel(const bf16* __restrict__ x, const int* __restrict__ local,
                   bf16* __restrict__ out, int R, int S, int C) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* acc = reinterpret_cast<float*>(smem);  // S x SEG_COLS
   int* loc = reinterpret_cast<int*>(acc + (size_t)S * SEG_COLS);  // R
   const int g = blockIdx.x, t = threadIdx.x;
-  const int c = blockIdx.y * SEG_COLS + t;
-  for (int i = t; i < S * SEG_COLS; i += SEG_COLS) acc[i] = 0.f;
-  for (int i = t; i < R; i += SEG_COLS) loc[i] = local[(size_t)g * R + i];
+  const int c = blockIdx.y * SEG_COLS + 2 * t;
+  for (int i = t; i < S * SEG_COLS; i += SEG_THREADS) acc[i] = 0.f;
+  for (int i = t; i < R; i += SEG_THREADS) loc[i] = local[(size_t)g * R + i];
   __syncthreads();
-  if (c < C) {
-    const bf16* xg = x + (size_t)g * R * C + c;
-    constexpr int U = 8;
-    int r = 0;
-    for (; r + U <= R; r += U) {
-      float v[U];
+  if (c >= C) return;
+  const bf16* xg = x + (size_t)g * R * C + c;
+  float2* mine = reinterpret_cast<float2*>(acc) + t;  // this thread's columns of segment 0
+  float2 run = make_float2(0.f, 0.f);
+  int cur = -1;  // the id of the run being summed
+  auto flush = [&]() {
+    if ((unsigned)cur < (unsigned)S) {
+      float2* p = mine + cur * SEG_THREADS;
+      *p = make_float2(p->x + run.x, p->y + run.y);
+    }
+  };
+  // the next SEG_ROWS rows are in flight while these are summed
+  auto load = [&](__nv_bfloat162(&v)[SEG_ROWS], int r0) {
 #pragma unroll
-      for (int u = 0; u < U; ++u) v[u] = __bfloat162float(xg[(size_t)(r + u) * C]);
+    for (int u = 0; u < SEG_ROWS; ++u)
+      if (r0 + u < R) v[u] = *reinterpret_cast<const __nv_bfloat162*>(xg + (size_t)(r0 + u) * C);
+  };
+  __nv_bfloat162 v[SEG_ROWS], next[SEG_ROWS];
+  load(v, 0);
+  for (int r0 = 0; r0 < R; r0 += SEG_ROWS) {
+    if (r0 + SEG_ROWS < R) load(next, r0 + SEG_ROWS);
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int s = loc[r + u];
-        if ((unsigned)s < (unsigned)S) acc[s * SEG_COLS + t] += v[u];
+    for (int u = 0; u < SEG_ROWS; ++u) {
+      if (r0 + u >= R) break;
+      const int s = loc[r0 + u];
+      if (s != cur) {
+        flush();
+        run = make_float2(0.f, 0.f);
+        cur = s;
       }
+      const float2 f = __bfloat1622float2(v[u]);
+      run.x += f.x;
+      run.y += f.y;
     }
-    for (; r < R; ++r) {
-      const int s = loc[r];
-      if ((unsigned)s < (unsigned)S) acc[s * SEG_COLS + t] += __bfloat162float(xg[(size_t)r * C]);
-    }
-    for (int s = 0; s < S; ++s)
-      out[((size_t)g * S + s) * C + c] = __float2bfloat16(acc[s * SEG_COLS + t]);
+#pragma unroll
+    for (int u = 0; u < SEG_ROWS; ++u) v[u] = next[u];
+  }
+  flush();
+  for (int s = 0; s < S; ++s) {
+    const float2 a = mine[s * SEG_THREADS];
+    *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)g * S + s) * C + c) =
+        __floats2bfloat162_rn(a.x, a.y);
   }
 }
 
@@ -333,12 +665,13 @@ __global__ void __launch_bounds__(SEG_COLS)
 // returned to the wrapper, which raises.
 inline int launch_segsum(const void* x, const void* local, void* out, int G, int R, int S, int C,
                          void* stream) {
+  if (C % 2) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = (size_t)S * SEG_COLS * 4 + (size_t)R * 4;
   cudaError_t err = cudaFuncSetAttribute(segsum_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(G, (C + SEG_COLS - 1) / SEG_COLS);
-  segsum_kernel<<<grid, SEG_COLS, smem, static_cast<cudaStream_t>(stream)>>>(
+  segsum_kernel<<<grid, SEG_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(local), static_cast<bf16*>(out), R, S,
       C);
   return static_cast<int>(cudaGetLastError());

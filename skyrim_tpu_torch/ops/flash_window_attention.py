@@ -16,17 +16,28 @@ position shared along the periodic longitude, or 3-D for one table;
 ``mask`` is (nz, nh, wlen, wlen) additive, or None.  Window t of K10/K11
 has type ``t // n_lon_windows`` and mask ``(t // (nh·nw), (t // nw) % nh)``.
 
-One CUDA kernel body (csrc/attention.cuh, also K1's attention) with
-three token → address maps (csrc/window_attention.cu): one thread block
-per (window, head), scores in shared memory, both products on the tensor
-cores, softmax in f32 with ``exp(s − max)`` kept as bf16 and the division
-by the f32 row sums after the second product (the reference normalises
-before its cast; one bf16 rounding of each weight apart).  Bound on this
-card: bytes (qkv, output and the f32 bias and mask tables).  It takes any
-wlen and hd with wlen ≤ 256 after padding to 16 and
-``WLP²·4 + 3·WLP·HDP·2 + WLP·4`` bytes of shared memory (WLP, HDP: wlen,
-hd rounded up to 16) within a block's 227 KB — wlen 144 up to hd 128,
-wlen 72 and 24 at any hd the models use.
+The CUDA kernel bodies (csrc/attention.cuh, also K1's attention) take
+three token → address maps (csrc/window_attention.cu), so K1, K5, K10
+and K11 share whichever body a shape takes; ``attention_body`` chooses it
+from the shape alone:
+
+- ``"registers"``, the geometries the models use — Pangu's (wlen 129–144,
+  hd ≤ 32) and FuXi's and FengWu's (wlen 65–80, hd 33–64): a warp owns 16
+  query rows, the scores stay in the ``mma.sync`` accumulators, softmax in
+  f32 registers, ``exp2(s − max)`` cast to bf16 feeds the second product
+  from registers; shared memory holds only q, k, v (double-buffered,
+  ``cp.async``) and the f32 bias + mask tile, which a block reads once for
+  a row of longitude windows.
+- ``"shared"``, any other wlen and hd with wlen ≤ 256 after padding to 16
+  and ``WLP²·4 + 3·WLP·HDP·2 + WLP·4`` bytes of shared memory (WLP, HDP:
+  wlen, hd rounded up to 16) within a block's 227 KB: one block per
+  (window, head), scores through a shared-memory tile.
+
+Both divide by the f32 row sums after the second product, one bf16
+rounding of each weight apart from the reference, which normalises before
+its cast (that order ran 6–7 % slower in the register body on an H100).
+
+Bound on this card: bytes (qkv, output and the f32 bias and mask tables).
 
 On a CPU tensor each wrapper runs its plain version
 (``reference_window_attention``/``_qkv``, with ``ops/windows.py`` for
@@ -100,31 +111,50 @@ def _tables(bias, mask, n_win, nw, heads, wlen, what):
 
 def _lib():
     lib = _build.load("window_attention")
-    lib.skt_attention_4d.argtypes = [_P] * 4 + [_I] * 10 + [_F, _P]
-    lib.skt_attention_rows.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P]
-    lib.skt_attention_split.argtypes = [_P] * 6 + [_I] * 8 + [_F, _P]
+    lib.skt_attention_4d.argtypes = [_P] * 4 + [_I] * 10 + [_F, _I, _P]
+    lib.skt_attention_rows.argtypes = [_P] * 4 + [_I] * 8 + [_F, _I, _P]
+    lib.skt_attention_split.argtypes = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
     for fn in (lib.skt_attention_4d, lib.skt_attention_rows, lib.skt_attention_split):
         fn.restype = _I
     return lib
 
 
+BODIES = ("shared", "registers")  # attention::Body in csrc/attention.cuh
+# (WLP, largest hd) of the register body's instantiations: hd in (HDP - 32, HDP]
+_REGISTER_SHAPES = ((144, 32), (80, 64))
+
+
+def attention_body(wlen: int, hd: int) -> str:
+    """The kernel body a (wlen, hd) window takes, by shape alone:
+    ``"registers"`` (scores in registers) for the models' geometries,
+    ``"shared"`` (scores in a shared-memory tile) for any other window that
+    fits; raises ``ValueError`` for one that no body takes."""
+    wlp, hdp = -(-wlen // 16) * 16, -(-hd // 16) * 16
+    if any(wlp == w and h - 32 < hd <= h for w, h in _REGISTER_SHAPES):
+        return "registers"
+    smem = wlp * wlp * 4 + 3 * wlp * hdp * 2 + wlp * 4
+    if wlp > 256 or smem > _build.MAX_SMEM:
+        shapes = ", ".join(f"wlen {w - 15}-{w} with hd {h - 31}-{h}" for w, h in _REGISTER_SHAPES)
+        raise ValueError(
+            f"window attention: wlen {wlen}, hd {hd} need {smem} bytes of shared memory for the score tile; "
+            f"the register body takes {shapes}, the shared-memory body wlen <= 256 and "
+            f"WLP^2*4 + 3*WLP*HDP*2 + WLP*4 <= {_build.MAX_SMEM} (WLP, HDP: wlen, hd rounded up to 16)"
+        )
+    return "shared"
+
+
 def _require(what, wlen, hd, *tensors):
-    """Raise unless the tensors are contiguous bf16 CUDA tensors and the
-    window fits the kernel; returns whether their rows load 16 bytes at a time."""
+    """Raise unless the tensors are contiguous bf16 CUDA tensors and a body
+    takes the window; returns whether their rows load 16 bytes at a time, and
+    the body's number."""
     for t in tensors:
         if t.device.type != "cuda" or t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(
                 f"{what} takes contiguous bf16 CUDA tensors, got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device} (contiguous={t.is_contiguous()})"
             )
-    wlp, hdp = -(-wlen // 16) * 16, -(-hd // 16) * 16
-    smem = wlp * wlp * 4 + 3 * wlp * hdp * 2 + wlp * 4
-    if wlp > 256 or smem > _build.MAX_SMEM:
-        raise ValueError(
-            f"{what}: wlen {wlen}, hd {hd} need {smem} bytes of shared memory; the kernel takes "
-            f"wlen <= 256 and WLP^2*4 + 3*WLP*HDP*2 + WLP*4 <= {_build.MAX_SMEM} (WLP, HDP: wlen, hd rounded up to 16)"
-        )
-    return int(hd % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+    body = BODIES.index(attention_body(wlen, hd))
+    return int(hd % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)), body
 
 
 def _f32_tables(bias, mask, device):
@@ -161,11 +191,11 @@ def attention_4d(qkv, bias, mask, window, heads, lib, fn, what):
     bias, n_types, _ = _tables(bias, mask, nz * nh * nw, nw, heads, wlen, what)
     if mask is not None and tuple(mask.shape[:2]) != (nz, nh):
         raise ValueError(f"{what}: mask shape {tuple(mask.shape)} != {(nz, nh, wlen, wlen)}")
-    vec = _require(what, wlen, hd, qkv)
+    vec, body = _require(what, wlen, hd, qkv)
     bias, mask, mask_ptr = _f32_tables(bias, mask, qkv.device)
     out = torch.empty((Z, H, Wd, C), dtype=torch.bfloat16, device=qkv.device)
     err = fn(qkv.data_ptr(), bias.data_ptr(), mask_ptr, out.data_ptr(), Z, H, Wd, C, heads,
-             wz, wh, ww, n_types, vec, hd**-0.5, _stream(qkv))  # fmt: skip
+             wz, wh, ww, n_types, vec, hd**-0.5, body, _stream(qkv))  # fmt: skip
     _build.check(lib, err, what)
     return out
 
@@ -196,13 +226,13 @@ def fused_window_attention(qkv, bias, mask, n_lon_windows, heads):
     if qkv.device.type == "cpu":
         return reference_window_attention_qkv(qkv, bias, mask, n_lon_windows, heads)
     hd = C // heads
-    vec = _require(what, wlen, hd, qkv)
+    vec, body = _require(what, wlen, hd, qkv)
     bias, mask, mask_ptr = _f32_tables(bias, mask, qkv.device)
     out = torch.empty((n_win, wlen, C), dtype=torch.bfloat16, device=qkv.device)
     lib = _lib()
     err = lib.skt_attention_rows(
         qkv.data_ptr(), bias.data_ptr(), mask_ptr, out.data_ptr(), n_win, wlen, C, heads,
-        _lon_windows(n_lon_windows, n_types, n_masks), n_types, n_masks, vec, hd**-0.5, _stream(qkv),
+        _lon_windows(n_lon_windows, n_types, n_masks), n_types, n_masks, vec, hd**-0.5, body, _stream(qkv),
     )
     _build.check(lib, err, what)
     fused_window_attention.launches += 1
@@ -222,14 +252,14 @@ def flash_window_attention(q, k, v, bias, mask, n_lon_windows):
     bias, n_types, n_masks = _tables(bias, mask, n_win, n_lon_windows, heads, wlen, what)
     if q.device.type == "cpu":
         return reference_window_attention(q, k, v, bias, mask, n_lon_windows)
-    vec = _require(what, wlen, hd, q, k, v)
+    vec, body = _require(what, wlen, hd, q, k, v)
     bias, mask, mask_ptr = _f32_tables(bias, mask, q.device)
     out = torch.empty_like(q)
     lib = _lib()
     err = lib.skt_attention_split(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), mask_ptr, out.data_ptr(),
         n_win, heads, wlen, hd, _lon_windows(n_lon_windows, n_types, n_masks), n_types, n_masks,
-        vec, hd**-0.5, _stream(q),
+        vec, hd**-0.5, body, _stream(q),
     )
     _build.check(lib, err, what)
     flash_window_attention.launches += 1

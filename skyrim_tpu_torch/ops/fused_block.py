@@ -15,9 +15,11 @@ Design: the TPU kernel keeps a whole window tile in VMEM; a Hopper
 thread block has 227 KB of shared memory, less than the packed qkv of
 one 144-token window at C = 384 with its scores, so the block runs as
 seven launches of hand-written kernels: LN1 (csrc/fused_block.cu) →
-qkv GEMM+bias (csrc/gemm.cu) → window attention (csrc/attention.cuh,
-the kernel of K5, any wlen and hd that fit shared memory) → proj GEMM+bias+residual → LN2 → fc1 GEMM+bias+GELU → fc2
-GEMM+bias+residual.  LN and the GEMMs are per token and run on the flat
+qkv GEMM+bias (csrc/gemm.cu, the wgmma row GEMM of csrc/rowgemm.cuh) →
+window attention (csrc/attention.cuh, the bodies of K5: scores in
+registers at the models' geometries, a shared-memory score tile for any
+other wlen and hd that fit) → proj GEMM+bias+residual → LN2 → fc1
+GEMM+bias+GELU → fc2 GEMM+bias+residual.  LN and the GEMMs are per token and run on the flat
 (Z·H·W, C) view; the attention kernel reads q/k/v straight out of
 (Z, H, W, 3C) by index math, so no window relayout touches memory.  The
 intermediates (qkv, attention output, x1, LN outputs, MLP hidden) do
@@ -73,7 +75,7 @@ def _lib():
     lib = _build.load("fused_block")
     lib.skt_layernorm_bf16.argtypes = [_P, _P, _P, _P, _I, _I, _F, _P]
     lib.skt_layernorm_bf16.restype = _I
-    lib.skt_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 10 + [_F, _P]
+    lib.skt_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 10 + [_F, _I, _P]
     lib.skt_window_attention_bf16.restype = _I
     return lib
 

@@ -8,7 +8,8 @@ trailing kernel rows (the concat is never built); ``x_transposed`` takes x
 feature-major (Cin, N) and reads it in place; the residual is added after
 the LayerNorm, in the compute dtype.
 
-Kernels (csrc/fused_mlp.cu with csrc/rowgemm.cuh): the first GEMM with a
+Kernels (csrc/fused_mlp.cu with csrc/rowgemm.cuh, the ``wgmma`` row GEMM
+of every port kernel that multiplies): the first GEMM with a
 split-K first layer and an f32 swish epilogue, the second GEMM with its
 bias (and the residual when there is no LayerNorm), then the LayerNorm
 rows kernel, which adds the residual.  Rows that are not 16-byte aligned
@@ -175,13 +176,16 @@ def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
 
 def segment_sum(x, local, S):
     """(G·R, C) rows and (G, R) int32 ids → (G, S, C): per group, the f32 sum
-    of the rows with each id in [0, S), in row order, as bf16.  A block keeps
-    its group's S x 128 f32 sums and R ids in shared memory: S·512 + R·4
-    bytes must fit a block's 227 KB."""
+    of the rows with each id in [0, S), as bf16; ids in any order (runs of
+    equal ids are summed in registers first, so sorted ids are fastest), the
+    same bits on every call.  A block keeps its group's S x 128 f32 sums and
+    R ids in shared memory: S·512 + R·4 bytes must fit a block's 227 KB."""
     G, R = local.shape
     C = x.shape[1]
-    if S * 512 + R * 4 > _build.MAX_SMEM:
-        raise ValueError(f"segment_sum: S {S}, R {R} need {S * 512 + R * 4} bytes of shared memory, over {_build.MAX_SMEM}")
+    if S * 512 + R * 4 > _build.MAX_SMEM or C % 2:
+        raise ValueError(
+            f"segment_sum: S {S}, R {R} need {S * 512 + R * 4} bytes of shared memory (at most {_build.MAX_SMEM}) and C {C} must be even"
+        )
     require(x, (G * R, C), "segment_sum x")
     require(local, (G, R), "segment_sum local", torch.int32)
     out = torch.empty((G, S, C), dtype=torch.bfloat16, device=x.device)

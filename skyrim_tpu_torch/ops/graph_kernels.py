@@ -4,8 +4,12 @@ predecessors K13-K14.
 - K7 ``fused_round_messages`` replaces ``skyrim_tpu/ops/graph_kernels.py``
   ``fused_round_messages`` (body ``_round_kernel``): one multimesh
   processor round over dst-sorted edge blocks — dst-row expansion, edge
-  GEMM, finish, residual edge update, segment aggregation.
-  csrc/graph_round.cu + csrc/fused_mlp.cu.
+  GEMM, finish, residual edge update, segment aggregation.  Four
+  launches: the ``wgmma`` row GEMM with the expansion and swish in its
+  epilogue (csrc/graph_round.cu), the second Dense, the LayerNorm rows
+  kernel with the edges as residual, and the segmented sum
+  (csrc/fused_mlp.cu, csrc/rowgemm.cuh), which sums runs of equal ids in
+  registers and is fastest on the plan's sorted ids.
 - K8 ``fused_m2g_tiled`` replaces ``fused_m2g_tiled`` (body
   ``_m2g_tiled_kernel``): the mesh→grid decoder over face tiles, the sum
   over the 3 slots of finish(face row + bias + dst row).

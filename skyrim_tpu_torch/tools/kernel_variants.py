@@ -1,0 +1,199 @@
+"""Time variants of a hand-written kernel against each other on one card.
+
+    python -m skyrim_tpu_torch.tools.kernel_variants KIND [VARIANT ...]
+
+KIND is ``attention``, ``gemm`` or ``round``.  A VARIANT is a directory: an
+edited copy of ``skyrim_tpu_torch/csrc`` (``""`` for the package's own, which
+is also what is timed when no variant is given).  The sources carry no
+build-time switches: an experiment is a copy with the change made in it.
+Every variant is built with the package's nvcc
+flags plus ``-Xptxas -v`` (the register, stack and shared-memory report of
+the kernels named below is printed), checked to launch, then timed with CUDA
+events, 20 launches a round, four rounds in turn over the variants, so that
+clock drift shows as spread between rounds and not as a difference between
+variants.
+
+- ``attention``: ``window_attention.cu``; ``skt_attention_4d`` (K5) at Pangu
+  stage 1 — qkv (8, 186, 360, 576), 6 heads, 124 bias types — and stage 2 —
+  qkv (8, 96, 180, 1152), 12 heads, 64 types — shifted mask on both.
+- ``gemm``: ``fused_mlp.cu``; ``skt_mlp_gemm`` on K7's second product,
+  (329,728 x 512) @ (512 x 512) with the bias epilogue, with its TFLOP/s
+  and its largest difference from ``torch.matmul`` in f32.
+- ``round``: ``graph_round.cu`` and ``fused_mlp.cu``; K7's chain at
+  (322, 1024, 512), SB 176 on a sorted ``local``: the first product with its
+  expansion epilogue, the second Dense, the LayerNorm with its residual and
+  the segmented sum; each launch alone and the chain.
+
+Prints one line per report, per (round, variant, case); needs a CUDA device
+and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROUNDS, LAUNCHES = 4, 20
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp",), "round": ("graph_round", "fused_mlp")}
+REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm", "EpiStore"),
+            "round": ("rowgemm", ""), }  # fmt: skip
+
+
+def _bind(lib, name, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, I
+    return fn
+
+
+def attention_cases(torch, libs):
+    from skyrim_tpu_torch.ops.flash_window_attention import BODIES, attention_body
+    from skyrim_tpu_torch.ops.windows import shift_attention_mask
+
+    dev, window = torch.device("cuda"), (2, 6, 12)
+    g = torch.Generator(device=dev).manual_seed(0)
+    fn = _bind(libs["window_attention"], "skt_attention_4d", [P] * 4 + [I] * 10 + [F, I, P])
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+    for stage, (Z, H, W, C, heads, valid_h) in (("stage 1", (8, 186, 360, 192, 6, 181)), ("stage 2", (8, 96, 180, 384, 12, 91))):
+        qkv = torch.randn(Z, H, W, 3 * C, device=dev, generator=g).to(torch.bfloat16)
+        bias = torch.randn((Z // 2) * (H // 6), heads, 144, 144, device=dev, generator=g) * 0.5
+        mask = torch.from_numpy(shift_attention_mask((Z, H, W), window, (1, 3, 6), (Z, valid_h, W))).to(dev)
+        out = torch.empty(Z, H, W, C, device=dev, dtype=torch.bfloat16)
+        body = BODIES.index(attention_body(144, C // heads))
+
+        def call(a=(qkv, bias, mask, out), dims=(Z, H, W, C, heads), body=body):
+            qkv, bias, mask, out = a
+            return fn(qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(), *dims, *window,
+                      bias.shape[0], 1, (dims[3] // dims[4]) ** -0.5, body, stream)  # fmt: skip
+
+        cases[f"K5 {stage}"] = (call, None)
+    return cases
+
+
+def gemm_cases(torch, libs):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    M, K, N = 322 * 1024, 512, 512
+    a = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=dev, generator=g) * K**-0.5).to(torch.bfloat16)
+    b = torch.randn(N, device=dev, generator=g)
+    out = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+    fn = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        return fn(a.data_ptr(), K, 1, K, None, 0, w.data_ptr(), b.data_ptr(), None, out.data_ptr(), M, N, 0, 1, stream)
+
+    call()  # held against torch.matmul in f32 on a slice of the rows
+    err = float((out[:4096].float() - (a[:4096].float() @ w.float() + b)).abs().max())
+    print(f"skt_mlp_gemm: max |kernel - matmul| over 4096 rows = {err:.4g}")
+    return {f"skt_mlp_gemm ({M}, {K}) @ ({K}, {N})": (call, 2 * M * K * N)}
+
+
+def round_cases(torch, libs):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, M, Lw, SB = 322, 1024, 512, 176
+    rows = B * M
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(torch.bfloat16)
+
+    e, gsrc, staged = randn(rows, Lw), randn(rows, Lw, scale=0.3), randn(B, SB, Lw, scale=0.3)
+    local = torch.sort(torch.randint(0, SB + 1, (B, M), device=dev, generator=g), dim=1).values.to(torch.int32)
+    we, w = randn(Lw, Lw, scale=Lw**-0.5), randn(Lw, Lw, scale=Lw**-0.5)
+    b0, b, scale, bias = (torch.randn(Lw, device=dev, generator=g) * 0.1 for _ in range(4))
+    h, y, ne = (torch.empty(rows, Lw, device=dev, dtype=torch.bfloat16) for _ in range(3))
+    agg = torch.empty(B, SB, Lw, device=dev, dtype=torch.bfloat16)
+    rg = _bind(libs["graph_round"], "skt_round_gemm", [P] * 7 + [I] * 4 + [P])
+    mg = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
+    ln = _bind(libs["fused_mlp"], "skt_ln_rows", [P, P, P, P, P, I, I, I, F, P])
+    ss = _bind(libs["fused_mlp"], "skt_segment_sum", [P, P, P, I, I, I, I, P])
+    st = torch.cuda.current_stream().cuda_stream
+    p = lambda t: t.data_ptr()  # noqa: E731
+
+    def first():
+        return rg(p(e), p(we), p(b0), p(gsrc), p(staged), p(local), p(h), rows, Lw, M, SB, st)
+
+    def second():
+        return mg(p(h), Lw, 1, Lw, None, 0, p(w), p(b), None, p(y), rows, Lw, 0, 1, st)
+
+    def norm():
+        return ln(p(y), p(scale), p(bias), p(e), p(ne), rows, Lw, 1, 1e-6, st)
+
+    def seg():
+        return ss(p(ne), p(local), p(agg), B, M, SB, Lw, st)
+
+    return {
+        "round_gemm": (first, 2 * rows * Lw * Lw), "mlp_gemm": (second, 2 * rows * Lw * Lw),
+        "ln_rows": (norm, None), "segment_sum": (seg, None),
+        "K7 chain": (lambda: first() or second() or norm() or seg(), None),
+    }  # fmt: skip
+
+
+CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases}
+
+
+def main(argv: list[str]) -> int:
+    import torch
+
+    from skyrim_tpu_torch.ops import _build
+
+    if not argv or argv[0] not in CASES:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    kind = argv[0]
+    variants = []
+    for src in argv[1:] or [""]:
+        variants.append((src or "package", Path(src) if src else _build.CSRC))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for n, (label, src) in enumerate(variants):
+            for name in SOURCES[kind]:
+                lib = Path(tmp) / f"variant{n}-{name}.so"
+                cmd = [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-I", str(src), "-o", str(lib),
+                       str(src / f"{name}.cu")]  # fmt: skip
+                jobs.append((label, name, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        libs: dict[str, dict] = {}
+        for label, name, lib, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                print(f"{label}: nvcc {name}.cu failed\n{log}", file=sys.stderr)
+                return 1
+            lines = log.splitlines()
+            for i, line in enumerate(lines):
+                if "Function properties" in line and all(w in line for w in REPORTED[kind]):
+                    print(f"{label}: {line.split('for ')[-1][:110]}: {lines[i + 1].strip()}; {lines[i + 2].strip()}")
+            libs.setdefault(label, {})[name] = ctypes.CDLL(str(lib))
+        calls = {}
+        for label, loaded in libs.items():
+            for case, (call, flops) in CASES[kind](torch, loaded).items():
+                if call() != 0:
+                    print(f"{label}: {case}: the launch was refused", file=sys.stderr)
+                    return 1
+                calls[(label, case)] = (call, flops)
+        torch.cuda.synchronize()
+        for rnd in range(ROUNDS):
+            for (label, case), (call, flops) in calls.items():
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(LAUNCHES):
+                    call()
+                end.record()
+                torch.cuda.synchronize()
+                ms = start.elapsed_time(end) / LAUNCHES
+                rate = f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""
+                print(f"round {rnd} {label}: {case}: {ms:.4f} ms{rate}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -281,6 +281,37 @@ def test_block_composed_around_earth_attention_matches_fused_and_jax(pangu_pair,
         np.testing.assert_allclose(out, ref, atol=3e-5, rtol=0)
 
 
+# --- which kernel body a shape takes --------------------------------------------
+
+
+BODY_BY_SHAPE = {
+    # (wlen, hd): body
+    "pangu_wlen144_hd32": (144, 32, "registers"),
+    "fuxi_fengwu_wlen72_hd64": (72, 64, "registers"),
+    "wlen130_hd20_pads_to_pangu": (130, 20, "registers"),
+    "wlen144_hd64": (144, 64, "shared"),
+    "wlen72_hd32": (72, 32, "shared"),
+    "wlen24_hd4": (24, 4, "shared"),
+    "wlen100_hd20": (100, 20, "shared"),
+    "wlen16_hd8": (16, 8, "shared"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BODY_BY_SHAPE))
+def test_attention_body_by_shape(case):
+    """The models' geometries take the register body, any other window that
+    fits the shared-memory one; the choice reads the shape alone."""
+    wlen, hd, body = BODY_BY_SHAPE[case]
+    assert FA.attention_body(wlen, hd) == body
+    assert body in FA.BODIES
+
+
+@pytest.mark.parametrize("wlen,hd", [(288, 8), (257, 4), (224, 64)])
+def test_attention_body_refuses_a_window_no_body_takes(wlen, hd):
+    with pytest.raises(ValueError, match="shared memory"):
+        FA.attention_body(wlen, hd)
+
+
 # --- on the card ---------------------------------------------------------------
 
 

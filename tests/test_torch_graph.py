@@ -269,25 +269,38 @@ def _finish_params(rng, L):
     return _n(rng, L, s=0.1), (_n(rng, L, L, s=0.2), _n(rng, L, s=0.1)), (_n(rng, L), _n(rng, L))
 
 
-def _round_inputs(B=4, M=64, SB=16, L=16, seed=23):
-    """As tests/ops/test_fused_mlp.py:142: sorted local ids with padding."""
+def _round_inputs(B=4, M=64, SB=16, L=16, seed=23, layout="sorted"):
+    """As tests/ops/test_fused_mlp.py:142: sorted local ids with padding;
+    ``unsorted`` shuffles each block's ids, ``all_padding_block`` makes every
+    row of block 1 a padding row."""
     rng = np.random.default_rng(seed)
     local = np.sort(rng.integers(0, SB + 1, size=(B, M)), axis=-1).astype(np.int32)
     assert (local == SB).any()  # padding rows are on the path
+    if layout == "unsorted":
+        local = rng.permuted(local, axis=-1)
+        assert (np.diff(local, axis=-1) < 0).any()
+    elif layout == "all_padding_block":
+        local[1] = SB
     b0, wb, ln = _finish_params(rng, L)
     return (_n(rng, B, M, L), _n(rng, B, M, L, s=0.3), _n(rng, B, SB, L, s=0.3), local,
             _n(rng, L, L, s=0.2), b0, wb, ln, SB)
 
 
-def test_plain_round_matches_jax():
+ROUND_LAYOUTS = ("sorted", "unsorted", "all_padding_block")
+
+
+@pytest.mark.parametrize("layout", ROUND_LAYOUTS)
+def test_plain_round_matches_jax(layout):
     import jax.numpy as jnp
 
     from skyrim_tpu.ops.graph_kernels import fused_round_messages as j_fused
     from skyrim_tpu.ops.graph_kernels import reference_round_messages as j_ref
 
-    a = _round_inputs()
+    a = _round_inputs(layout=layout)
     for dt, jdt, close in ((torch.float32, jnp.float32, _close_f32), (torch.bfloat16, jnp.bfloat16, _close_bf16)):
         ne, agg = GK.fused_round_messages(*_t(a[:3], dt), _t(a[3]), *_t(a[4:8]), a[8])
+        if layout == "all_padding_block":
+            assert not agg[1].any()  # no row of the block aggregates
         jin = (*_j(a[:3], jdt), _j(a[3]), *_j(a[4:8]))
         for j_ne, j_agg in (j_fused(*jin, a[8], interpret=True), j_ref(*jin, a[8])):
             close(ne, j_ne)
@@ -394,6 +407,16 @@ def test_mlp_kernel_matches_plain(cuda, case):
     _close_card(out, FM.reference_mlp(*args, **kw))
 
 
+def _close_card_per_element(out, ref):
+    """For f32 sums of a varying number of messages: the ulps of each
+    element's own |plain|, so a missing message is not hidden under the
+    largest aggregate's."""
+    out, ref = out.float(), ref.float()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    tol = 2e-2 * ref.std() + 2 * 2.0**-8 * ref.abs()
+    assert ((out - ref).abs() <= tol).all(), float(((out - ref).abs() / tol).max())
+
+
 @pytest.mark.gpu
 def test_round_kernel_matches_plain_with_padding(cuda):
     a = _round_inputs(B=6, M=256, SB=48, L=64)
@@ -404,6 +427,83 @@ def test_round_kernel_matches_plain_with_padding(cuda):
     ne_r, agg_r = GK.reference_round_messages(*args)
     _close_card(ne, ne_r)
     _close_card(agg, agg_r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [64, 512], ids=["L64", "L512"])
+@pytest.mark.parametrize("layout", ROUND_LAYOUTS)
+def test_round_kernel_layouts_and_repeat(cuda, layout, L):
+    """K7 on sorted, unsorted and all-padding ids, on the cp.async ring's
+    64-wide tiles and at the width of the TMA kernel; two calls on the same
+    inputs give the same bits."""
+    a = _round_inputs(B=3, M=256, SB=48, L=L, layout=layout)
+    bf = torch.bfloat16
+    a = (*a[:4], a[4] * (16 / L) ** 0.5, a[5], (a[6][0] * (16 / L) ** 0.5, a[6][1]), *a[7:])  # unit-variance products
+    args = (*_t(a[:3], bf, cuda), _t(a[3], device=cuda), *_t(a[4:8], device=cuda), a[8])
+    ne, agg = GK.fused_round_messages(*args)
+    ne2, agg2 = GK.fused_round_messages(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ne, ne2) and torch.equal(agg, agg2)
+    ne_r, agg_r = GK.reference_round_messages(*args)
+    _close_card(ne, ne_r)
+    _close_card_per_element(agg, agg_r)
+
+
+SEGSUM_IDS = ("sorted", "unsorted", "out_of_range")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ids", SEGSUM_IDS)
+def test_segment_sum_matches_scatter_add(cuda, ids):
+    """The segmented sum against scatter_add_ in f32: ids in [0, S) aggregate
+    in any order, every other id (S, beyond, negative) is skipped."""
+    G_, R, S, C = 5, 333, 37, 192
+    rng = np.random.default_rng(3)
+    local = np.sort(rng.integers(0, S, size=(G_, R)), axis=-1).astype(np.int32)
+    if ids == "unsorted":
+        local = rng.permuted(local, axis=-1)
+    elif ids == "out_of_range":
+        local = rng.integers(-3, S + 4, size=(G_, R)).astype(np.int32)
+        assert (local < 0).any() and (local >= S).any()
+    x = _t(_n(rng, G_ * R, C), torch.bfloat16, cuda)
+    loc = _t(local, device=cuda)
+    out = FM.segment_sum(x, loc, S)
+    again = FM.segment_sum(x, loc, S)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    acc = torch.zeros((G_, S + 1, C), dtype=torch.float32, device=cuda)
+    idx = torch.where((loc >= 0) & (loc < S), loc, S).long()
+    acc.scatter_add_(1, idx[..., None].expand(-1, -1, C), x.float().view(G_, R, C))
+    _close_card_per_element(out, acc[:, :S].to(torch.bfloat16))
+
+
+GPU_GEMM_SHAPES = {
+    # name: (M, K1, K2, N, feature-major): the row GEMM's ragged edges
+    "mesh_rows_m40962": (40962, 512, 0, 512, False),
+    "head_n83": (4099, 512, 0, 83, False),
+    "embed_k174_feature_major": (4099, 174, 0, 512, True),
+    "split_k512_k512": (4099, 512, 512, 512, False),
+    "k3_element_rows": (1000, 3, 0, 64, False),
+    "n192_k768": (300, 768, 0, 192, False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GPU_GEMM_SHAPES))
+def test_row_gemm_matches_matmul(cuda, case):
+    """The row GEMM against torch.matmul in f32 on the same bf16 operands."""
+    M, K1, K2, N, xt = GPU_GEMM_SHAPES[case]
+    rng = np.random.default_rng(5)
+    a = _t(_n(rng, *((K1, M) if xt else (M, K1))), torch.bfloat16, cuda)
+    a2 = _t(_n(rng, M, K2), torch.bfloat16, cuda) if K2 else None
+    w = _t(_n(rng, K1 + K2, N, s=(K1 + K2) ** -0.5), torch.bfloat16, cuda)
+    b = _t(_n(rng, N, s=0.1), device=cuda)
+    out = FM.mlp_gemm(a, w, b, a2=a2, transposed=xt)
+    torch.cuda.synchronize()
+    rows = a.T.float() if xt else a.float()
+    if a2 is not None:
+        rows = torch.cat([rows, a2.float()], dim=1)
+    _close_card(out, rows @ w.float() + b)
 
 
 @pytest.mark.gpu
