@@ -21,8 +21,12 @@ Phases:
      inputs (the same bits), and with one real edge dropped per block, which
      its check must refuse; the row GEMM alone at ragged shapes (M = 40,962;
      N = 83; K = 174 feature-major; K = 1,024 split 512 + 512) against
-     torch.matmul in f32, and its rate on K7's second product and K6's grid
-     update beside torch.matmul's (timed only); K8 and K9 on the real full-width
+     torch.matmul in f32, its TMA store into an output with 64 guard rows
+     past a ragged M (N 192 and 512, residual epilogue), which must come back
+     bit-identical, and every aligned shape it takes on the main paths
+     (Pangu's eight block products, K3's and K4's Dense, K7's second
+     product, K6's grid update) against its plain version, with its rate,
+     bound and launches per forward beside torch.matmul's (timed only); K8 and K9 on the real full-width
      tile tables (partial tiles in K8), and K9's outputs under two faults
      (a dropped message, a misread slot bias), which its check must refuse.
      The op layer: K5, K10 and K11 on one qkv at Pangu stage 1 and stage 2
@@ -39,7 +43,8 @@ Phases:
      wrapper, the count set to 0 just before;
   4. the main paths, each with every launch count set to 0 just before and
      read just after: GlobalModel("pangu", ic_source="synthetic") at
-     721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward),
+     721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward, and
+     66 launches of the row GEMM through ops.gemm inside them),
      then GlobalModel("graphcast", ic_source="synthetic"), 721x1440, 83
      channels, latent 512, 16 rounds, refinement 6, a 4-step forecast
      (21 K6, 16 K7, 1 K8, 1 K9 per forward; the cache build's launches are
@@ -452,13 +457,41 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     return rows, faults
 
 
+# The aligned row GEMM's shapes on the main paths: name, M, K, N, epilogue
+# (what K1, K3, K4 give ops.gemm.gemm; "mlp": ops.fused_mlp.mlp_gemm, bias
+# only), and the kernel (with its by-shape key) whose launches it shares.
+S1, S2 = (8, 186, 360, 192), (8, 96, 180, 384)
+GEMM_ROWS = (
+    ("Pangu stage 1/4 qkv", 535680, 192, 576, "bias", ("K1", S1)),
+    ("Pangu stage 1/4 proj + residual", 535680, 192, 192, "residual", ("K1", S1)),
+    ("Pangu stage 1/4 fc1 + GELU", 535680, 192, 768, "gelu", ("K1", S1)),
+    ("Pangu stage 1/4 fc2 + residual", 535680, 768, 192, "residual", ("K1", S1)),
+    ("Pangu stage 2/3 qkv", 138240, 384, 1152, "bias", ("K1", S2)),
+    ("Pangu stage 2/3 proj + residual", 138240, 384, 384, "residual", ("K1", S2)),
+    ("Pangu stage 2/3 fc1 + GELU", 138240, 384, 1536, "gelu", ("K1", S2)),
+    ("Pangu stage 2/3 fc2 + residual", 138240, 1536, 384, "residual", ("K1", S2)),
+    ("K3 Dense", 131040, 768, 384, "bias", ("K3", None)),
+    ("K4 Dense", 131040, 384, 768, "bias", ("K4", None)),
+    ("K7's second product", 322 * 1024, 512, 512, "mlp", ("K7", None)),
+    ("K6 grid_update, one product", 721 * 1440, 512, 512, "mlp", ("K6", (721 * 1440, 512, 0, 512))),
+)
+GUARD_ROWS, SENTINEL = 64, 0x7FA5  # a bf16 NaN pattern no product writes
+
+
 def row_gemm_checks(torch, g) -> list[dict]:
-    """Phase 3, the row GEMM alone (csrc/rowgemm.cuh through skt_mlp_gemm): its
-    ragged edges against torch.matmul in f32 on the same bf16 operands, within
-    the kernel tolerance; then its rate on K7's second product and K6's grid
-    update, with torch.matmul in bf16 on the same operands timed beside it
-    (the yardstick: called nowhere in the port)."""
+    """Phase 3, the row GEMM alone (csrc/rowgemm.cuh): its ragged edges
+    through skt_mlp_gemm against torch.matmul in f32 on the same bf16
+    operands, within the kernel tolerance; the TMA store into an output with
+    GUARD_ROWS rows past M (skt_gemm_bf16 called through the library, residual
+    epilogue, M not a multiple of the row tile, N 192 and 512), which must come
+    back bit-identical; then every aligned shape of the main paths (GEMM_ROWS)
+    against its plain version, timed with torch.matmul in bf16 on the same
+    operands beside it (the yardstick: called nowhere in the port)."""
+    import ctypes
+
+    from skyrim_tpu_torch.ops import _build
     from skyrim_tpu_torch.ops import fused_mlp as FM
+    from skyrim_tpu_torch.ops.gemm import gemm, plain_gemm
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -480,17 +513,45 @@ def row_gemm_checks(torch, g) -> list[dict]:
         out.append(dict(name=f"row GEMM, {what}: ({M}, {K1 + K2}) @ ({K1 + K2}, {N})",
                         max_abs_err=compare(torch, c, ref, f"row GEMM, {what}")))
         del a, a2, w, b, c, rows, ref
-    for what, M in (("K7's second product", 322 * 1024), ("K6 grid_update, one product", 721 * 1440)):
-        K = N = 512
+
+    lib = _build.load("gemm")
+    fn = lib.skt_gemm_bf16
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+    for M, K, N in ((40962, 384, 192), (40962, 512, 512)):
         a, w, b = randn(M, K, dtype=bf16), randn(K, N, scale=K**-0.5, dtype=bf16), randn(N, scale=0.1)
-        ms = time_ms(torch, lambda: FM.mlp_gemm(a, w, b), 10)
+        r = randn(M, N, dtype=bf16)
+        buf = torch.full((M + GUARD_ROWS, N), SENTINEL, device=dev, dtype=torch.int16)
+        _build.check(lib, fn(a.data_ptr(), w.data_ptr(), b.data_ptr(), r.data_ptr(), buf.data_ptr(), M, N, K, 2,
+                             torch.cuda.current_stream().cuda_stream), "skt_gemm_bf16 with guard rows")  # fmt: skip
+        torch.cuda.synchronize()
+        name = f"row GEMM, TMA store with {GUARD_ROWS} guard rows: ({M}, {K}) @ ({K}, {N}) + residual"
+        check(bool((buf[M:] == SENTINEL).all()), f"{name}: a guard row past M was written")
+        err = compare(torch, buf[:M].view(bf16), plain_gemm(a, w, b, residual=r), name)
+        out.append(dict(name=name, max_abs_err=err, guard_rows_identical=True))
+        del a, w, b, r, buf
+
+    for what, M, K, N, epi, launch_of in GEMM_ROWS:
+        a, w, b = randn(M, K, dtype=bf16), randn(K, N, scale=K**-0.5, dtype=bf16), randn(N, scale=0.1)
+        r = randn(M, N, dtype=bf16) if epi == "residual" else None
+        if epi == "mlp":
+            fn = lambda: FM.mlp_gemm(a, w, b)  # noqa: E731
+        else:
+            fn = lambda: gemm(a, w, b, gelu=epi == "gelu", residual=r)  # noqa: E731
+        c = fn()
+        torch.cuda.synchronize()
+        err = compare(torch, c, plain_gemm(a, w, b, gelu=epi == "gelu", residual=r), f"row GEMM, {what}")
+        del c
+        ms = time_ms(torch, fn, 10)
         lib_ms = time_ms(torch, lambda: torch.matmul(a, w), 10)
-        out.append(dict(name=f"row GEMM, {what}: ({M}, {K}) @ ({K}, {N})", ms=ms, tflops=2 * M * K * N / ms / 1e9,
-                        library_ms=lib_ms, library_tflops=2 * M * K * N / lib_ms / 1e9))
-        del a, w, b
+        flops = 2 * M * K * N
+        b_ms, b_by = bound(flops, 2 * (M * K + K * N + M * N * (2 if r is not None else 1)))
+        out.append(dict(name=f"row GEMM, {what}: ({M}, {K}) @ ({K}, {N})", max_abs_err=err, ms=ms,
+                        tflops=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        library_tflops=flops / lib_ms / 1e9, launch_of=launch_of))
+        del a, w, b, r
+        torch.cuda.empty_cache()
     for r in out:
-        log("  ".join(f"{k} {v:.4g}" if isinstance(v, float) else str(v) for k, v in r.items()))
-    torch.cuda.empty_cache()
+        log("  ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
     return out
 
 
@@ -767,10 +828,11 @@ def read_counts() -> tuple[dict, dict]:
 def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     """Launches per n_steps forwards of the main path: every kernel of the
     port is listed, so the other model's kernels must stay at 0."""
-    counts = dict.fromkeys(MODEL_OF, 0)
+    counts = dict.fromkeys((*MODEL_OF, "gemm"), 0)
     by_shape = {k: {} for k in BY_SHAPE}
     if model.name == "pangu":
-        counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps)
+        # the row GEMM through ops.gemm: K1's four products, K3's and K4's Dense
+        counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps, gemm=(16 * 4 + 2) * n_steps)
         # per forward: 4 blocks (and rolls) at stage 1/4, 12 at stage 2/3
         for k in ("K1", "K2"):
             by_shape[k] = {(8, 186, 360, 192): 4 * n_steps, (8, 96, 180, 384): 12 * n_steps}
@@ -861,7 +923,7 @@ def main_path(torch, model_name: str, g) -> dict:
     modules = module_path(torch, params["net6"], g) if model_name == "pangu" else None
     del gm, model, params, state, fc
     torch.cuda.empty_cache()
-    return dict(counts=counts, by_shape=by_shape, setup_launches=setup_counts, setup_s=setup_s,
+    return dict(counts=counts, by_shape=by_shape, n_steps=n_steps, setup_launches=setup_counts, setup_s=setup_s,
                 forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile, modules=modules)
 
 
@@ -987,6 +1049,13 @@ def main() -> int:
             elif shape is not None:  # K5 at a Pangu stage: its launches on the module path
                 r["launches"] = mp["pangu"]["modules"]["by_shape"].get(shape, 0)
             check(r["launches"] > 0, f"{r['name']} was not launched on its path")
+        for r in gemm_rows:  # the row GEMM's launches per forward: those of the kernel it runs inside
+            if "launch_of" in r:
+                key, shape = r.pop("launch_of")
+                run = mp[MODEL_OF[key]]
+                n = run["by_shape"][key].get(shape, 0) if shape is not None else run["counts"][key]
+                r["launches_per_forward"] = n / run["n_steps"]
+                check(n > 0, f"{r['name']}: its kernel was not launched on the main path")
 
         # 5. small configurations, card vs CPU
         small = {name: small_config(torch, name) for name in ("pangu", "graphcast")}

@@ -13,14 +13,19 @@
 //   skt_mlp_gemm  y = bf16(h @ W2 + b2)   (no LN: + residual here)
 //   skt_ln_rows   out = bf16(res + bf16(LN(y)))   (residual after the LN)
 // skt_segment_sum is the deterministic segmented sum of K7, K9 and K14.  The
-// GEMM is rowgemm.cuh's: wgmma fed by TMA in persistent blocks on aligned rows,
-// ~450 TFLOP/s at 512 wide on an H100, 46 % of the bf16 peak (torch.matmul on
-// the same operands: ~600); a cp.async ring under a loader functor elsewhere.
+// GEMM is rowgemm.cuh's: on aligned rows wgmma fed by TMA, one persistent
+// block an SM whose two consumer warpgroups take tiles in turn and store each
+// epilogue by TMA, ~460 TFLOP/s at 512 wide on an NVIDIA H100 80GB HBM3 (700
+// W), 47 % of the bf16 peak (torch.matmul on the same operands: ~600; the
+// products alone, without the epilogue, ~660); a cp.async ring under a loader
+// functor elsewhere.
 //
 // Bound on this card: operations.  At full width a grid MLP does
 // 2 * N * (Cin * H + H * Cout) = 1.09 TFLOP (N = 1,038,240, 512 -> 512 -> 512)
 // on 2.1 GB of rows in and out: 1.10 ms at 989 TFLOP/s against 0.64 ms at
 // 3.35 TB/s.
+#include <chrono>
+
 #include "rowgemm.cuh"
 
 extern "C" int skt_mlp_gemm(const void* a1, long long s1m, long long s1k, int K1, const void* a2,
@@ -45,4 +50,40 @@ extern "C" int skt_ln_rows(const void* y, const void* scale, const void* bias, c
 extern "C" int skt_segment_sum(const void* x, const void* local, void* out, int G, int R, int S,
                                int C, void* stream) {
   return rowgemm::launch_segsum(x, local, out, G, R, S, C, stream);
+}
+
+// The host's share of one aligned row-GEMM launch, ns a call, each the mean of
+// n calls on the host clock (tools/kernel_variants.py prints them): ns[0]
+// encoding the launch's three tensor maps (A, W, out), ns[1] one
+// cudaFuncSetAttribute (which every launch paid before the attribute was set
+// once an instance), ns[2] a whole skt_mlp_gemm launch as the wrappers make
+// it.  a (M, K), W (K, N) and out (M, N) bf16 and bias (N,) f32 on the card,
+// N % 128 == 0; n launches are queued.
+extern "C" int skt_rowgemm_host_ns(const void* a, const void* W, const void* bias, void* out, int M,
+                                   int N, int K, int n, void* stream, double* ns) {
+  using clock = std::chrono::steady_clock;
+  const auto per_call = [n](clock::time_point t0) {
+    return std::chrono::duration<double, std::nano>(clock::now() - t0).count() / n;
+  };
+  CUtensorMap map;
+  int err = 0;
+  auto t0 = clock::now();
+  for (int i = 0; i < n && !err; ++i) {
+    err = rowgemm::make_tensor_map(&map, a, M, K, K, 128);
+    if (!err) err = rowgemm::make_tensor_map(&map, W, K, N, N, rowgemm::BK);
+    if (!err) err = rowgemm::make_tensor_map(&map, out, M, N, N, 128);
+  }
+  ns[0] = per_call(t0);
+  t0 = clock::now();
+  for (int i = 0; i < n && !err; ++i)
+    err = static_cast<int>(cudaFuncSetAttribute(
+        rowgemm::rowgemm_tma_kernel<128, 128, rowgemm::EpiStore>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rowgemm::TmaTile<128, 128>::SMEM));
+  ns[1] = per_call(t0);
+  t0 = clock::now();
+  for (int i = 0; i < n && !err; ++i)
+    err = skt_mlp_gemm(a, K, 1, K, nullptr, 0, W, bias, nullptr, out, M, N, rowgemm::ACT_NONE, 1,
+                       stream);
+  ns[2] = per_call(t0);
+  return err;
 }

@@ -29,25 +29,22 @@
 namespace {
 
 struct EpiRound {
-  const float* b0;
-  const bf16* gsrc;    // (rows, N)
+  const float* bias;   // b0
+  const bf16* gsrc;    // (rows, N): added as the kernels add a residual
   const bf16* staged;  // (B, SB, N)
   const int* local;    // (rows,)
   bf16* out;
   int N, M, SB;
 
-  // N % 8 == 0 (the wrapper checks L), so nv == 8: 16-byte accesses
-  __device__ __forceinline__ void operator()(int row, int col, float* v, int) const {
+  __host__ __device__ __forceinline__ const bf16* residual() const { return gsrc; }
+  // N % 8 == 0 (the wrapper checks L), so every call has 8 columns
+  __device__ __forceinline__ void apply(int row, int col, float* v, const float* b,
+                                        const float* gs) const {
     const int l = local[row];
-    const bool hit = (unsigned)l < (unsigned)SB;
-    float gs[8], st[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    load8(gsrc + (size_t)row * N + col, gs);
-    if (hit) load8(staged + ((size_t)(row / M) * SB + l) * N + col, st);
-    float b[8];
-    load8f(b0 + col, 8, b);
+    float st[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if ((unsigned)l < (unsigned)SB) load8(staged + ((size_t)(row / M) * SB + l) * N + col, st);
 #pragma unroll
     for (int u = 0; u < 8; ++u) v[u] = rowgemm::swish(v[u] + gs[u] + st[u] + b[u]);
-    store8(out + (size_t)row * N + col, v);
   }
 };
 

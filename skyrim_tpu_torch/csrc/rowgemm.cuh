@@ -20,16 +20,21 @@
 //                   loader functor whose chunk(row, k, dst) writes 16 bytes,
 //                   the swizzle's unit (strided or unaligned rows, or a
 //                   computed prologue such as a gather + swish); the f32
-//                   results go to an epilogue functor 8 consecutive columns at
-//                   a time, straight from the accumulators after a quad
-//                   exchange.  Ragged M, N and K edges are zero-filled on load
-//                   and masked at the store.
-//   rowgemm_tma_kernel  the same product under the same epilogue functors for
-//                   plain aligned rows (ARows<true>, N % 128 or % 192 == 0):
-//                   persistent blocks, the slices brought by TMA (tensor maps
-//                   made in launch_rowgemm_tma, completion on mbarriers) by one
-//                   thread while two warpgroups multiply; launch_rowgemm takes
-//                   it wherever the operands allow.
+//                   results go through an epilogue functor's apply() 8
+//                   consecutive columns at a time, straight from the
+//                   accumulators after a quad exchange, and are stored from
+//                   registers.  Ragged M, N and K edges are zero-filled on
+//                   load and masked at the store.
+//   rowgemm_tma_kernel  the same product under the same functors for plain
+//                   aligned rows (ARows<true>, N % 128 or % 192 == 0): one
+//                   persistent block an SM, the slices brought by TMA (tensor
+//                   maps made in launch_rowgemm_tma, completion on
+//                   mbarriers) by one thread; two consumer
+//                   warpgroups take whole tiles in turn (ping-pong), stage
+//                   each epilogue's bf16 tile in shared memory and store it by
+//                   TMA, so that one's epilogue runs under the other's
+//                   products.  launch_rowgemm takes it wherever the operands
+//                   allow.
 //   ln_rows_kernel  one warp per output row: out = bf16([res +] sum_k
 //                   bf16(LN(y[row * nsum + k]))), sum in f32, nsum 1 to 4,
 //                   through common.cuh's layernorm_rows_warp; also Pangu's
@@ -56,7 +61,7 @@
 namespace rowgemm {
 
 constexpr int BK = 64, THREADS = 256;  // a k slice of 128 bytes: one swizzle row
-constexpr int STAGES = 3;              // slices in a ring, of either kernel
+constexpr int STAGES = 3;              // slices in rowgemm_kernel's ring
 constexpr int SEG_COLS = 128;          // columns per segsum block (two per thread)
 
 // x * sigmoid(x) with the fast exponential and division (each within 2 ulps
@@ -130,6 +135,16 @@ __device__ __forceinline__ void store_out(bf16* out, int N, int row, int col, co
   }
 }
 
+// Epilogue functors.  apply(row, col, v, b, r) turns the f32 products v of 8
+// consecutive columns of one row into the values to store, in registers,
+// given bias[col .. col + 7] in b and, where residual() names a (rows, N)
+// bf16 matrix, its 8 values at (row, col) in r.  The kernel brings b and r and
+// stores v to out (row-major, row stride N) as bf16: rowgemm_kernel loads and
+// stores straight from device memory; rowgemm_tma_kernel preloads its tile's
+// bias into registers, brings the residual tile by TMA into shared memory and
+// stores through a staged tile by TMA.  So each epilogue's arithmetic has one
+// copy.
+//
 // out = bf16(act(acc + bias)), or bf16(bf16(acc + bias) + res) with a
 // residual; ACT_SWISH acts on the f32 value, as GraphCast's MLPs do.
 struct EpiStore {
@@ -139,17 +154,9 @@ struct EpiStore {
   int N;
   int act;
 
-  __device__ __forceinline__ void operator()(int row, int col, float* v, int nv) const {
-    float r[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (res) {
-      if (nv == 8 && (N & 7) == 0) {  // 16-byte rows: one vector load
-        load8(res + (size_t)row * N + col, r);
-      } else {
-        for (int u = 0; u < nv; ++u) r[u] = __bfloat162float(res[(size_t)row * N + col + u]);
-      }
-    }
-    float b[8];
-    load8f(bias + col, nv, b);
+  __host__ __device__ __forceinline__ const bf16* residual() const { return res; }
+  // b: bias[col .. col + 7]; r: the residual's 8 values where residual() is set
+  __device__ __forceinline__ void apply(int, int, float* v, const float* b, const float* r) const {
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       float t = v[u] + b[u];
@@ -157,9 +164,23 @@ struct EpiStore {
       if (res) t = bf16_round(t) + r[u];
       v[u] = t;
     }
-    store_out(out, N, row, col, v, nv);
   }
 };
+
+// The residual's 8 (or nv) values at (row, col) where the functor has one, else 0
+// (rowgemm_kernel's loads).
+template <class Epi>
+__device__ __forceinline__ void load_residual(const Epi& epi, int row, int col, int nv, float* r) {
+  const bf16* res = epi.residual();
+#pragma unroll
+  for (int u = 0; u < 8; ++u) r[u] = 0.f;
+  if (!res) return;
+  if (nv == 8 && (epi.N & 7) == 0) {
+    load8(res + (size_t)row * epi.N + col, r);
+  } else {
+    for (int u = 0; u < nv; ++u) r[u] = __bfloat162float(res[(size_t)row * epi.N + col + u]);
+  }
+}
 
 // --- wgmma ------------------------------------------------------------------------
 
@@ -293,26 +314,39 @@ __device__ __forceinline__ void gemm_mainloop(const ALoad& aload, const bf16* __
   }
 }
 
-// The accumulators of a warpgroup's 64 x WN tile, handed to f(row, col, v) as
-// 8 consecutive columns of one row (rows and columns relative to the tile):
-// lane (g, q) of warp w holds rows 16w + g and + 8, columns 8j + 2q, + 1 of
-// every 8-column tile j; a quad exchanges four tiles at a time.
-template <int WN, class F>
+// The first column of the 8 that this lane gets at step j4 of
+// for_each_8<WN, true>.
+__device__ __forceinline__ int swizzled_col(int j4) {
+  const int lane = threadIdx.x & 31;
+  return (((lane >> 2) & 1 ? j4 ^ 1 : j4) * 4 + (lane & 3)) * 8;
+}
+
+// The accumulators of a warpgroup's 64 x WN tile, handed to f(row, col, v, j4)
+// as 8 consecutive columns of one row (rows and columns relative to the tile)
+// at step j4: lane (g, q) of warp w holds rows 16w + g and + 8, columns 8j +
+// 2q, + 1 of every 8-column tile j; a quad exchanges four tiles at a time.
+// SWIZZLED: lanes of odd g take the groups of four tiles in the order 1, 0, 3,
+// 2, ..., so that a quarter warp (g = 2i, 2i + 1) writing its 16-byte chunks
+// into rows of the 128-byte swizzle (chunk c of row r at c ^ (r % 8)) hits
+// eight different chunk slots: no bank conflict.
+template <int WN, bool SWIZZLED = false, class F>
 __device__ __forceinline__ void for_each_8(const float (&acc)[WN / 2], F f) {
+  static_assert(!SWIZZLED || WN % 64 == 0, "groups of four tiles come in pairs");
   const int lane = threadIdx.x & 31, w = (threadIdx.x >> 5) & 3;
   const int g = lane >> 2, q = lane & 3;
+  const bool swap = SWIZZLED && (g & 1);
 #pragma unroll
   for (int j4 = 0; j4 < WN / 32; ++j4) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float x[4][2], v[8];
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        x[t][0] = acc[(j4 * 4 + t) * 4 + 2 * h];
-        x[t][1] = acc[(j4 * 4 + t) * 4 + 2 * h + 1];
-      }
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          x[t][e] = swap ? acc[((j4 ^ 1) * 4 + t) * 4 + 2 * h + e] : acc[(j4 * 4 + t) * 4 + 2 * h + e];
       quad_transpose(x, v);
-      f(w * 16 + g + 8 * h, (j4 * 4 + q) * 8, v);
+      f(w * 16 + g + 8 * h, SWIZZLED ? swizzled_col(j4) : (j4 * 4 + q) * 8, v, j4);
     }
   }
 }
@@ -355,6 +389,27 @@ __device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+// Shared memory -> the box of `map` at (c0, c1), in this thread's bulk group;
+// box rows and columns beyond the matrix are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, unsigned src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+// Returns once at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Named barriers (id 0 is __syncthreads): sync waits for n threads, arrive counts without waiting.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 
 // A tensor map over a row-major bf16 matrix (rows x cols, row stride ld
 // elements) with boxes of box_rows x 64 columns in the 128-byte swizzle: what
@@ -388,52 +443,98 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, ui
 }
 
 // The row GEMM for aligned rows (ARows<true>; N % 128 == 0, or % 192 == 0 for
-// Pangu's 192 and 576): persistent blocks that walk the tiles, 128 rows x BN
-// columns each.  One thread keeps TMA loads in flight into a ring of
-// STAGES slices (A 128 x 64, W 64 x BN, in gemm_mainloop's layout);
-// two warpgroups multiply, 64 rows x BN columns each, and hand their
-// accumulators to the epilogue functor while the loads of the block's next
-// tile are already under way.  full[s] completes when the bytes of slot s have
-// landed, empty[s] when the eight multiplying warps have read them.  BLOCKS:
-// two blocks an SM at BN 128 (one warp of loads, 288 threads), so that one
-// block's epilogue runs under the other's products; one at BN 192 (a
-// warpgroup of loads that hands its registers to the other two).
-template <int BN>
+// Pangu's 192 and 576): one persistent block an SM walks the tiles blockIdx.x,
+// + gridDim.x, ..., each BM rows x BN columns over the whole K.
+//
+// - Producer: one thread of the third warpgroup (setmaxnreg 40) keeps TMA
+//   loads in flight into a ring of STAGES slices (A BM x 64, W 64 x BN, in
+//   gemm_mainloop's layout) in the walk's order.  full[s] completes when the
+//   bytes of slot s have landed, empty[s] when the four warps of the consumer
+//   that multiplied them have read them.
+//   With a residual (Epi::residual(), K7's gsrc included), the producer
+//   first brings the tile's residual by TMA into its consumer's staging tile
+//   (res_full[c]), once that consumer's last store has read it (out_free[c]).
+// - Two consumer warpgroups (setmaxnreg 232) take the walk's tiles in turn,
+//   each a whole tile (BM / 64 wgmma rows of 64), and run the tile's epilogue
+//   themselves: the functor's arithmetic on the accumulators in registers,
+//   with the tile's bias loaded into registers before the products and the
+//   residual read from the staging tile; bf16 into the consumer's own staging
+//   tile in shared memory (the 128-byte swizzle, boxes of 64 columns, no bank
+//   conflict), then one thread stores it by TMA (cp.async.bulk.tensor, rows
+//   beyond M clipped), waits until the store has read it, and the warpgroup
+//   goes back to its next tile.  No load from device memory is left in the
+//   epilogue but K7's staged-row gather.
+// - Ping-pong: named barriers 1 and 2 hand the tensor cores from one consumer
+//   to the other.  A consumer starts a tile's products only once the other
+//   has finished its previous tile's, and signals the other when its own are
+//   done, so one consumer's epilogue (and its store) runs under the other's
+//   products instead of in step with them.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W): the products alone run at
+// 660-670 TFLOP/s on 512-wide rows, above torch.matmul's ~600; what is left
+// is the epilogue wherever it is longer than the other consumer's products,
+// since one warpgroup runs a whole tile's epilogue: GELU after Pangu's K 192
+// and 384 (fc1), K7's staged-row gather.  Most of Pangu's products are
+// byte-bound (2M(K + N) bytes, 2MN more with a residual).
+template <int BM, int BN>
 struct TmaTile {
-  static constexpr int BM = 128;
   static constexpr int A_BYTES = BM * BK * 2, B_BYTES = BK * BN * 2, STAGE = A_BYTES + B_BYTES;
-  static constexpr size_t SMEM = (size_t)STAGES * STAGE + 1024 + 2 * STAGES * sizeof(uint64_t);
-  static_assert(BN % 64 == 0 && SMEM <= 232448, "fits a block");
+  static constexpr int OUT_BYTES = BM * BN * 2;  // a consumer's staging tile
+  static constexpr int FIXED = 1024 + 2 * OUT_BYTES + 32;  // alignment, the two staging tiles, their barriers
+  static constexpr int STAGES = (232448 - FIXED) / (STAGE + 16);  // as deep as shared memory allows
+  static constexpr size_t SMEM = (size_t)FIXED + (size_t)STAGES * (STAGE + 16);
+  static_assert((BM == 64 || BM == 128) && BN % 64 == 0 && STAGES >= 2, "fits a block");
 };
-constexpr int tma_threads(int blocks) { return blocks == 1 ? 384 : 288; }
+constexpr int TMA_THREADS = 384;  // two consumer warpgroups and a producer warpgroup
 
-template <int BN, int BLOCKS, class Epi>
-__global__ void __launch_bounds__(tma_threads(BLOCKS), BLOCKS)
+template <int BM, int BN, class Epi>
+__global__ void __launch_bounds__(TMA_THREADS, 1)
     rowgemm_tma_kernel(__grid_constant__ const CUtensorMap mapA1,
                        __grid_constant__ const CUtensorMap mapA2,
-                       __grid_constant__ const CUtensorMap mapW, Epi epi, int M, int N, int K1, int K,
-                       int tiles) {
-  using T = TmaTile<BN>;
+                       __grid_constant__ const CUtensorMap mapW,
+                       __grid_constant__ const CUtensorMap mapOut,
+                       __grid_constant__ const CUtensorMap mapRes, Epi epi, int M, int N, int K1,
+                       int K, int tiles) {
+  using T = TmaTile<BM, BN>;
+  constexpr int S = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = align1024(smem_raw);
-  const unsigned full0 = smem_addr(ring + STAGES * T::STAGE), empty0 = full0 + STAGES * 8;
+  unsigned char* staging = ring + S * T::STAGE;
+  const unsigned full0 = smem_addr(staging + 2 * T::OUT_BYTES), empty0 = full0 + S * 8;
+  // res_full[c]: the residual tile landed in consumer c's staging tile;
+  // out_free[c]: consumer c's last store has read its staging tile
+  const unsigned res_full0 = empty0 + S * 8, out_free0 = res_full0 + 16;
+  const bool has_res = epi.residual() != nullptr;
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 8);
+      mbar_init(empty0 + 8 * s, 4);
+    }
+    for (int c = 0; c < 2; ++c) {
+      mbar_init(res_full0 + 8 * c, 1);
+      mbar_init(out_free0 + 8 * c, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const int tiles_n = N / BN, nk = (K + BK - 1) / BK;
-  int stage = 0;
-  unsigned phase = 0;
   if (wg == 2) {
-    if constexpr (BLOCKS == 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid != 256) return;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = (tile / tiles_n) * T::BM, n0 = (tile % tiles_n) * BN;
+    int stage = 0;
+    unsigned phase = 0;
+    for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+      if (has_res) {  // the residual tile into its consumer's staging tile, once that is free
+        const int c = p & 1;
+        mbar_wait(out_free0 + 8 * c, ((p >> 1) & 1) ^ 1);  // passes at once on the first use
+        mbar_expect_tx(res_full0 + 8 * c, T::OUT_BYTES);
+        const unsigned dst = smem_addr(staging + c * T::OUT_BYTES);
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_load_2d(dst + b * (BM * 128), &mapRes, res_full0 + 8 * c, n0 + 64 * b, m0);
+      }
       for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(empty0 + 8 * stage, phase ^ 1);  // passes at once the first time round
         const unsigned full = full0 + 8 * stage, slot = smem_addr(ring + stage * T::STAGE);
@@ -446,74 +547,140 @@ __global__ void __launch_bounds__(tma_threads(BLOCKS), BLOCKS)
 #pragma unroll
         for (int j = 0; j < BN / 64; ++j)
           tma_load_2d(slot + T::A_BYTES + j * (BK / 8) * 1024, &mapW, full, n0 + 64 * j, k0);
-        if (++stage == STAGES) stage = 0, phase ^= 1;
+        if (++stage == S) stage = 0, phase ^= 1;
       }
     }
   } else {
-    if constexpr (BLOCKS == 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     constexpr unsigned B_N_STRIDE = (BK / 8) * 1024, B_K_STRIDE = 1024;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = (tile / tiles_n) * T::BM, n0 = (tile % tiles_n) * BN;
-      float acc[BN / 2];
+    const int me = wg, other = wg ^ 1;
+    const bool elected = (tid & 127) == 0;
+    unsigned char* out_tile = staging + me * T::OUT_BYTES;
+    // position p of the block's walk is tile blockIdx.x + p * gridDim.x; this
+    // consumer takes the positions p = me, me + 2, ...
+    for (int p = me;; p += 2) {
+      const int tile = blockIdx.x + p * gridDim.x;
+      if (tile >= tiles) break;
+      const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+      int stage = (p * nk) % S;  // the producer's slice p * nk of the walk
+      unsigned phase = ((p * nk) / S) & 1;
+      float acc[BM / 64][BN / 2];
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int h = 0; h < BM / 64; ++h)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[h][i] = 0.f;
+      // this lane's bias values of the tile, for step j4 of the epilogue,
+      // loaded while the products run
+      float bias[BN / 32][8];
+#pragma unroll
+      for (int j4 = 0; j4 < BN / 32; ++j4) load8f(epi.bias + n0 + swizzled_col(j4), 8, bias[j4]);
+      if (p > 0) bar_sync(1 + me, 256);  // position p - 1's products are done
       for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(full0 + 8 * stage, phase);
-        const unsigned a0 = smem_addr(ring + stage * T::STAGE) + wg * 64 * 128;
-        const unsigned b0 = smem_addr(ring + stage * T::STAGE + T::A_BYTES);
+        const unsigned a0 = smem_addr(ring + stage * T::STAGE);
+        const unsigned b0 = a0 + T::A_BYTES;
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < BK / 16; ++ks)
-          wgmma_bf16<BN>(acc, wgmma_desc(a0 + ks * 32, 16, 1024),
-                         wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
+#pragma unroll
+          for (int h = 0; h < BM / 64; ++h)
+            wgmma_bf16<BN>(acc[h], wgmma_desc(a0 + h * 64 * 128 + ks * 32, 16, 1024),
+                           wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
         wgmma_commit();
-        wgmma_wait<0>();
-        if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * stage);
-        if (++stage == STAGES) stage = 0, phase ^= 1;
+        // one group left in flight: the previous slice's products are done,
+        // its slot goes back to the producer
+        wgmma_wait<1>();
+        if (kt > 0 && (tid & 31) == 0) mbar_arrive(empty0 + 8 * (stage == 0 ? S - 1 : stage - 1));
+        if (++stage == S) stage = 0, phase ^= 1;
       }
-      for_each_8<BN>(acc, [&](int r, int c, float* v) {
-        const int gr = m0 + wg * 64 + r, gc = n0 + c;
-        if (gr < M) epi(gr, gc, v, 8);
-      });
+      wgmma_wait<0>();
+      if ((tid & 31) == 0) mbar_arrive(empty0 + 8 * (stage == 0 ? S - 1 : stage - 1));
+      if (tile + gridDim.x < tiles) bar_arrive(1 + other, 256);  // position p + 1 may multiply
+
+      // epilogue: the residual tile has landed in the staging tile (or, with
+      // none, the last store has read it: the elected thread waited) ...
+      if (has_res) mbar_wait(res_full0 + 8 * me, (p >> 1) & 1);
+      bar_sync(3 + me, 128);
+      // ... the functor's values into it, box b = columns 64b .. 64b + 63 ...
+#pragma unroll
+      for (int h = 0; h < BM / 64; ++h)
+        for_each_8<BN, true>(acc[h], [&](int r, int c, float* v, int j4) {
+          const int row = h * 64 + r;
+          uint4* chunk = reinterpret_cast<uint4*>(out_tile + (c >> 6) * (BM * 128) + row * 128 +
+                                                  ((((c >> 3) & 7) ^ (row & 7)) << 4));
+          float res[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          if (has_res) load8(reinterpret_cast<const bf16*>(chunk), res);
+          if (m0 + row < M) epi.apply(m0 + row, n0 + c, v, bias[j4], res);
+          *chunk = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                              pack_bf16(v[6], v[7]));
+        });
+      fence_async_shared();  // ... made visible to the TMA unit, then stored by one thread
+      bar_sync(3 + me, 128);
+      if (elected) {
+#pragma unroll
+        for (int b = 0; b < BN / 64; ++b)
+          tma_store_2d(&mapOut, smem_addr(out_tile) + b * (BM * 128), n0 + 64 * b, m0);
+        bulk_commit();
+        bulk_wait_read<0>();  // the staging tile is free again: for the producer's residual
+        if (has_res) mbar_arrive(out_free0 + 8 * me);
+      }
     }
   }
 }
 
+// cudaFuncSetAttribute once for each kernel instance; every later launch gets
+// the first call's result.  (Static: a function-local static of an inline
+// function or a template is one object for every library loaded in the
+// process, so one library's first call would stand for all.)
+template <int BM, int BN, class Epi>
+static int tma_kernel_attribute() {
+  static const int err = static_cast<int>(cudaFuncSetAttribute(
+      rowgemm_tma_kernel<BM, BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TmaTile<BM, BN>::SMEM));
+  return err;
+}
+
 constexpr int TMA_NOT_TAKEN = -1;
+
+template <int BM, int BN, class Epi>
+int launch_tma_tiles(const ARows<true>& a, const bf16* W, const Epi& epi, int M, int N, int K,
+                     cudaStream_t st) {
+  const long long tiles = (long long)(N / BN) * ((M + BM - 1) / BM);
+  if (tiles > 0x7fffffffLL) return TMA_NOT_TAKEN;
+  CUtensorMap mapA1, mapA2, mapW, mapOut, mapRes;
+  if (int err = make_tensor_map(&mapA1, a.a1, M, a.K1, a.s1m, BM)) return err;
+  if (int err = make_tensor_map(&mapW, W, K, N, N, BK)) return err;
+  if (int err = make_tensor_map(&mapOut, epi.out, M, N, N, BM)) return err;
+  mapRes = mapOut;
+  if (epi.residual())
+    if (int err = make_tensor_map(&mapRes, epi.residual(), M, N, N, BM)) return err;
+  mapA2 = mapA1;
+  if (a.K2)
+    if (int err = make_tensor_map(&mapA2, a.a2, M, a.K2, a.K2, BM)) return err;
+  if (int err = tma_kernel_attribute<BM, BN, Epi>()) return err;
+  const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
+  rowgemm_tma_kernel<BM, BN, Epi><<<grid, TMA_THREADS, TmaTile<BM, BN>::SMEM, st>>>(
+      mapA1, mapA2, mapW, mapOut, mapRes, epi, M, N, a.K1, K, (int)tiles);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Launches rowgemm_tma_kernel where the operands allow it: 16-byte aligned
 // bases and row strides, N a multiple of 128 or 192, and a split first part
 // that ends on a slice.  TMA_NOT_TAKEN for other shapes: the caller takes
 // rowgemm_kernel.  A CUDA without the encoder, or an encoder that refuses
 // operands that passed these tests, is an error and goes back to the wrapper,
-// which raises.
+// which raises.  Tiles: 128 x 128 a consumer where N % 128 == 0 (128
+// accumulators a thread), else 64 x 192.
 template <class Epi>
 int launch_rowgemm_tma(const ARows<true>& a, const bf16* W, const Epi& epi, int M, int N, int K,
                        cudaStream_t st) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (M <= 0 || (N % 128 && N % 192) || a.s1k != 1 || a.s1m % 8 || a.K1 % 8 || a.K2 % 8 ||
-      !aligned(a.a1) || !aligned(W) || (a.K2 && (a.K1 % BK || !aligned(a.a2))))
+      !aligned(a.a1) || !aligned(W) || !aligned(epi.out) || !aligned(epi.residual()) ||
+      (a.K2 && (a.K1 % BK || !aligned(a.a2))))
     return TMA_NOT_TAKEN;
-  const int blocks = N % 128 ? 1 : 2, bn = N % 128 ? 192 : 128;
-  const long long tiles = (long long)(N / bn) * ((M + 127) / 128);
-  if (tiles > 0x7fffffffLL) return TMA_NOT_TAKEN;
-  CUtensorMap mapA1, mapA2, mapW;
-  if (int err = make_tensor_map(&mapA1, a.a1, M, a.K1, a.s1m, 128)) return err;
-  if (int err = make_tensor_map(&mapW, W, K, N, N, BK)) return err;
-  mapA2 = mapA1;
-  if (a.K2)
-    if (int err = make_tensor_map(&mapA2, a.a2, M, a.K2, a.K2, 128)) return err;
-  auto go = [&](auto kernel, size_t smem) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int resident = blocks * sm_count();
-    const unsigned grid = (unsigned)(tiles < resident ? tiles : resident);
-    kernel<<<grid, tma_threads(blocks), smem, st>>>(mapA1, mapA2, mapW, epi, M, N, a.K1, K, (int)tiles);
-    return static_cast<int>(cudaGetLastError());
-  };
-  if (bn == 128) return go(rowgemm_tma_kernel<128, 2, Epi>, TmaTile<128>::SMEM);
-  return go(rowgemm_tma_kernel<192, 1, Epi>, TmaTile<192>::SMEM);
+  if (N % 128 == 0) return launch_tma_tiles<128, 128>(a, W, epi, M, N, K, st);
+  return launch_tma_tiles<64, 192>(a, W, epi, M, N, K, st);
 }
 
 // C[M, N] = epi(A[M, K] @ W[K, N]).  One block a tile, the column blocks of
@@ -533,10 +700,25 @@ __global__ void __launch_bounds__(THREADS, 2)
   float acc[BN / 2];
   gemm_mainloop<BN>(aload, W, m0, n0, N, K, align1024(smem_raw), acc);
   const int wg = threadIdx.x >> 7;
-  for_each_8<BN>(acc, [&](int r, int c, float* v) {
+  for_each_8<BN>(acc, [&](int r, int c, float* v, int) {
     const int gr = m0 + wg * 64 + r, gc = n0 + c;
-    if (gr < M && gc < N) epi(gr, gc, v, min(8, N - gc));
+    if (gr < M && gc < N) {
+      const int nv = min(8, N - gc);
+      float b[8], res[8];
+      load8f(epi.bias + gc, nv, b);
+      load_residual(epi, gr, gc, nv, res);
+      epi.apply(gr, gc, v, b, res);
+      store_out(epi.out, epi.N, gr, gc, v, nv);
+    }
   });
+}
+
+template <int BN, class ALoad, class Epi>
+static int ring_kernel_attribute() {
+  static const int err = static_cast<int>(cudaFuncSetAttribute(
+      rowgemm_kernel<BN, ALoad, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Tile<BN>::SMEM));
+  return err;
 }
 
 template <class ALoad, class Epi>
@@ -548,17 +730,18 @@ int launch_rowgemm(const ALoad& aload, const void* W, const Epi& epi, int M, int
     const int err = launch_rowgemm_tma(aload, w, epi, M, N, K, st);
     if (err != TMA_NOT_TAKEN) return err;
   }
-  auto go = [&](auto kernel, int bn, size_t smem) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  auto go = [&](auto kernel, int bn, size_t smem, int attr_err) {
+    if (attr_err) return attr_err;
     const long long tiles = (long long)((N + bn - 1) / bn) * ((M + 127) / 128);
     if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
     kernel<<<(unsigned)tiles, THREADS, smem, st>>>(aload, w, epi, M, N, K);
     return static_cast<int>(cudaGetLastError());
   };
-  if (N % 128 == 0) return go(rowgemm_kernel<128, ALoad, Epi>, 128, Tile<128>::SMEM);
-  return go(rowgemm_kernel<64, ALoad, Epi>, 64, Tile<64>::SMEM);
+  if (N % 128 == 0)
+    return go(rowgemm_kernel<128, ALoad, Epi>, 128, Tile<128>::SMEM,
+              ring_kernel_attribute<128, ALoad, Epi>());
+  return go(rowgemm_kernel<64, ALoad, Epi>, 64, Tile<64>::SMEM,
+            ring_kernel_attribute<64, ALoad, Epi>());
 }
 
 // out[row] = bf16([res[row] +] sum_{k < NSUM} bf16(LN(y[row * NSUM + k]))),

@@ -16,9 +16,19 @@ variants.
 - ``attention``: ``window_attention.cu``; ``skt_attention_4d`` (K5) at Pangu
   stage 1 — qkv (8, 186, 360, 576), 6 heads, 124 bias types — and stage 2 —
   qkv (8, 96, 180, 1152), 12 heads, 64 types — shifted mask on both.
-- ``gemm``: ``fused_mlp.cu``; ``skt_mlp_gemm`` on K7's second product,
-  (329,728 x 512) @ (512 x 512) with the bias epilogue, with its TFLOP/s
-  and its largest difference from ``torch.matmul`` in f32.
+- ``gemm``: ``fused_mlp.cu`` and ``gemm.cu``; the aligned row GEMM at every
+  shape the main paths give it: ``skt_mlp_gemm`` on K7's second product,
+  (329,728 x 512) @ (512 x 512), and on one product of K6's grid update,
+  (1,038,240 x 512) @ (512 x 512), with the bias epilogue; ``skt_gemm_bf16``
+  on Pangu's eight block products (qkv, proj + residual, fc1 + GELU, fc2 +
+  residual at stage 1, M 535,680, C 192, and stage 2, M 138,240, C 384) and
+  on K3's and K4's Dense (M 131,040, 768 -> 384 and 384 -> 768), each with
+  the epilogue K1, K3 or K4 gives it.  Each with its TFLOP/s, and
+  ``torch.matmul`` in bf16 on the same operands timed beside it once (a
+  yardstick; the port never calls it).  Then, for a variant that exports
+  ``skt_rowgemm_host_ns``, the host's share of one launch over 1,000 calls
+  (tensor-map encodes, ``cudaFuncSetAttribute``, a whole launch), on the host
+  clock.
 - ``round``: ``graph_round.cu`` and ``fused_mlp.cu``; K7's chain at
   (322, 1024, 512), SB 176 on a sorted ``local``: the first product with its
   expansion epilogue, the second Dense, the LayerNorm with its residual and
@@ -38,8 +48,8 @@ from pathlib import Path
 
 ROUNDS, LAUNCHES = 4, 20
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp",), "round": ("graph_round", "fused_mlp")}
-REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm", "EpiStore"),
+SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp")}
+REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
             "round": ("rowgemm", ""), }  # fmt: skip
 
 
@@ -74,24 +84,97 @@ def attention_cases(torch, libs):
     return cases
 
 
+# name, M, K, N, epilogue: "mlp" (skt_mlp_gemm, bias), else skt_gemm_bf16's
+# 0 bias, 1 GELU, 2 residual
+GEMM_SHAPES = (
+    ("K7 second product", 322 * 1024, 512, 512, "mlp"),
+    ("K6 grid_update, one product", 721 * 1440, 512, 512, "mlp"),
+    ("Pangu s1 qkv", 535680, 192, 576, 0),
+    ("Pangu s1 proj + res", 535680, 192, 192, 2),
+    ("Pangu s1 fc1 + GELU", 535680, 192, 768, 1),
+    ("Pangu s1 fc2 + res", 535680, 768, 192, 2),
+    ("Pangu s2 qkv", 138240, 384, 1152, 0),
+    ("Pangu s2 proj + res", 138240, 384, 384, 2),
+    ("Pangu s2 fc1 + GELU", 138240, 384, 1536, 1),
+    ("Pangu s2 fc2 + res", 138240, 1536, 384, 2),
+    ("K3 Dense", 131040, 768, 384, 0),
+    ("K4 Dense", 131040, 384, 768, 0),
+)
+_operands: dict = {}  # one set of operands a shape, shared by the variants
+
+
+def _gemm_operands(torch, M, K, N):
+    if (M, K, N) not in _operands:
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(0)
+        _operands[(M, K, N)] = (
+            torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16),
+            (torch.randn(K, N, device=dev, generator=g) * K**-0.5).to(torch.bfloat16),
+            torch.randn(N, device=dev, generator=g) * 0.1,
+            torch.randn(M, N, device=dev, generator=g).to(torch.bfloat16),
+            torch.empty(M, N, device=dev, dtype=torch.bfloat16),
+        )
+    return _operands[(M, K, N)]
+
+
 def gemm_cases(torch, libs):
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    M, K, N = 322 * 1024, 512, 512
-    a = torch.randn(M, K, device=dev, generator=g).to(torch.bfloat16)
-    w = (torch.randn(K, N, device=dev, generator=g) * K**-0.5).to(torch.bfloat16)
-    b = torch.randn(N, device=dev, generator=g)
-    out = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
-    fn = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
+    mlp = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
+    gemm = _bind(libs["gemm"], "skt_gemm_bf16", [P] * 5 + [I] * 4 + [P])
     stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+    for name, M, K, N, epi in GEMM_SHAPES:
+        a, w, b, r, out = _gemm_operands(torch, M, K, N)
+        if epi == "mlp":
+            def call(a=a, w=w, b=b, out=out, M=M, K=K, N=N):
+                return mlp(a.data_ptr(), K, 1, K, None, 0, w.data_ptr(), b.data_ptr(), None, out.data_ptr(), M, N, 0, 1, stream)
+        else:
+            def call(a=a, w=w, b=b, r=r, out=out, M=M, K=K, N=N, epi=epi):
+                return gemm(a.data_ptr(), w.data_ptr(), b.data_ptr(), r.data_ptr() if epi == 2 else None, out.data_ptr(),
+                            M, N, K, epi, stream)  # fmt: skip
+        out.zero_()  # the operands are shared by the variants: no earlier variant's result stands
+        call()  # held against torch.matmul in f32 on the first 4096 rows
+        torch.cuda.synchronize()
+        ref = a[:4096].float() @ w.float() + b
+        if epi == 1:
+            ref = torch.nn.functional.gelu(ref.to(torch.bfloat16).float(), approximate="tanh")
+        elif epi == 2:
+            ref = ref.to(torch.bfloat16).float() + r[:4096].float()
+        err = float((out[:4096].float() - ref).abs().max())
+        print(f"{name} ({M}, {K}) @ ({K}, {N}): max |kernel - matmul| over 4096 rows = {err:.4g}")
+        cases[f"{name} ({M}, {K}) @ ({K}, {N})"] = (call, 2 * M * K * N)
+    return cases
 
-    def call():
-        return fn(a.data_ptr(), K, 1, K, None, 0, w.data_ptr(), b.data_ptr(), None, out.data_ptr(), M, N, 0, 1, stream)
 
-    call()  # held against torch.matmul in f32 on a slice of the rows
-    err = float((out[:4096].float() - (a[:4096].float() @ w.float() + b)).abs().max())
-    print(f"skt_mlp_gemm: max |kernel - matmul| over 4096 rows = {err:.4g}")
-    return {f"skt_mlp_gemm ({M}, {K}) @ ({K}, {N})": (call, 2 * M * K * N)}
+def yardsticks(torch, kind):
+    """torch.matmul in bf16 on each gemm case's operands (timed, never used)."""
+    if kind != "gemm":
+        return {}
+    out = {}
+    for name, M, K, N, _ in GEMM_SHAPES:
+        a, w = _gemm_operands(torch, M, K, N)[:2]
+        out[f"{name} ({M}, {K}) @ ({K}, {N})"] = (lambda a=a, w=w: torch.matmul(a, w), 2 * M * K * N)
+    return out
+
+
+def host_costs(torch, label, lib, launches=1000):
+    """The host's share of one aligned row-GEMM launch, where the variant
+    exports skt_rowgemm_host_ns (a 128-row product, so that the card keeps up)."""
+    if not hasattr(lib, "skt_rowgemm_host_ns"):
+        return
+    fn = _bind(lib, "skt_rowgemm_host_ns", [P] * 4 + [I] * 4 + [P, P])
+    M, K, N = 128, 512, 512
+    dev = torch.device("cuda")
+    a, w = torch.zeros(M, K, device=dev, dtype=torch.bfloat16), torch.zeros(K, N, device=dev, dtype=torch.bfloat16)
+    b, out = torch.zeros(N, device=dev), torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+    ns = (ctypes.c_double * 3)()
+    for _ in range(2):  # the second round: the attribute set, the library warm
+        err = fn(a.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, launches,
+                 torch.cuda.current_stream().cuda_stream, ns)  # fmt: skip
+        torch.cuda.synchronize()
+        if err:
+            raise RuntimeError(f"{label}: skt_rowgemm_host_ns: CUDA error {err}")
+    print(f"{label}: host ns a launch over {launches}: three tensor-map encodes {ns[0]:.0f}, "
+          f"cudaFuncSetAttribute {ns[1]:.0f}, whole skt_mlp_gemm launch {ns[2]:.0f}")
 
 
 def round_cases(torch, libs):
@@ -173,13 +256,22 @@ def main(argv: list[str]) -> int:
                 if "Function properties" in line and all(w in line for w in REPORTED[kind]):
                     print(f"{label}: {line.split('for ')[-1][:110]}: {lines[i + 1].strip()}; {lines[i + 2].strip()}")
             libs.setdefault(label, {})[name] = ctypes.CDLL(str(lib))
-        calls = {}
+        calls, refused = {}, 0
         for label, loaded in libs.items():
-            for case, (call, flops) in CASES[kind](torch, loaded).items():
-                if call() != 0:
-                    print(f"{label}: {case}: the launch was refused", file=sys.stderr)
-                    return 1
-                calls[(label, case)] = (call, flops)
+            cases = CASES[kind](torch, loaded)
+            errs = {case: call() for case, (call, _) in cases.items()}
+            torch.cuda.synchronize()
+            lib = next(iter(loaded.values()))
+            lib.skt_error_string.restype = ctypes.c_char_p
+            for case, (call, flops) in cases.items():
+                if errs[case]:  # left out of the timing
+                    print(f"{label}: {case}: the launch was refused: CUDA error {errs[case]} "
+                          f"({lib.skt_error_string(errs[case]).decode()})", file=sys.stderr)
+                    refused = 1
+                else:
+                    calls[(label, case)] = (call, flops)
+        for case, (call, flops) in yardsticks(torch, kind).items():
+            calls[("torch.matmul", case)] = (call, flops)
         torch.cuda.synchronize()
         for rnd in range(ROUNDS):
             for (label, case), (call, flops) in calls.items():
@@ -192,7 +284,9 @@ def main(argv: list[str]) -> int:
                 ms = start.elapsed_time(end) / LAUNCHES
                 rate = f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""
                 print(f"round {rnd} {label}: {case}: {ms:.4f} ms{rate}", flush=True)
-    return 0
+        for label, loaded in libs.items():
+            host_costs(torch, label, loaded.get("fused_mlp"))
+    return refused
 
 
 if __name__ == "__main__":

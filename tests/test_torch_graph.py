@@ -485,13 +485,52 @@ GPU_GEMM_SHAPES = {
     "split_k512_k512": (4099, 512, 512, 512, False),
     "k3_element_rows": (1000, 3, 0, 64, False),
     "n192_k768": (300, 768, 0, 192, False),
+    # the TMA kernel's tile walk: M 1, 127, 129; three tiles for each of 132
+    # blocks (one consumer a tile fewer); many tiles a block, at N 192 and
+    # with a split K; and the expansion epilogue of K7 (skt_round_gemm) on
+    # shuffled ids with padding rows, (B, M, SB, L)
+    "m1_n512": (1, 512, 0, 512, False),
+    "m127_n576": (127, 192, 0, 576, False),
+    "m129_n192": (129, 768, 0, 192, False),
+    "odd_tiles_per_block": (3 * 132 * 128 - 5, 128, 0, 128, False),
+    "many_tiles_per_block_n192": (40000, 192, 0, 192, False),
+    "many_tiles_split_k256_k256": (40000, 256, 256, 512, False),
+    "round_gemm_shuffled_padded": ("round", 40, 1024, 176, 512),
 }
+
+
+def _round_gemm_matches_plain(cuda, B, M, SB, L):
+    """skt_round_gemm through the library: h = bf16(swish(e @ We + gsrc +
+    staged[local] + b0)), no staged row where local == SB."""
+    import ctypes
+
+    from skyrim_tpu_torch.ops import _build
+
+    a = _round_inputs(B=B, M=M, SB=SB, L=L, layout="unsorted")
+    bf = torch.bfloat16
+    e, gsrc, staged = _t(a[:3], bf, cuda)
+    local, we, b0 = _t(a[3], device=cuda), _t(a[4], bf, cuda), _t(a[5], device=cuda)
+    rows = B * M
+    h = torch.empty(rows, L, device=cuda, dtype=bf)
+    lib = _build.load("graph_round")
+    fn = lib.skt_round_gemm
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+    err = fn(e.data_ptr(), we.data_ptr(), b0.data_ptr(), gsrc.data_ptr(), staged.data_ptr(), local.data_ptr(),
+             h.data_ptr(), rows, L, M, SB, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "skt_round_gemm")
+    torch.cuda.synchronize()
+    hit = (local < SB).unsqueeze(-1)
+    expand = torch.gather(staged.float(), 1, local.clamp(max=SB - 1).long().unsqueeze(-1).expand(B, M, L)) * hit
+    pre = e.float().view(rows, L) @ we.float() + gsrc.float().view(rows, L) + expand.view(rows, L) + b0
+    _close_card(h, torch.nn.functional.silu(pre).to(bf))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(GPU_GEMM_SHAPES))
 def test_row_gemm_matches_matmul(cuda, case):
     """The row GEMM against torch.matmul in f32 on the same bf16 operands."""
+    if GPU_GEMM_SHAPES[case][0] == "round":
+        return _round_gemm_matches_plain(cuda, *GPU_GEMM_SHAPES[case][1:])
     M, K1, K2, N, xt = GPU_GEMM_SHAPES[case]
     rng = np.random.default_rng(5)
     a = _t(_n(rng, *((K1, M) if xt else (M, K1))), torch.bfloat16, cuda)

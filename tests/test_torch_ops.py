@@ -160,8 +160,17 @@ def _cuda_args(inp, dev):
     return args
 
 
+# (M, K, N).  Beside the first four, the TMA kernel's tile walk: M 1, 127,
+# 129; a tile count that gives each of 132 blocks three tiles, so one
+# consumer has a tile fewer than the other; M large enough for every block to
+# walk many tiles, at N 192 (64 x 192 tiles) and 512 (128 x 128)
+GEMM_SHAPES = [(1000, 192, 576), (300, 16, 48), (257, 768, 192), (4096, 384, 1536),
+               (1, 192, 192), (127, 384, 576), (129, 512, 512), (3 * 132 * 128 - 5, 128, 128),
+               (40000, 192, 576), (40000, 512, 512)]  # fmt: skip
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,K,N", [(1000, 192, 576), (300, 16, 48), (257, 768, 192), (4096, 384, 1536)])
+@pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
 @pytest.mark.parametrize("epi", ["bias", "gelu", "residual"])
 def test_gemm_kernel_matches_plain(cuda, M, K, N, epi):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -172,6 +181,34 @@ def test_gemm_kernel_matches_plain(cuda, M, K, N, epi):
     out = gemm(a, w, b, gelu=epi == "gelu", residual=r)
     torch.cuda.synchronize()
     assert_bf16_close(out, plain_gemm(a, w, b, gelu=epi == "gelu", residual=r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(40962, 384, 192), (40962, 512, 512)])
+def test_gemm_tma_store_writes_only_its_tile(cuda, M, K, N):
+    """skt_gemm_bf16 through the library into an output with 64 guard rows
+    past a ragged M (residual epilogue): the guard rows come back with their
+    bits, the M rows within the kernel tolerance."""
+    import ctypes
+
+    from skyrim_tpu_torch.ops import _build
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=cuda, generator=g) * K**-0.5).to(torch.bfloat16)
+    b = torch.randn(N, device=cuda, generator=g)
+    r = torch.randn(M, N, device=cuda, generator=g).to(torch.bfloat16)
+    sentinel = 0x7FA5  # a bf16 NaN pattern no product writes
+    buf = torch.full((M + 64, N), sentinel, device=cuda, dtype=torch.int16)
+    lib = _build.load("gemm")
+    fn = lib.skt_gemm_bf16
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p], ctypes.c_int
+    err = fn(a.data_ptr(), w.data_ptr(), b.data_ptr(), r.data_ptr(), buf.data_ptr(), M, N, K, 2,
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "skt_gemm_bf16")
+    torch.cuda.synchronize()
+    assert bool((buf[M:] == sentinel).all())
+    assert_bf16_close(buf[:M].view(torch.bfloat16), plain_gemm(a, w, b, residual=r))
 
 
 @pytest.mark.gpu
