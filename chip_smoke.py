@@ -27,8 +27,12 @@ Phases:
      (Pangu's eight block products, K3's and K4's Dense, K7's second
      product, K6's grid update) against its plain version, with its rate,
      bound and launches per forward beside torch.matmul's (timed only); K8 and K9 on the real full-width
-     tile tables (partial tiles in K8), and K9's outputs under two faults
-     (a dropped message, a misread slot bias), which its check must refuse.
+     tile tables (partial tiles in K8; K9 on the tables' row plan of filled
+     slots, its two launches -- messages and CSR sum -- also timed apart, and
+     its messages stored into an output with 64 guard rows past E, which must
+     come back bit-identical), and K9's outputs under two faults (a dropped
+     message, through a row plan the wrapper builds from the edited table;
+     a misread slot bias), which its check must refuse.
      The op layer: K5, K10 and K11 on one qkv at Pangu stage 1 and stage 2
      (124 and 64 bias types at 0.5, shifted mask), the three outputs equal
      after the relayout, K11 beside scaled_dot_product_attention (timed
@@ -415,7 +419,8 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     TH, TW = H // th, W // tw
     args = (randn(H, W, L, dtype=bf16), randn(H, W, D * L, scale=0.3, dtype=bf16), t["g2m_local"],
             *finish_params(), D, U, th, tw)
-    out = GK.fused_g2m_tiled(*args)
+    plan = (t["g2m_rows"], t["g2m_csr"])  # the tables' row plan, as the main path passes it
+    out = GK.fused_g2m_tiled(*args, plan=plan)
     torch.cuda.synchronize()
     ref = GK.reference_g2m_tiled(*args)
     err = compare(torch, out, ref, "K9 fused_g2m_tiled", per_element=True)
@@ -423,18 +428,21 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     local = t["g2m_local"]  # (TH, TW, D, th * tw), U = empty slot
     filled = local < U
     n_edges, n_src = int(filled.sum()), int(filled.any(2).sum())
-    row(f"K9 fused_g2m_tiled ({H}, {W}, {L}) -> ({TH}, {TW}, {U}, {L})", None,
-        "skyrim_tpu_torch/csrc/graph_g2m.cu+fused_mlp.cu", "skyrim_tpu/ops/graph_kernels.py:661", err,
-        lambda: GK.fused_g2m_tiled(*args), lambda: GK.reference_g2m_tiled(*args),
+    check(plan[0].shape[0] == n_edges, f"K9's row plan has {plan[0].shape[0]} rows for {n_edges} filled slots")
+    row(f"K9 fused_g2m_tiled ({H}, {W}, {L}) -> ({TH}, {TW}, {U}, {L}), {n_edges} filled slots", None,
+        "skyrim_tpu_torch/csrc/graph_g2m.cu+rowgemm.cuh", "skyrim_tpu/ops/graph_kernels.py:661", err,
+        lambda: GK.fused_g2m_tiled(*args, plan=plan), lambda: GK.reference_g2m_tiled(*args),
         # the work this data needs: the products and the bias rows of the
         # filled slots (the edges), the source rows of the points that have
         # an edge; not the empty slots.  Every output written.
         2 * n_edges * L * L, 2 * (n_src * L + n_edges * L + TH * TW * U * L) + 4 * N * D + 2 * L * L)
 
+    k9_parts = g2m_parts(torch, args, plan, n_edges)
+
     # the check's power at this shape: the kernel's outputs under two faults
     # must fail it -- one message dropped in every tile within 60 degrees of
-    # the equator (where partials sum few messages), and slot 0's bias read
-    # for every slot
+    # the equator (where partials sum few messages; the wrapper builds its own
+    # row plan from the edited local), and slot 0's bias read for every slot
     lat = 90 - 180 * torch.arange(H, device=dev) / (H - 1)
     tiles = (lat.abs() < 60).view(TH, th).all(1).repeat_interleave(TW).nonzero().squeeze(1)
     dropped = local.clone()
@@ -443,18 +451,50 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     flat[tiles, (flat[tiles] < U).float().argmax(1)] = U
     bias0 = args[1].view(H, W, D, L)[:, :, :1].expand(H, W, D, L).reshape(H, W, D * L)
     faults = {}
-    for fault, fargs in ((f"one message dropped in each of {len(tiles)} tiles", (*args[:2], dropped, *args[3:])),
-                         ("slot 0's bias read for every slot", (args[0], bias0, *args[2:]))):
-        out = GK.fused_g2m_tiled(*fargs)
+    for fault, fargs, fplan in ((f"one message dropped in each of {len(tiles)} tiles", (*args[:2], dropped, *args[3:]), None),
+                                ("slot 0's bias read for every slot", (args[0], bias0, *args[2:]), plan)):
+        out = GK.fused_g2m_tiled(*fargs, plan=fplan)
         faults[fault] = {rule: over_limit(torch, out, ref, pe) for rule, pe in (("per_element", True), ("max", False))}
         log(f"K9 fault, {fault}: max err/limit {faults[fault]['per_element']:.4g} under the check's rule "
             f"(|plain| per element), {faults[fault]['max']:.4g} under 2 ulps of max|plain|")
         check(faults[fault]["per_element"] > 1, f"K9's check passed a faulty output: {fault}")
         del out
-    del args, t, ref, dropped, bias0
+    del args, t, ref, dropped, bias0, plan
     torch.cuda.empty_cache()
     faults[f"K7: one edge dropped in each of {B} blocks"] = {"per_element": k7_fault}
-    return rows, faults
+    return rows, faults, k9_parts
+
+
+def g2m_parts(torch, args, plan, n_edges) -> dict:
+    """K9's two launches timed apart at full width on the tables' plan: the
+    messages of the filled slots (prologue, products and LayerNorm in one
+    kernel) and the CSR sum; and the messages stored into an output with
+    GUARD_ROWS rows past E, which must come back bit-identical."""
+    from skyrim_tpu_torch.ops import graph_kernels as GK
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    asrc, bias, _, b0, wb, ln, D = args[:7]
+    rows, csr = plan
+    E, L = rows.shape[0], asrc.shape[-1]
+    check(E == n_edges, f"K9's messages cover {E} rows for {n_edges} filled slots")
+    m = GK.g2m_messages(asrc, bias, rows, b0, wb, ln, D)
+    buf = torch.full((E + GUARD_ROWS, L), SENTINEL, device=asrc.device, dtype=torch.int16)
+    b0f, w, b = b0.float().contiguous(), wb[0].to(torch.bfloat16).contiguous(), wb[1].float().contiguous()
+    scale, shift = ln[0].float().contiguous(), ln[1].float().contiguous()
+    lib = GK._g2m_lib()
+    err = lib.skt_g2m_messages(asrc.data_ptr(), bias.data_ptr(), b0f.data_ptr(), w.data_ptr(), b.data_ptr(),
+                               scale.data_ptr(), shift.data_ptr(), rows.data_ptr(), buf.data_ptr(), E, L, D,
+                               _EPS, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(err == 0, f"skt_g2m_messages with guard rows: CUDA error {err}")
+    check(bool((buf[E:] == SENTINEL).all()), "K9's messages wrote a guard row past E")
+    check(bool(torch.equal(buf[:E].view(torch.bfloat16), m)), "K9's messages differ between two runs")
+    del buf
+    parts = {"rows": E, "guard_rows_identical": True,
+             "messages_ms": time_ms(torch, lambda: GK.g2m_messages(asrc, bias, rows, b0, wb, ln, D), 5),
+             "csr_sum_ms": time_ms(torch, lambda: GK.csr_sum(m, csr), 5)}
+    log(f"K9 parts at full width: {parts}")
+    return parts
 
 
 # The aligned row GEMM's shapes on the main paths: name, M, K, N, epilogue
@@ -1031,7 +1071,7 @@ def main() -> int:
         g = torch.Generator(device="cuda").manual_seed(0)
         rows, attn_err = kernel_checks(torch, g)
         log(f"K1 window attention alone, earth bias at {ATTN_BIAS_SCALE}: max_abs_err {attn_err}")
-        gc_rows, k9_faults = graphcast_kernel_checks(torch, g)
+        gc_rows, k9_faults, k9_parts = graphcast_kernel_checks(torch, g)
         gemm_rows = row_gemm_checks(torch, g)
         msg_rows, k14_fault = message_op_checks(torch, g)
         rows += gc_rows + attention_op_checks(torch, g) + msg_rows
@@ -1074,6 +1114,7 @@ def main() -> int:
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
         "k9_k7_fault_err_over_limit": k9_faults,
+        "k9_parts": k9_parts,
         "row_gemm": gemm_rows,
         "k14_fault_err_over_limit": k14_fault,
         "module_path_max_abs_err": mp["pangu"]["modules"]["max_abs_err"],

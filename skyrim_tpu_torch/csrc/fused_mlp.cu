@@ -12,7 +12,7 @@
 //                 aligned (Cin 174, 3, 4)
 //   skt_mlp_gemm  y = bf16(h @ W2 + b2)   (no LN: + residual here)
 //   skt_ln_rows   out = bf16(res + bf16(LN(y)))   (residual after the LN)
-// skt_segment_sum is the deterministic segmented sum of K7, K9 and K14.  The
+// skt_segment_sum is the deterministic segmented sum of K7 and K14.  The
 // GEMM is rowgemm.cuh's: on aligned rows wgmma fed by TMA, one persistent
 // block an SM whose two consumer warpgroups take tiles in turn and store each
 // epilogue by TMA, ~460 TFLOP/s at 512 wide on an NVIDIA H100 80GB HBM3 (700

@@ -1,6 +1,7 @@
 // Row-GEMM building blocks: the tiled GEMM of every port kernel that
-// multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6-K9; K12-K14
-// in graph_finish.cu), and the row kernels the GraphCast kernels share.
+// multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6-K8; K12-K14
+// in graph_finish.cu), K9's row kernel with its LayerNorm inside
+// (rows_ln_kernel), and the row kernels the GraphCast kernels share.
 //
 // The four GraphCast TPU kernels (skyrim_tpu/ops/fused_mlp.py fused_mlp and
 // ops/graph_kernels.py fused_round_messages / fused_m2g_tiled /
@@ -49,6 +50,12 @@
 //                   where the id changes.  No atomics: each column has one
 //                   owner, so the result is the same bits on every run, and
 //                   for ids in sorted order the f32 sum in row order.
+//   rows_ln_kernel  out = bf16(LN(bf16(prologue @ W + b))) for rows of up to
+//                   512 columns in one launch (K9): 64 rows x all columns a
+//                   tile, so the LayerNorm runs in the epilogue; the
+//                   prologue computed once a row by producer warps into a
+//                   whole-tile A buffer, W by TMA, two consumer warpgroups of
+//                   256 columns each exchanging row sums (see below).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time, not linked
@@ -234,6 +241,16 @@ __device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96], uint64_t da, uin
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
       "%96, %97, 1, 1, 1, 0, 1;\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, 1, 1, 1, 0, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db));
 }
 
@@ -857,6 +874,290 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
   segsum_kernel<<<grid, SEG_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const int*>(local), static_cast<bf16*>(out), R, S,
       C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// --- rows_ln_kernel: computed prologue -> Dense -> LayerNorm, whole rows a block ---
+//
+// out[q] = bf16(LN(bf16(A[q] @ W + b))) for M rows of L <= 512 columns, A[q]
+// computed by a prologue functor (K9: the gather + swish of its row plan),
+// in one launch.  The block's tile is 64 rows x all 512 columns, so that every
+// row it writes is complete in the block and the LayerNorm runs in the
+// epilogue.  One persistent block an SM walks the tiles blockIdx.x, +
+// gridDim.x, ...
+//
+// - Prologue warps (warps 0-2 of the third warpgroup, setmaxnreg 72):
+//   compute a tile's whole A block once, 64 rows x 512 K bf16 (64 KB, eight
+//   slices of 64 K in gemm_mainloop's A layout), into one of two A buffers,
+//   so the next tile's prologue runs while this one multiplies.
+//   Warp w takes the rows w, w + 3, ..., a lane two 16-byte chunks of each.
+//   The first source of every chunk comes by cp.async straight to the
+//   chunk's place in the buffer (a whole tile's worth in flight at once,
+//   without registers), the others by loads into registers two rows at a
+//   time; the prologue is then computed in place.  Each thread fences its
+//   stores for the async proxy (wgmma) and arrives on the buffer's a_full
+//   barrier.  Rows past M and columns past L come in as 0.
+// - W thread (lane 0 of warp 3): TMA loads of W into a ring of W_STAGES
+//   slices of 32 K x 512 columns (w_full / w_empty), the same walk for every
+//   tile; columns and rows past L read as 0.
+// - Two consumer warpgroups (setmaxnreg 216) share each A block; consumer c
+//   owns columns 256c .. 256c + 255 of every tile (wgmma m64n256k16, 128 f32
+//   accumulators a thread).  Epilogue: y = Epi::dense (bias, bf16), each
+//   row's sums of y and y^2 over the consumer's columns (a quad's shuffles),
+//   exchanged with the other consumer through shared memory under named
+//   barrier 5, then Epi::norm with f32 statistics (fast variance clipped at
+//   0); the bf16 values go into the A buffer just multiplied (both consumers
+//   are past their products at barrier 5), in boxes of 64 columns in the
+//   128-byte swizzle, and one thread of each consumer stores its four boxes
+//   by TMA (rows past M clipped), waits until the store has read them and
+//   arrives on the buffer's a_empty barrier: the producer may refill it.
+//
+// The exchange area holds one tile's partials: a consumer cannot write the
+// next tile's before the other has read these, since the W slices of the next
+// tile past the ring's depth are loaded only once both consumers have
+// released the slices before them, and the other consumer releases them only
+// after this epilogue.
+//
+// What bounds it (K9 at full width, NVIDIA H100 80GB HBM3, 700 W,
+// tools/kernel_variants.py g2m): the prologue warps.  With the prologue left
+// out, products, W stream (13.4 GB from L2) and epilogue take 2.1 ms; the
+// prologue's arithmetic without its loads 2.5 ms; with its gathers 5.5 ms.
+// Three warps hold too few loads in flight, and the consumers' 128
+// accumulators a thread leave them 72 registers (a 512-thread block cannot
+// compile the m64n256 product within 128 registers).
+namespace rowln {
+constexpr int BM = 64, WIDTH = 512, BKW = 32;  // tile rows, the widest L, W slice depth
+constexpr int A_BYTES = BM * WIDTH * 2;        // a whole tile's A block
+constexpr int W_BYTES = BKW * WIDTH * 2;       // a W slice: 8 column atoms x 4 k-atoms
+constexpr int W_STAGES = 3;
+constexpr int THREADS = 384, PRO_WARPS = 3, PRO_THREADS = PRO_WARPS * 32;
+constexpr int STATS_BYTES = 2 * BM * 8;        // (consumer, row) -> (sum, sum of squares)
+constexpr size_t SMEM = 1024 + 2 * (size_t)A_BYTES + W_STAGES * (size_t)W_BYTES + STATS_BYTES + 128;
+static_assert(SMEM <= 232448, "fits a block");
+}  // namespace rowln
+
+// out = bf16(LN(bf16(acc + b))), flax numerics.
+struct EpiLN {
+  const float* b;      // (L,) dense bias
+  const float* scale;  // (L,) LayerNorm scale
+  const float* shift;  // (L,) LayerNorm bias
+  float eps;
+
+  __device__ __forceinline__ float2 dense(int col, float a0, float a1) const {
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(b + col));
+    return make_float2(bf16_round(a0 + bb.x), bf16_round(a1 + bb.y));
+  }
+  __device__ __forceinline__ float2 norm(int col, float y0, float y1, float mu, float inv) const {
+    const float2 s = __ldg(reinterpret_cast<const float2*>(scale + col));
+    const float2 t = __ldg(reinterpret_cast<const float2*>(shift + col));
+    return make_float2((y0 - mu) * inv * s.x + t.x, (y1 - mu) * inv * s.y + t.y);
+  }
+};
+
+template <class Pro, class Epi>
+__global__ void __launch_bounds__(rowln::THREADS, 1)
+    rows_ln_kernel(Pro pro, __grid_constant__ const CUtensorMap mapW,
+                   __grid_constant__ const CUtensorMap mapOut, Epi epi, int M, int L, int tiles) {
+  using namespace rowln;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* abuf = align1024(smem_raw);  // two A buffers, then the W ring
+  unsigned char* wring = abuf + 2 * A_BYTES;
+  float2* stats = reinterpret_cast<float2*>(wring + W_STAGES * W_BYTES);
+  const unsigned w_full0 = smem_addr(stats + 2 * BM), w_empty0 = w_full0 + 8 * W_STAGES;
+  const unsigned a_full0 = w_empty0 + 8 * W_STAGES, a_empty0 = a_full0 + 16;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(w_full0 + 8 * s, 1);
+      mbar_init(w_empty0 + 8 * s, 8);  // every consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(a_full0 + 8 * b, PRO_THREADS);
+      mbar_init(a_empty0 + 8 * b, 2);  // one thread of each consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int nk = (L + BKW - 1) / BKW;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    const int warp = (tid >> 5) - 8, lane = tid & 31;
+    if (warp == PRO_WARPS) {  // the W thread
+      if (lane) return;
+      int stage = 0;
+      unsigned phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(w_empty0 + 8 * stage, phase ^ 1);  // passes at once the first time round
+          const unsigned full = w_full0 + 8 * stage, slot = smem_addr(wring + stage * W_BYTES);
+          mbar_expect_tx(full, W_BYTES);
+#pragma unroll
+          for (int j = 0; j < WIDTH / 64; ++j)
+            tma_load_2d(slot + j * (BKW / 8) * 1024, &mapW, full, 64 * j, kt * BKW);
+          if (++stage == W_STAGES) stage = 0, phase ^= 1;
+        }
+      return;
+    }
+    // prologue warps: warp w computes rows w, w + 3, ... of each tile
+    constexpr int ROWS = (BM + PRO_WARPS - 1) / PRO_WARPS;  // 22
+    // chunk c of row r of the A block: slice c / 8, the 128-byte swizzle
+    const auto chunk = [](unsigned char* a, int r, int kc) {
+      return reinterpret_cast<bf16*>(a + (kc >> 3) * (BM * 128) + r * 128 + (((kc & 7) ^ (r & 7)) << 4));
+    };
+    for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
+      const int b = p & 1, m0 = tile * BM;
+      unsigned char* a = abuf + b * A_BYTES;
+      // lane i holds the handle of the warp's i-th row
+      const int my_row = warp + PRO_WARPS * lane;
+      const int handle = lane < ROWS && my_row < BM ? pro.index(m0 + my_row, M) : -1;
+      mbar_wait(a_empty0 + 8 * b, ((p >> 1) & 1) ^ 1);  // passes at once on the first use
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) {
+        const int r = warp + PRO_WARPS * i, hd = __shfl_sync(0xffffffffu, handle, i);
+        if (r < BM)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) pro.copy(hd, (lane + 32 * c) * 8, L, chunk(a, r, lane + 32 * c));
+      }
+      cp_async_commit();
+#pragma unroll 1
+      for (int i = 0; i < ROWS; i += 2) {
+        typename Pro::Raw raw[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int hd = __shfl_sync(0xffffffffu, handle, i + h);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) pro.load(hd, (lane + 32 * c) * 8, L, raw[h][c]);
+        }
+        if (i == 0) cp_async_wait<0>();  // this thread's copies have landed
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp + PRO_WARPS * (i + h);
+          if (r >= BM) continue;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kc = lane + 32 * c;
+            pro.make(raw[h][c], kc * 8, L, chunk(a, r, kc));
+          }
+        }
+      }
+      fence_async_shared();
+      mbar_arrive(a_full0 + 8 * b);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+  constexpr unsigned B_N_STRIDE = (BKW / 8) * 1024, B_K_STRIDE = 1024;
+  const int c = wg, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const bool elected = (tid & 127) == 0;
+  int stage = 0;
+  unsigned phase = 0;
+  for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
+    const int b = p & 1, m0 = tile * BM;
+    unsigned char* a = abuf + b * A_BYTES;
+    const unsigned a0 = smem_addr(a);
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    mbar_wait(a_full0 + 8 * b, (p >> 1) & 1);
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(w_full0 + 8 * stage, phase);
+      const unsigned b0 = smem_addr(wring + stage * W_BYTES) + c * 4 * B_N_STRIDE;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BKW / 16; ++ks) {
+        const int kstep = kt * (BKW / 16) + ks;  // 16-deep step: A slice kstep / 4, 32 bytes each
+        wgmma_bf16<256>(acc, wgmma_desc(a0 + (kstep >> 2) * (BM * 128) + (kstep & 3) * 32, 16, 1024),
+                        wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous slice's products are done: its slot goes back
+      if (kt > 0 && lane == 0) mbar_arrive(w_empty0 + 8 * (stage == 0 ? W_STAGES - 1 : stage - 1));
+      if (++stage == W_STAGES) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(w_empty0 + 8 * (stage == 0 ? W_STAGES - 1 : stage - 1));
+
+    // epilogue: acc[4j + 2h + e] is row 16w + g + 8h, column 256c + 8j + 2q + e
+    float s[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 256 * c + 8 * j + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float2 y = make_float2(0.f, 0.f);
+        if (col < L) y = epi.dense(col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        acc[4 * j + 2 * h] = y.x;
+        acc[4 * j + 2 * h + 1] = y.y;
+        s[h] += y.x + y.y;
+        s2[h] += y.x * y.x + y.y * y.y;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        s[h] += __shfl_xor_sync(0xffffffffu, s[h], o);
+        s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], o);
+      }
+      if (q == 0) stats[c * BM + 16 * w + g + 8 * h] = make_float2(s[h], s2[h]);
+    }
+    bar_sync(5, 256);  // both consumers' partials written, both past their products
+    float mu[2], inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 o = stats[(c ^ 1) * BM + 16 * w + g + 8 * h];
+      mu[h] = (s[h] + o.x) / L;  // the same bits in both consumers: f32 addition commutes
+      inv[h] = rsqrtf(fmaxf((s2[h] + o.y) / L - mu[h] * mu[h], 0.f) + epi.eps);
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 256 * c + 8 * j + 2 * q;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * w + g + 8 * h;
+        float2 v = make_float2(0.f, 0.f);
+        if (col < L) v = epi.norm(col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], mu[h], inv[h]);
+        // box 4c + j / 8 (columns of 64), the 16-byte chunk j % 8 of row r in the swizzle
+        *reinterpret_cast<unsigned*>(a + (4 * c + (j >> 3)) * (BM * 128) + r * 128 +
+                                     ((((j & 7) ^ (r & 7))) << 4) + 4 * q) = pack_bf16(v.x, v.y);
+      }
+    }
+    fence_async_shared();  // made visible to the TMA unit, then stored by one thread
+    bar_sync(6 + c, 128);
+    if (elected) {
+#pragma unroll
+      for (int bx = 0; bx < 4; ++bx)
+        if (64 * (4 * c + bx) < L) tma_store_2d(&mapOut, a0 + (4 * c + bx) * (BM * 128), 64 * (4 * c + bx), m0);
+      bulk_commit();
+      bulk_wait_read<0>();
+      mbar_arrive(a_empty0 + 8 * b);  // this consumer's half of the buffer is free again
+    }
+  }
+}
+
+template <class Pro, class Epi>
+static int rows_ln_attribute() {
+  static const int err = static_cast<int>(cudaFuncSetAttribute(
+      rows_ln_kernel<Pro, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rowln::SMEM));
+  return err;
+}
+
+// Launches rows_ln_kernel over M rows of L columns (L % 8 == 0, L <= 512; W
+// (L, L) row-major, out (M, L), both 16-byte aligned).
+template <class Pro, class Epi>
+int launch_rows_ln(const Pro& pro, const void* W, const Epi& epi, void* out, int M, int L, void* stream) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (M <= 0 || L <= 0 || L % 8 || L > rowln::WIDTH || !aligned(W) || !aligned(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mapW, mapOut;
+  if (int err = make_tensor_map(&mapW, W, L, L, L, rowln::BKW)) return err;
+  if (int err = make_tensor_map(&mapOut, out, M, L, L, rowln::BM)) return err;
+  if (int err = rows_ln_attribute<Pro, Epi>()) return err;
+  const int tiles = (M + rowln::BM - 1) / rowln::BM;
+  const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
+  rows_ln_kernel<Pro, Epi><<<grid, rowln::THREADS, rowln::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      pro, mapW, mapOut, epi, M, L, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

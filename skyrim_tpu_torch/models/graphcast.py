@@ -53,6 +53,7 @@ from skyrim_tpu_torch.ops.graph import (
     build_face_tiles,
     build_g2m_tiles,
     build_graphs,
+    g2m_row_plan,
     pad_rows_to_blocks,
 )
 from skyrim_tpu_torch.ops.graph_kernels import (
@@ -153,7 +154,8 @@ class BipartitePass(nn.Module):
             raise ValueError(f"g2m bias cache {tuple(bias_hw.shape)} != ({H}, {W}, {D * L}); rebuild with prepare_params")
         a_src = self.message.src_part(grid_lat)
         b0, wb, lnp = self.message.finish_params()
-        partials = fused_g2m_tiled(a_src.view(H, W, L), bias_hw, t["g2m_local"], b0, wb, lnp, D, U, th, tw)
+        partials = fused_g2m_tiled(a_src.view(H, W, L), bias_hw, t["g2m_local"], b0, wb, lnp, D, U, th, tw,
+                                   plan=(t["g2m_rows"], t["g2m_csr"]))
         # combine across tiles: a static gather, then a sorted segment sum in
         # f32 (deterministic; empty segments give 0)
         vals = partials.reshape(-1, L)[t["g2m_combine_idx"]].float()
@@ -256,6 +258,7 @@ def build_tables(cfg: GraphCastConfig, device) -> dict:
     SB = plan["SB"]
     stage_idx = np.clip(plan["seg_lo"][:, None] + np.arange(SB)[None, :], 0, n_mesh - 1)
     gt = build_g2m_tiles(g["g2m_src"], g["g2m_dst"], g["g2m_efeat"], cfg.lat, cfg.lon, n_mesh)
+    g2m_rows, g2m_csr = g2m_row_plan(gt["local"], gt["U"], gt["th"], gt["tw"])
     ft = build_face_tiles(g["m2g_face"].reshape(cfg.lat, cfg.lon), th=min(8, cfg.lat), tw=min(128, cfg.lon))
 
     def dev(a, dtype=None):
@@ -275,6 +278,8 @@ def build_tables(cfg: GraphCastConfig, device) -> dict:
         "mesh_SB": SB,
         "g2m_D": gt["D"], "g2m_U": gt["U"], "g2m_th": gt["th"], "g2m_tw": gt["tw"],
         "g2m_local": dev(gt["local"], torch.int32),
+        "g2m_rows": dev(g2m_rows, torch.int32),  # the filled slots, dst-sorted (K9's row plan)
+        "g2m_csr": dev(g2m_csr, torch.int32),
         "g2m_slot_ef": dev(gt["slot_ef"].reshape(-1, 4)),
         "g2m_slot_dst": dev(gt["slot_dst"].reshape(-1), long),
         "g2m_combine_idx": dev(gt["combine_idx"], long),

@@ -371,6 +371,39 @@ def build_g2m_tiles(
     }  # fmt: skip
 
 
+def g2m_row_plan(local_t: np.ndarray, U: int, th: int, tw: int) -> tuple[np.ndarray, np.ndarray]:
+    """The filled slots of the grid-major encoder's tables, dst-sorted.
+
+    ``local_t`` (TH, TW, D, th·tw) is ``build_g2m_tiles``' ``local`` (== U ⇒
+    empty slot).  Returns:
+      rows (E,) int32        — for each filled slot, the flat bias row p·D + k
+                               of grid point p = i·W + j (its source row is
+                               rows // D), ordered by tile, then by local
+                               destination u, then by (k, r) as in local_t
+      csr  (TH·TW·U + 1,) int32 — destination g·U + u of tile g owns
+                               rows[csr[g·U + u] : csr[g·U + u + 1]]; an empty
+                               destination has an empty range
+    """
+    local_t = np.asarray(local_t)
+    TH, TW, D, R = local_t.shape
+    if R != th * tw:
+        raise ValueError(f"g2m_row_plan: local_t {local_t.shape} for tiles {(th, tw)}")
+    W = TW * tw
+    T = TH * TW
+    flat = local_t.reshape(T, D * R).astype(np.int64)
+    t, q = np.nonzero(flat < U)  # row-major: by tile, then (k, r)
+    dst = t * U + flat[t, q]
+    order = np.argsort(dst, kind="stable")
+    t, q, dst = t[order], q[order], dst[order]
+    k, r = q // R, q % R
+    i = (t // TW) * th + r // tw
+    j = (t % TW) * tw + r % tw
+    rows = ((i * W + j) * D + k).astype(np.int32)
+    csr = np.zeros(T * U + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=T * U), out=csr[1:])
+    return rows, csr.astype(np.int32)
+
+
 def block_onehot(local: torch.Tensor, SB: int, dtype=torch.bfloat16) -> torch.Tensor:
     """(B, SB, M) one-hot aggregation operator from a plan's (B, M) local
     segment ids; padding rows (local == SB) hit no segment."""

@@ -16,8 +16,12 @@ predecessors K13-K14.
   csrc/graph_m2g.cu + csrc/fused_mlp.cu.
 - K9 ``fused_g2m_tiled`` replaces ``fused_g2m_tiled`` (body
   ``_g2m_tiled_kernel``): the grid→mesh encoder, grid-major over spatial
-  tiles, returning (TH, TW, U, L) tile partials.
-  csrc/graph_g2m.cu + csrc/fused_mlp.cu.
+  tiles, returning (TH, TW, U, L) tile partials.  Only the filled slots
+  run, in the dst-sorted order of the row plan (``ops.graph.g2m_row_plan``,
+  built once with the tables): one launch computes their messages (swish
+  prologue once a row, the Dense by ``wgmma``, the LayerNorm in the
+  epilogue; csrc/rowgemm.cuh ``rows_ln_kernel``), a second sums each
+  destination's rows in order (CSR sum).  csrc/graph_g2m.cu.
 
 - K13 ``fused_fixed_degree_messages`` replaces ``fused_fixed_degree_messages``
   (body ``_m2g_kernel``): K8 on flat wide rows, without the tile lookup; any
@@ -32,7 +36,8 @@ predecessors K13-K14.
 
 The TPU kernels expand and aggregate with one-hot matmuls on the MXU;
 here an expansion is an indexed load and an aggregation a segmented sum
-in f32 (csrc/rowgemm.cuh).  Each slot sum (K8, K9, K13) is taken in f32
+in f32 (csrc/rowgemm.cuh; K9's by CSR ranges, csrc/graph_g2m.cu).  Each
+slot sum (K8, K9, K13) is taken in f32
 and rounded once.  Bounds and designs are in the CUDA sources' headers.
 
 Each wrapper takes its plain PyTorch version (``reference_*``) on a CPU
@@ -47,7 +52,7 @@ import ctypes
 import torch
 
 from skyrim_tpu_torch.ops import _build
-from skyrim_tpu_torch.ops.fused_block import _bf16, _f32
+from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32
 from skyrim_tpu_torch.ops.fused_mlp import (
     _finish_lib,
     _stream,
@@ -59,9 +64,9 @@ from skyrim_tpu_torch.ops.fused_mlp import (
     require_rows16,
     segment_sum,
 )
-from skyrim_tpu_torch.ops.graph import block_onehot
+from skyrim_tpu_torch.ops.graph import block_onehot, g2m_row_plan
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 # --- plain versions ----------------------------------------------------------
@@ -219,12 +224,64 @@ def fused_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
 fused_m2g_tiled.launches = 0
 
 
-def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw):
+def g2m_plan(local_t, U, th, tw):
+    """``ops.graph.g2m_row_plan`` of ``local_t`` as int32 tensors on its
+    device: (rows (E,), csr (TH·TW·U + 1,))."""
+    rows, csr = g2m_row_plan(local_t.cpu().numpy(), U, th, tw)
+    return (torch.from_numpy(rows).to(local_t.device), torch.from_numpy(csr).to(local_t.device))
+
+
+def g2m_messages(asrc_hw, bias_hw, rows, b0, wb, ln, D):
+    """The messages of the plan's E filled slots in its order, (E, L), in one
+    launch: ``LN(bf16(bf16(swish(asrc[rows // D] + bias[rows] + b0)) @ W + b))``."""
+    H, W, L = asrc_hw.shape
+    E = rows.shape[0]
+    m = torch.empty((E, L), dtype=torch.bfloat16, device=asrc_hw.device)
+    if E == 0:
+        return m
+    if L > 512:
+        raise ValueError(f"g2m_messages takes L <= 512 (one block holds whole rows), got {L}")
+    b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
+    scale, shift = _f32(ln[0]), _f32(ln[1])
+    lib = _g2m_lib()
+    err = lib.skt_g2m_messages(
+        asrc_hw.data_ptr(), bias_hw.data_ptr(), b0.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), rows.data_ptr(), m.data_ptr(), E, L, D, _EPS, _stream(asrc_hw),
+    )
+    _build.check(lib, err, "g2m_messages")
+    return m
+
+
+def csr_sum(x, csr):
+    """(E, C) rows and (n + 1,) int32 offsets → (n, C): destination d's bf16
+    sum of rows csr[d] .. csr[d + 1] in order, in f32; empty ranges give 0."""
+    n, C = csr.shape[0] - 1, x.shape[1]
+    if C % 8 or n <= 0:
+        raise ValueError(f"csr_sum takes C % 8 == 0 and n > 0, got C {C}, n {n}")
+    require(x, x.shape, "csr_sum x")
+    require(csr, (n + 1,), "csr_sum csr", torch.int32)
+    out = torch.empty((n, C), dtype=torch.bfloat16, device=x.device)
+    lib = _g2m_lib()
+    err = lib.skt_csr_sum(x.data_ptr(), csr.data_ptr(), out.data_ptr(), n, C, _stream(x))
+    _build.check(lib, err, "csr_sum")
+    return out
+
+
+def _g2m_lib():
+    lib = _lib("graph_g2m", "skt_g2m_messages", [_P] * 9 + [_I] * 3 + [_F, _P])
+    lib.skt_csr_sum.argtypes = [_P] * 3 + [_I] * 2 + [_P]
+    lib.skt_csr_sum.restype = _I
+    return lib
+
+
+def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=None):
     """Grid-major grid→mesh messages over (th, tw) spatial tiles.
 
     asrc_hw: (H, W, L) per-point src-part rows; bias_hw: (H, W, D·L) cached
     static per-slot bias; local_t: (TH, TW, D, th·tw) int32 slot → tile-local
-    dst index (== U ⇒ empty).  Returns (TH, TW, U, L) tile partials."""
+    dst index (== U ⇒ empty).  plan: ``g2m_plan(local_t, U, th, tw)`` built
+    once with the tables; without it the plan is built here from
+    ``local_t``.  Returns (TH, TW, U, L) tile partials."""
     if asrc_hw.device.type == "cpu":
         return reference_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw)
     H, W, L = asrc_hw.shape
@@ -234,16 +291,10 @@ def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw):
     require(asrc_hw, (H, W, L), "g2m asrc")
     require(bias_hw, (H, W, D * L), "g2m bias")
     require(local_t, (TH, TW, D, th * tw), "g2m local", torch.int32)
-    y = torch.empty((H * W * D, L), dtype=torch.bfloat16, device=asrc_hw.device)
-    b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
-    lib = _lib("graph_g2m", "skt_g2m_gemm", [_P] * 6 + [_I] * 6 + [_P])
-    err = lib.skt_g2m_gemm(
-        asrc_hw.data_ptr(), bias_hw.data_ptr(), b0.data_ptr(), w.data_ptr(),
-        b.data_ptr(), y.data_ptr(), H, W, L, D, th, tw, _stream(asrc_hw),
-    )
-    _build.check(lib, err, "g2m_gemm")
-    m = ln_rows(y, ln, out=y)
-    out = segment_sum(m, local_t.view(TH * TW, D * th * tw), U)
+    rows, csr = plan if plan is not None else g2m_plan(local_t, U, th, tw)
+    require(rows, (rows.shape[0],), "g2m plan rows", torch.int32)
+    m = g2m_messages(asrc_hw, bias_hw, rows, b0, wb, ln, D)
+    out = csr_sum(m, csr)
     fused_g2m_tiled.launches += 1
     return out.view(TH, TW, U, L)
 

@@ -2,7 +2,7 @@
 
     python -m skyrim_tpu_torch.tools.kernel_variants KIND [VARIANT ...]
 
-KIND is ``attention``, ``gemm`` or ``round``.  A VARIANT is a directory: an
+KIND is ``attention``, ``gemm``, ``round`` or ``g2m``.  A VARIANT is a directory: an
 edited copy of ``skyrim_tpu_torch/csrc`` (``""`` for the package's own, which
 is also what is timed when no variant is given).  The sources carry no
 build-time switches: an experiment is a copy with the change made in it.
@@ -33,6 +33,10 @@ variants.
   (322, 1024, 512), SB 176 on a sorted ``local``: the first product with its
   expansion epilogue, the second Dense, the LayerNorm with its residual and
   the segmented sum; each launch alone and the chain.
+- ``g2m``: ``graph_g2m.cu``; K9's two launches at full width on the row plan
+  of the 721 x 1440 tables (1,629,780 filled slots, L 512): the messages
+  kernel (prologue, products and LayerNorm) and the CSR sum.  The tables are
+  built on the host first (about 10 s).
 
 Prints one line per report, per (round, variant, case); needs a CUDA device
 and nvcc.
@@ -48,9 +52,10 @@ from pathlib import Path
 
 ROUNDS, LAUNCHES = 4, 20
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp")}
+SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp"),
+           "g2m": ("graph_g2m",)}  # fmt: skip
 REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
-            "round": ("rowgemm", ""), }  # fmt: skip
+            "round": ("rowgemm", ""), "g2m": ("graph_g2m", "")}  # fmt: skip
 
 
 def _bind(lib, name, argtypes):
@@ -218,7 +223,41 @@ def round_cases(torch, libs):
     }  # fmt: skip
 
 
-CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases}
+_G2M_PLAN = []
+
+
+def g2m_cases(torch, libs):
+    from skyrim_tpu_torch.ops.graph import build_g2m_tiles, build_graphs, g2m_row_plan
+
+    H, W, Lw = 721, 1440, 512
+    if not _G2M_PLAN:  # built once for every variant
+        g = build_graphs(H, W, 6)
+        gt = build_g2m_tiles(g["g2m_src"], g["g2m_dst"], g["g2m_efeat"], H, W, g["n_mesh"])
+        _G2M_PLAN.append((*g2m_row_plan(gt["local"], gt["U"], gt["th"], gt["tw"]), gt["D"]))
+    rows_np, csr_np, D = _G2M_PLAN[0]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    E, n = len(rows_np), len(csr_np) - 1
+    rows, csr = torch.from_numpy(rows_np).to(dev), torch.from_numpy(csr_np).to(dev)
+    asrc = torch.randn(H * W, Lw, device=dev, generator=g).to(torch.bfloat16)
+    bias = (torch.randn(H * W * D, Lw, device=dev, generator=g) * 0.3).to(torch.bfloat16)
+    w = (torch.randn(Lw, Lw, device=dev, generator=g) * Lw**-0.5).to(torch.bfloat16)
+    b0, b, scale, shift = (torch.randn(Lw, device=dev, generator=g) * 0.1 for _ in range(4))
+    m = torch.empty(E, Lw, device=dev, dtype=torch.bfloat16)
+    out = torch.empty(n, Lw, device=dev, dtype=torch.bfloat16)
+    msg = _bind(libs["graph_g2m"], "skt_g2m_messages", [P] * 9 + [I] * 3 + [F, P])
+    cs = _bind(libs["graph_g2m"], "skt_csr_sum", [P] * 3 + [I] * 2 + [P])
+    st = torch.cuda.current_stream().cuda_stream
+    p = lambda t: t.data_ptr()  # noqa: E731
+
+    def messages():
+        return msg(p(asrc), p(bias), p(b0), p(w), p(b), p(scale), p(shift), p(rows), p(m), E, Lw, D, 1e-6, st)
+
+    return {"messages": (messages, 2 * E * Lw * Lw),
+            "csr_sum": (lambda: cs(p(m), p(csr), p(out), n, Lw, st), None)}
+
+
+CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases}
 
 
 def main(argv: list[str]) -> int:

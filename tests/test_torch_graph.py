@@ -364,6 +364,81 @@ def test_plain_g2m_matches_jax():
                 close(out, ref)
 
 
+def _g2m_plan_cases():
+    """(local_t, U, th, tw) of the random tables and of the 19x36 graph's."""
+    _, gt = _g2m_inputs()
+    g = G.build_graphs(19, 36, 2)
+    g19 = G.build_g2m_tiles(g["g2m_src"], g["g2m_dst"], g["g2m_efeat"], 19, 36, g["n_mesh"])
+    return {name: (t["local"], t["U"], t["th"], t["tw"]) for name, t in (("random", gt), ("graph_19x36", g19))}
+
+
+@pytest.mark.parametrize("case", ["random", "graph_19x36"])
+def test_g2m_row_plan_lists_filled_slots(case):
+    """Every filled slot exactly once and no empty one, sorted by (tile, u)
+    and within a destination by (k, r); csr consistent, empty destinations
+    present as empty ranges."""
+    local_t, U, th, tw = _g2m_plan_cases()[case]
+    TH, TW, D, R = local_t.shape
+    W = TW * tw
+    rows, csr = G.g2m_row_plan(local_t, U, th, tw)
+    assert rows.dtype == np.int32 and csr.dtype == np.int32 and csr.shape == (TH * TW * U + 1,)
+    want, want_dst = [], []
+    for g in range(TH * TW):
+        ti, tj = divmod(g, TW)
+        for u in range(U):
+            for k in range(D):
+                for r in range(R):
+                    if local_t[ti, tj, k, r] == u:
+                        i, j = ti * th + r // tw, tj * tw + r % tw
+                        want.append((i * W + j) * D + k)
+                        want_dst.append(g * U + u)
+    np.testing.assert_array_equal(rows, np.asarray(want, np.int32))
+    assert len(rows) == int((local_t < U).sum()) and len(set(rows.tolist())) == len(rows)
+    assert csr[0] == 0 and csr[-1] == len(rows) and (np.diff(csr) >= 0).all()
+    np.testing.assert_array_equal(np.diff(csr), np.bincount(want_dst, minlength=TH * TW * U))
+    assert (np.diff(csr) == 0).any()  # empty destinations are on the path
+
+
+def _compacted_g2m(asrc, bias, rows, csr, b0, wb, ln, D, shape):
+    """K9's compacted formulation in plain torch: the plan's rows gathered,
+    finished, and summed per destination in f32 by csr."""
+    L = asrc.shape[-1]
+    rows = rows.long()
+    h = asrc.reshape(-1, L)[rows // D].float() + bias.reshape(-1, L)[rows].float()
+    m = FM.reference_finish(h, b0, wb, ln, asrc.dtype).float()
+    dst = torch.repeat_interleave(torch.arange(len(csr) - 1), torch.diff(csr.long()))
+    acc = torch.zeros((len(csr) - 1, L), dtype=torch.float32).index_add_(0, dst, m)
+    return acc.to(asrc.dtype).reshape(shape)
+
+
+def test_compacted_g2m_matches_jax():
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.graph_kernels import fused_g2m_tiled as j_fused
+    from skyrim_tpu.ops.graph_kernels import reference_g2m_tiled as j_ref
+
+    a, gt = _g2m_inputs()
+    rows, csr = (torch.from_numpy(x) for x in G.g2m_row_plan(gt["local"], gt["U"], gt["th"], gt["tw"]))
+    TH, TW = gt["local"].shape[:2]
+    for dt, jdt, close in ((torch.float32, jnp.float32, _close_f32), (torch.bfloat16, jnp.bfloat16, _close_bf16)):
+        out = _compacted_g2m(*_t(a[:2], dt), rows, csr, *_t(a[3:6]), a[6], (TH, TW, gt["U"], 16))
+        jin = (*_j(a[:2], jdt), _j(a[2]), *_j(a[3:6]), *a[6:])
+        refs = (GK.reference_g2m_tiled(*_t(a[:2], dt), _t(a[2]), *_t(a[3:6]), *a[6:]),
+                j_fused(*jin, interpret=True), j_ref(*jin))
+        for ref in refs:
+            if dt == torch.float32:
+                _close_f32(out, ref, agg=True)
+            else:
+                close(out, ref)
+
+
+def test_g2m_wrapper_with_and_without_plan():
+    a, gt = _g2m_inputs()
+    args = (*_t(a[:2], torch.bfloat16), _t(a[2]), *_t(a[3:6]), *a[6:])
+    plan = GK.g2m_plan(args[2], gt["U"], gt["th"], gt["tw"])
+    torch.testing.assert_close(GK.fused_g2m_tiled(*args, plan=plan), GK.fused_g2m_tiled(*args), rtol=0, atol=0)
+
+
 # --- GPU: kernels against their plain versions --------------------------------
 
 
@@ -563,3 +638,113 @@ def test_g2m_kernel_matches_plain(cuda):
     out = GK.fused_g2m_tiled(*args)
     torch.cuda.synchronize()
     _close_card(out, GK.reference_g2m_tiled(*args))
+
+
+def _g2m_empty_tile_inputs(H=24, W=40, L=64):
+    """Tables with no edge from the first tile's points and E not a multiple of 64."""
+    src, dst, ef = _random_g2m_edges(H, W, seed=4)
+    th = G.pick_exact_tile(H, 16)
+    keep = src >= th * W  # tw = W here: the first tile is rows 0 .. th - 1
+    src, dst, ef = src[keep], dst[keep], ef[keep]
+    if len(src) % 64 == 0:
+        src, dst, ef = src[1:], dst[1:], ef[1:]
+    gt = G.build_g2m_tiles(src, dst, ef, H, W, 9)
+    assert gt["th"] == th and gt["tw"] == W and not (gt["local"][0, 0] < gt["U"]).any()
+    rng = np.random.default_rng(5)
+    b0, wb, ln = _finish_params(rng, L)
+    return (_n(rng, H, W, L), _n(rng, H, W, gt["D"] * L, s=0.3), gt["local"], b0, wb, ln,
+            gt["D"], gt["U"], gt["th"], gt["tw"]), gt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_plan", [False, True], ids=["own_plan", "table_plan"])
+def test_g2m_kernel_empty_tile_ragged_rows(cuda, with_plan):
+    """K9 with a tile that has no filled slot (its partials come out 0) and E
+    not a multiple of the 64-row tile, with the plan built by the wrapper or
+    passed in as the tables pass it."""
+    a, gt = _g2m_empty_tile_inputs()
+    bf = torch.bfloat16
+    args = (*_t(a[:2], bf, cuda), _t(a[2], device=cuda), *_t(a[3:6], device=cuda), *a[6:])
+    plan = GK.g2m_plan(args[2], gt["U"], gt["th"], gt["tw"]) if with_plan else None
+    assert plan is None or plan[0].shape[0] % 64
+    out = GK.fused_g2m_tiled(*args, plan=plan)
+    torch.cuda.synchronize()
+    assert not out[0, 0].any()
+    _close_card_per_element(out, GK.reference_g2m_tiled(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 520])
+def test_csr_sum_matches_in_order_sum(cuda, C):
+    """The CSR sum against an in-order f32 sum of each destination's rows, bit
+    for bit, twice for equal bits; empty ranges give 0."""
+    rng = np.random.default_rng(7)
+    counts = rng.integers(0, 9, size=301)
+    counts[::7] = 0
+    csr = np.zeros(len(counts) + 1, np.int32)
+    np.cumsum(counts, out=csr[1:])
+    x = _t(_n(rng, int(csr[-1]), C), torch.bfloat16, cuda)
+    c = torch.from_numpy(csr).to(cuda)
+    out, again = GK.csr_sum(x, c), GK.csr_sum(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    acc = torch.zeros((len(counts), C), dtype=torch.float32, device=cuda)
+    lo, hi = c[:-1].long(), c[1:].long()
+    for i in range(int(counts.max())):
+        hit = lo + i < hi
+        acc[hit] += x[(lo + i)[hit]].float()
+    assert torch.equal(out, acc.to(torch.bfloat16))
+
+
+def _g2m_messages_inputs(cuda, L):
+    """K9's messages inputs on the card at width L, with the plan's rows cut to
+    a count that is not a multiple of the 64-row tile."""
+    a, gt = _g2m_inputs(H=24, W=40, L=L, seed=6)
+    bf = torch.bfloat16
+    s = (16 / L) ** 0.5  # unit-variance products at any width
+    asrc, bias = _t(a[0], bf, cuda), _t(a[1], bf, cuda)
+    b0, wb, ln = _t(a[3], device=cuda), (_t(a[4][0] * s, device=cuda), _t(a[4][1], device=cuda)), _t(a[5], device=cuda)
+    rows, _ = GK.g2m_plan(_t(a[2], device=cuda), gt["U"], gt["th"], gt["tw"])
+    rows = rows[: len(rows) - (1 if len(rows) % 64 == 0 else 0)]
+    return asrc, bias, rows, b0, wb, ln, gt["D"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [64, 512])
+def test_g2m_messages_match_gemm_ln_chain(cuda, L):
+    """The fused messages kernel against the two-launch chain on the same
+    gathered rows (the finish GEMM, then the LayerNorm rows kernel): the
+    rounding points are the same, only the order of the LayerNorm's sums
+    differs, so within 2 bf16 ulps of the chain's value."""
+    asrc, bias, rows, b0, wb, ln, D = _g2m_messages_inputs(cuda, L)
+    m = GK.g2m_messages(asrc, bias, rows, b0, wb, ln, D)
+    r = rows.long()
+    y = FM.finish_gemm(asrc.view(-1, L)[r // D].contiguous(), bias.view(-1, L)[r].contiguous(), b0, wb)
+    ref = FM.ln_rows(y, ln, out=y).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(m.float()).all()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-100))) - 7)
+    assert ((m.float() - ref).abs() <= 2 * ulp).all(), float(((m.float() - ref).abs() / ulp).max())
+
+
+@pytest.mark.gpu
+def test_g2m_messages_guard_rows(cuda):
+    """The messages' TMA store into an output with 64 sentinel rows past E:
+    the guard rows come back unchanged, the rows before them equal the
+    wrapper's output."""
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    L = 512
+    asrc, bias, rows, b0, wb, ln, D = _g2m_messages_inputs(cuda, L)
+    E, sentinel = rows.shape[0], 0x7FA5
+    buf = torch.full((E + 64, L), sentinel, dtype=torch.int16, device=cuda)
+    w = wb[0].to(torch.bfloat16).contiguous()
+    lib = GK._g2m_lib()
+    err = lib.skt_g2m_messages(asrc.data_ptr(), bias.data_ptr(), b0.data_ptr(), w.data_ptr(), wb[1].data_ptr(),
+                               ln[0].data_ptr(), ln[1].data_ptr(), rows.data_ptr(), buf.data_ptr(), E, L, D, _EPS,
+                               torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    m = GK.g2m_messages(asrc, bias, rows, b0, wb, ln, D)
+    torch.cuda.synchronize()
+    assert (buf[E:] == sentinel).all()
+    assert torch.equal(buf[:E].view(torch.bfloat16), m)
