@@ -27,16 +27,20 @@ Phases:
      (Pangu's eight block products, K3's and K4's Dense, K7's second
      product, K6's grid update) against its plain version, with its rate,
      bound and launches per forward beside torch.matmul's (timed only); K8 and K9 on the real full-width
-     tile tables (partial tiles in K8; K9 on the tables' row plan of filled
+     tile tables (partial face tiles in K8, its one launch also stored into
+     an output with 64 guard rows past H*W, which must come back
+     bit-identical; K9 on the tables' row plan of filled
      slots, its two launches -- messages and CSR sum -- also timed apart, and
      its messages stored into an output with 64 guard rows past E, which must
-     come back bit-identical), and K9's outputs under two faults (a dropped
-     message, through a row plan the wrapper builds from the edited table;
-     a misread slot bias), which its check must refuse.
+     come back bit-identical); K8's outputs under three faults (slot 2's
+     message dropped in a latitude band; slot 0's bias read for every slot;
+     each point's dst row taken from the next point) and K9's under two (a
+     dropped message, through a row plan the wrapper builds from the edited
+     table; a misread slot bias), which their checks must refuse.
      The op layer: K5, K10 and K11 on one qkv at Pangu stage 1 and stage 2
      (124 and 64 bias types at 0.5, shifted mask), the three outputs equal
-     after the relayout, K11 beside scaled_dot_product_attention (timed
-     only), each row named with the kernel body its shape takes
+     after the relayout, K10 (on views of its packed qkv) and K11 beside
+     scaled_dot_product_attention (timed only), each row named with the kernel body its shape takes
      (ops/flash_window_attention.py attention_body); K5 and K1 at FuXi's V1
      trunk geometry (window (1, 6, 12), wlen
      72, hd 64); K12 over the grid rows and the mesh edges; K13 over the grid
@@ -51,7 +55,8 @@ Phases:
      66 launches of the row GEMM through ops.gemm inside them),
      then GlobalModel("graphcast", ic_source="synthetic"), 721x1440, 83
      channels, latent 512, 16 rounds, refinement 6, a 4-step forecast
-     (21 K6, 16 K7, 1 K8, 1 K9 per forward; the cache build's launches are
+     (21 K6, 16 K7, 1 K8, 1 K9 per forward, and 36 launches of the
+     LayerNorm rows kernel, none of them K8's; the cache build's launches are
      counted apart); for each, per-step CUDA-event times, peak memory, one
      profiled step, and rollout(save=True) for 2 steps into a temporary
      directory and a reload of the files.  Weights are random, from a seed.
@@ -287,8 +292,8 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
 def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     """Phase 3, GraphCast: K6-K9 at every full-width main-path shape against
     their plain versions, on the real static tables of the full model.
-    Returns the kernels' rows and, for two faults fed to K9 and one to K7,
-    how far over its limit each output lies."""
+    Returns the kernels' rows and, for three faults fed to K8, two to K9 and
+    one to K7, how far over its limit each output lies."""
     from skyrim_tpu_torch.models.graphcast import GraphCastConfig, build_tables
     from skyrim_tpu_torch.ops import fused_mlp as FM
     from skyrim_tpu_torch.ops import graph_kernels as GK
@@ -398,20 +403,54 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     del args
     torch.cuda.empty_cache()
 
-    # K8 on the full-width face tiles (partial tiles in both dimensions)
+    # K8 on the full-width face tiles (partial tiles in both dimensions; a
+    # partial last 21-point tile of the kernel: 1,038,240 = 21 * 49,440, so
+    # none at full width, see the gpu tests)
     TH, TW, U = t["tile_faces"].shape
+    m2g_th, m2g_tw = t["m2g_th"], t["m2g_tw"]
     args = (randn(TH, TW, U, 3 * L, scale=0.3, dtype=bf16), t["tile_local"],
             randn(H, W, 3 * L, scale=0.3, dtype=bf16), randn(H, W, L, scale=0.3, dtype=bf16),
-            *finish_params(), 3, t["m2g_th"], t["m2g_tw"])
+            *finish_params(), 3, m2g_th, m2g_tw)
     out = GK.fused_m2g_tiled(*args)
     torch.cuda.synchronize()
-    err = compare(torch, out, GK.reference_m2g_tiled(*args), "K8 fused_m2g_tiled")
-    del out
+    ref = GK.reference_m2g_tiled(*args)
+    err = compare(torch, out, ref, "K8 fused_m2g_tiled")
     row(f"K8 fused_m2g_tiled uniq ({TH}, {TW}, {U}, {3 * L}) -> ({H}, {W}, {L})", None,
-        "skyrim_tpu_torch/csrc/graph_m2g.cu+fused_mlp.cu", "skyrim_tpu/ops/graph_kernels.py:515", err,
+        "skyrim_tpu_torch/csrc/graph_m2g.cu+rowgemm.cuh", "skyrim_tpu/ops/graph_kernels.py:515", err,
         lambda: GK.fused_m2g_tiled(*args), lambda: GK.reference_m2g_tiled(*args),
         2 * 3 * N * L * L, 2 * (TH * TW * U * 3 * L + N * 3 * L + 2 * N * L) + 4 * N + 2 * L * L)
-    del args
+    m2g_guard_rows(torch, args, out)
+
+    # the check's power at this shape: K8's output under three faults must
+    # fail it -- slot 2's message dropped for every point within 10 degrees of
+    # the equator (the kernel's output less the plain slot-2 message there),
+    # slot 0's bias read for every slot, and each point's dst row (ad) taken
+    # from the next point (the off-by-one a 63-row grouping invites)
+    uniq, local_hw, bias_hw, ad_hw, b0, wb, ln = args[:7]
+    lat = 90 - 180 * torch.arange(H, device=dev) / (H - 1)
+    band = (lat.abs() < 10).nonzero().squeeze(1)
+    ti, tj = band // m2g_th, torch.arange(W, device=dev) // m2g_tw
+    h2 = (uniq[ti[:, None], tj[None, :], local_hw[band].long()][..., 2 * L:].float()
+          + bias_hw[band][..., 2 * L:].float() + ad_hw[band].float())
+    m2 = FM.reference_finish(h2.reshape(-1, L), b0, wb, ln, bf16).float().view(len(band), W, L)
+    dropped = out.clone()
+    dropped[band] = (out[band].float() - m2).to(bf16)
+    del h2, m2, out
+    bias0 = bias_hw.view(H, W, 3, L)[:, :, :1].expand(H, W, 3, L).reshape(H, W, 3 * L)
+    ad_next = torch.roll(ad_hw.view(N, L), -1, 0).view(H, W, L)
+    faults = {}
+    for fault, make in ((f"K8: slot 2's message dropped for the {len(band)} latitude rows within 10 degrees "
+                         "of the equator", lambda: dropped),
+                        ("K8: slot 0's bias read for every slot",
+                         lambda: GK.fused_m2g_tiled(uniq, local_hw, bias0, *args[3:])),
+                        ("K8: each point's dst row taken from the next point",
+                         lambda: GK.fused_m2g_tiled(*args[:3], ad_next, *args[4:]))):
+        bad = make()
+        faults[fault] = {"max": over_limit(torch, bad, ref, False)}
+        log(f"{fault}: max err/limit {faults[fault]['max']:.4g} under the check's rule (2 ulps of max|plain|)")
+        check(faults[fault]["max"] > 1, f"K8's check passed a faulty output: {fault}")
+        del bad
+    del args, ref, dropped, bias0, ad_next, uniq, local_hw, bias_hw, ad_hw
     torch.cuda.empty_cache()
 
     # K9 on the full-width grid-major tiles
@@ -450,7 +489,6 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     check(bool((flat[tiles] < U).any(1).all()), "a K9 tile has no message")
     flat[tiles, (flat[tiles] < U).float().argmax(1)] = U
     bias0 = args[1].view(H, W, D, L)[:, :, :1].expand(H, W, D, L).reshape(H, W, D * L)
-    faults = {}
     for fault, fargs, fplan in ((f"one message dropped in each of {len(tiles)} tiles", (*args[:2], dropped, *args[3:]), None),
                                 ("slot 0's bias read for every slot", (args[0], bias0, *args[2:]), plan)):
         out = GK.fused_g2m_tiled(*fargs, plan=fplan)
@@ -463,6 +501,30 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     torch.cuda.empty_cache()
     faults[f"K7: one edge dropped in each of {B} blocks"] = {"per_element": k7_fault}
     return rows, faults, k9_parts
+
+
+def m2g_guard_rows(torch, args, out) -> None:
+    """K8's output stored by TMA into a buffer with GUARD_ROWS rows past H*W,
+    which must come back bit-identical; the rows before them must equal the
+    wrapper's output."""
+    from skyrim_tpu_torch.ops import graph_kernels as GK
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    uniq, local, bias, ad, b0, wb, ln, _, th, tw = args
+    (H, W), (TH, TW, U, _) = local.shape, uniq.shape
+    n, L = H * W, ad.shape[-1]
+    buf = torch.full((n + GUARD_ROWS, L), SENTINEL, device=ad.device, dtype=torch.int16)
+    b0f, w, b = b0.float().contiguous(), wb[0].to(torch.bfloat16).contiguous(), wb[1].float().contiguous()
+    scale, shift = ln[0].float().contiguous(), ln[1].float().contiguous()
+    lib = GK._m2g_lib()
+    err = lib.skt_m2g_messages(uniq.data_ptr(), local.data_ptr(), bias.data_ptr(), ad.data_ptr(), b0f.data_ptr(),
+                               w.data_ptr(), b.data_ptr(), scale.data_ptr(), shift.data_ptr(), buf.data_ptr(),
+                               H, W, L, U, th, tw, TW, _EPS, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(err == 0, f"skt_m2g_messages with guard rows: CUDA error {err}")
+    check(bool((buf[n:] == SENTINEL).all()), "K8 wrote a guard row past H*W")
+    check(bool(torch.equal(buf[:n].view(torch.bfloat16), out.view(n, L))), "K8's outputs differ between two runs")
+    log(f"K8 stored into {GUARD_ROWS} guard rows past H*W: unchanged; two runs: the same bits")
 
 
 def g2m_parts(torch, args, plan, n_edges) -> dict:
@@ -657,23 +719,27 @@ def attention_op_checks(torch, g) -> list[dict]:
         qkv = randn(Z, H, Wd, 3 * C, dtype=bf16)
         flops, nbytes = attn_work(n_win, heads, wlen, hd, bias, mask)
         body = f"[{FA.attention_body(wlen, hd)} body]"
+        # the yardstick of K10 and K11: one library call on the same inputs,
+        # the additive bias + mask as a materialised bf16 attn_mask; timed,
+        # used nowhere
+        attn_mask = (bias[:, None] + mask.view(nz * nh, 1, 1, wlen, wlen)).to(bf16)
+        attn_mask = attn_mask.expand(nz * nh, nw, heads, wlen, wlen).reshape(n_win, heads, wlen, wlen)
         out5 = op_row(torch, rows, f"K5 fused_window_attention_4d {stage} {tuple(qkv.shape)} {body}", src, f"{jax_src}:226",
                       FA.fused_window_attention_4d, (qkv, bias, mask, window, heads),
                       FA.reference_window_attention_4d, flops, nbytes, iters=10)
         rows[-1]["shape"] = (Z, H, Wd, C)  # the module path's launches at this width
         parts = window_partition(qkv, window).contiguous()
         del qkv
+        qv, kv, vv = parts.view(n_win, wlen, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)  # views
         out10 = op_row(torch, rows, f"K10 fused_window_attention {stage} {tuple(parts.shape)} {body}", src, f"{jax_src}:105",
                        FA.fused_window_attention, (parts, bias, mask, nw, heads),
-                       FA.reference_window_attention_qkv, flops, nbytes, iters=10)
+                       FA.reference_window_attention_qkv, flops, nbytes, iters=10,
+                       library=lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=attn_mask))
+        del qv, kv, vv
         compare(torch, out10, window_partition(out5, window), f"K10 against K5 after the partition, {stage}", exact=True)
         del out5
         q, k, v = parts.view(n_win, wlen, 3, heads, hd).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
         del parts
-        # the yardstick: one library call on the same inputs, the additive
-        # bias + mask as a materialised bf16 attn_mask; timed, used nowhere
-        attn_mask = (bias[:, None] + mask.view(nz * nh, 1, 1, wlen, wlen)).to(bf16)
-        attn_mask = attn_mask.expand(nz * nh, nw, heads, wlen, wlen).reshape(n_win, heads, wlen, wlen)
         out11 = op_row(torch, rows, f"K11 flash_window_attention {stage} {tuple(q.shape)} {body}", src, f"{jax_src}:358",
                        FA.flash_window_attention, (q, k, v, bias, mask, nw),
                        FA.reference_window_attention, flops, nbytes, iters=10,
@@ -851,17 +917,25 @@ MODEL_OF = {"K1": "pangu", "K2": "pangu", "K3": "pangu", "K4": "pangu",
 
 
 def reset_counts() -> None:
+    from skyrim_tpu_torch.ops.fused_mlp import ln_rows
+
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
     for k in BY_SHAPE:
         fns[k].launches_by_shape.clear()
+    ln_rows.launches_by_nsum.clear()
 
 
 def read_counts() -> tuple[dict, dict]:
+    """The kernels' launch counts, and by shape for BY_SHAPE; by_shape also
+    holds the LayerNorm rows kernel's launches by nsum under "ln_rows"."""
+    from skyrim_tpu_torch.ops.fused_mlp import ln_rows
+
     fns = counters()
     counts = {k: fn.launches for k, fn in fns.items()}
     by_shape = {k: {tuple(s): v for s, v in fns[k].launches_by_shape.items()} for k in BY_SHAPE}
+    by_shape["ln_rows"] = dict(ln_rows.launches_by_nsum)
     return counts, by_shape
 
 
@@ -869,7 +943,7 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     """Launches per n_steps forwards of the main path: every kernel of the
     port is listed, so the other model's kernels must stay at 0."""
     counts = dict.fromkeys((*MODEL_OF, "gemm"), 0)
-    by_shape = {k: {} for k in BY_SHAPE}
+    by_shape = {k: {} for k in (*BY_SHAPE, "ln_rows")}
     if model.name == "pangu":
         # the row GEMM through ops.gemm: K1's four products, K3's and K4's Dense
         counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps, gemm=(16 * 4 + 2) * n_steps)
@@ -888,6 +962,9 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
         (t["n_mesh"], L, L, L): (1 + rounds) * n_steps,  # g2m.MLP_0 and each round's MLP_1
     }
     by_shape["K7"] = {(*t["mesh_src_blocks"].shape, L, t["mesh_SB"]): rounds * n_steps}
+    # the LayerNorm rows kernel: after K6's products (all but the head's) and
+    # K7's; K8 and K9 normalise inside their one kernel, so none with nsum 3
+    by_shape["ln_rows"] = {1: (4 + 2 * rounds) * n_steps}
     return counts, by_shape
 
 
@@ -926,7 +1003,7 @@ def main_path(torch, model_name: str, g) -> dict:
     expect, expect_shape = expected_launches(gm.model, n_steps)
     for k, v in expect.items():
         check(counts[k] == v, f"{model_name} main path launched {k} {counts[k]} times, expected {v}")
-    for k in BY_SHAPE:
+    for k in (*BY_SHAPE, "ln_rows"):
         check(by_shape[k] == expect_shape[k],
               f"{model_name} main path launched {k} by shape {by_shape[k]}, expected {expect_shape[k]}")
     check(fc.data.shape == (n_steps + 1, *shape), f"forecast shape {fc.data.shape}")
@@ -1071,7 +1148,7 @@ def main() -> int:
         g = torch.Generator(device="cuda").manual_seed(0)
         rows, attn_err = kernel_checks(torch, g)
         log(f"K1 window attention alone, earth bias at {ATTN_BIAS_SCALE}: max_abs_err {attn_err}")
-        gc_rows, k9_faults, k9_parts = graphcast_kernel_checks(torch, g)
+        gc_rows, faults, k9_parts = graphcast_kernel_checks(torch, g)
         gemm_rows = row_gemm_checks(torch, g)
         msg_rows, k14_fault = message_op_checks(torch, g)
         rows += gc_rows + attention_op_checks(torch, g) + msg_rows
@@ -1113,7 +1190,7 @@ def main() -> int:
                                                  "peak_gb", "profile")} for name, run in mp.items()},
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
-        "k9_k7_fault_err_over_limit": k9_faults,
+        "k8_k9_k7_fault_err_over_limit": faults,
         "k9_parts": k9_parts,
         "row_gemm": gemm_rows,
         "k14_fault_err_over_limit": k14_fault,

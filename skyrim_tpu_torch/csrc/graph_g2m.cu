@@ -137,7 +137,7 @@ extern "C" int skt_g2m_messages(const void* asrc, const void* bias, const void* 
               static_cast<const float*>(b0), static_cast<const int*>(rows), D};
   rowgemm::EpiLN epi{static_cast<const float*>(b), static_cast<const float*>(ln_scale),
                      static_cast<const float*>(ln_bias), eps};
-  return rowgemm::launch_rows_ln(pro, W, epi, out, E, L, stream);
+  return rowgemm::launch_rows_ln<1>(pro, W, epi, out, E, L, stream);
 }
 
 extern "C" int skt_csr_sum(const void* x, const void* csr, void* out, int n, int C, void* stream) {

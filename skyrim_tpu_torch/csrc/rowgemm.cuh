@@ -1,7 +1,7 @@
 // Row-GEMM building blocks: the tiled GEMM of every port kernel that
-// multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6-K8; K12-K14
-// in graph_finish.cu), K9's row kernel with its LayerNorm inside
-// (rows_ln_kernel), and the row kernels the GraphCast kernels share.
+// multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6 and K7;
+// K12-K14 in graph_finish.cu), K8's and K9's row kernel with its LayerNorm
+// inside (rows_ln_kernel), and the row kernels the GraphCast kernels share.
 //
 // The four GraphCast TPU kernels (skyrim_tpu/ops/fused_mlp.py fused_mlp and
 // ops/graph_kernels.py fused_round_messages / fused_m2g_tiled /
@@ -51,11 +51,13 @@
 //                   owner, so the result is the same bits on every run, and
 //                   for ids in sorted order the f32 sum in row order.
 //   rows_ln_kernel  out = bf16(LN(bf16(prologue @ W + b))) for rows of up to
-//                   512 columns in one launch (K9): 64 rows x all columns a
-//                   tile, so the LayerNorm runs in the epilogue; the
-//                   prologue computed once a row by producer warps into a
-//                   whole-tile A buffer, W by TMA, two consumer warpgroups of
-//                   256 columns each exchanging row sums (see below).
+//                   512 columns in one launch (K9), or the f32 sum of three
+//                   consecutive rows' LayerNorms (K8's slots): 64 (or 63)
+//                   rows x all columns a tile, so the LayerNorm and the slot
+//                   sum run in the epilogue; the prologue computed once a row
+//                   by producer warps into a whole-tile A buffer, W by TMA,
+//                   two consumer warpgroups of 256 columns each exchanging
+//                   row sums (see below).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time, not linked
@@ -792,7 +794,7 @@ inline int launch_ln_rows(const void* y, const void* scale, const void* bias, co
   const bf16 *yb = static_cast<const bf16*>(y), *rb = static_cast<const bf16*>(res);
   const float *sf = static_cast<const float*>(scale), *bf = static_cast<const float*>(bias);
   bf16* ob = static_cast<bf16*>(out);
-  switch (nsum) {  // 1: every LayerNorm but K8's and K13's; 3: their triangle slots
+  switch (nsum) {  // 1: every LayerNorm but K13's; 3: its triangle slots
     case 1: ln_rows_kernel<1><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
     case 2: ln_rows_kernel<2><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
     case 3: ln_rows_kernel<3><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
@@ -880,24 +882,37 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 
 // --- rows_ln_kernel: computed prologue -> Dense -> LayerNorm, whole rows a block ---
 //
-// out[q] = bf16(LN(bf16(A[q] @ W + b))) for M rows of L <= 512 columns, A[q]
-// computed by a prologue functor (K9: the gather + swish of its row plan),
-// in one launch.  The block's tile is 64 rows x all 512 columns, so that every
-// row it writes is complete in the block and the LayerNorm runs in the
-// epilogue.  One persistent block an SM walks the tiles blockIdx.x, +
-// gridDim.x, ...
+// out[o] = bf16(sum_{k < GROUP} bf16(LN(bf16(A[GROUP o + k] @ W + b)))), the
+// sum in f32 in slot order, for M rows of L <= 512 columns, A[q] computed by
+// a prologue functor, in one launch.  GROUP 1 (K9): out[q] is row q's
+// message, 64-row tiles.  GROUP 3 (K8): a tile is 21 output points = 63
+// rows, so every point's three slot rows lie in one tile (row 63 of the
+// 64-row wgmma tile is padding: set to 0 once, computed row by row and never
+// stored).  The block's
+// tile is all 512 columns, so that every row it writes is complete in the
+// block and the LayerNorm (and the slot sum) runs in the epilogue.  One
+// persistent block an SM walks the tiles blockIdx.x, + gridDim.x, ...
 //
 // - Prologue warps (warps 0-2 of the third warpgroup, setmaxnreg 72):
 //   compute a tile's whole A block once, 64 rows x 512 K bf16 (64 KB, eight
 //   slices of 64 K in gemm_mainloop's A layout), into one of two A buffers,
-//   so the next tile's prologue runs while this one multiplies.
-//   Warp w takes the rows w, w + 3, ..., a lane two 16-byte chunks of each.
-//   The first source of every chunk comes by cp.async straight to the
-//   chunk's place in the buffer (a whole tile's worth in flight at once,
-//   without registers), the others by loads into registers two rows at a
-//   time; the prologue is then computed in place.  Each thread fences its
-//   stores for the async proxy (wgmma) and arrives on the buffer's a_full
-//   barrier.  Rows past M and columns past L come in as 0.
+//   so the next tile's prologue runs while this one multiplies.  Each thread
+//   fences its stores for the async proxy (wgmma) and arrives on the
+//   buffer's a_full barrier.  Rows past M and columns past L come in as 0.
+//   GROUP 1, a row at a time (Pro::index / copy / load / make): warp w takes
+//   the rows w, w + 3, ..., a lane two 16-byte chunks of each.  The first
+//   source of every chunk comes by cp.async straight to the chunk's place in
+//   the buffer (a whole tile's worth in flight at once, without registers),
+//   the others by loads into registers two rows at a time; the prologue is
+//   then computed in place.
+//   GROUP 3, a point at a time (Pro::index / load / make): the tile's first
+//   source rows are contiguous (Pro::rows_by_tma(), rows 63t .. 63t + 62),
+//   so one thread brings them by TMA, boxes of 64 columns x 63 rows in the
+//   128-byte swizzle straight into the A slices (x_full), while warp w
+//   loads the points w, w + 3, ... < PRO_POINTS: a lane the other sources of
+//   two chunks of all three of a point's rows into registers, then the three
+//   rows computed in place.  The consumers compute the tile's other points
+//   (share() below) and arrive on a_full too.
 // - W thread (lane 0 of warp 3): TMA loads of W into a ring of W_STAGES
 //   slices of 32 K x 512 columns (w_full / w_empty), the same walk for every
 //   tile; columns and rows past L read as 0.
@@ -909,9 +924,16 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 //   barrier 5, then Epi::norm with f32 statistics (fast variance clipped at
 //   0); the bf16 values go into the A buffer just multiplied (both consumers
 //   are past their products at barrier 5), in boxes of 64 columns in the
-//   128-byte swizzle, and one thread of each consumer stores its four boxes
-//   by TMA (rows past M clipped), waits until the store has read them and
-//   arrives on the buffer's a_empty barrier: the producer may refill it.
+//   128-byte swizzle.  GROUP 3: under the consumer's named barrier 6 + c,
+//   each point's three staged rows are read and summed in f32, then (after
+//   a second barrier) the 21 bf16 sums written in place as rows 0 .. 20.
+//   One thread of each consumer stores its four boxes by TMA (rows past the
+//   output clipped), waits until the store has read them and arrives on the
+//   buffer's a_empty barrier: the producer may refill it.  GROUP 3: then
+//   every consumer thread computes its part of points PRO_POINTS .. 20 of
+//   the next tile's prologue (its accumulators are dead, it would otherwise
+//   wait on a_full), all its loads in flight at once, and arrives on
+//   a_full.
 //
 // The exchange area holds one tile's partials: a consumer cannot write the
 // next tile's before the other has read these, since the W slices of the next
@@ -919,15 +941,18 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 // released the slices before them, and the other consumer releases them only
 // after this epilogue.
 //
-// What bounds it (K9 at full width, NVIDIA H100 80GB HBM3, 700 W,
-// tools/kernel_variants.py g2m): the prologue warps.  With the prologue left
-// out, products, W stream (13.4 GB from L2) and epilogue take 2.1 ms; the
-// prologue's arithmetic without its loads 2.5 ms; with its gathers 5.5 ms.
-// Three warps hold too few loads in flight, and the consumers' 128
-// accumulators a thread leave them 72 registers (a 512-thread block cannot
-// compile the m64n256 product within 128 registers).
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W, tools/kernel_variants.py
+// g2m and m2g): the prologue's gathers.  K9 at full width: with the
+// prologue left out, products, W stream (13.4 GB from L2) and epilogue take
+// 2.1 ms; the prologue's arithmetic without its loads 2.5 ms; with its
+// gathers 5.5 ms.  Three warps hold too few loads in flight, and the
+// consumers' 128 accumulators a thread leave them 72 registers (a
+// 512-thread block cannot compile the m64n256 product within 128
+// registers).  K8 (49,440 tiles): 11.4 ms with the three warps computing
+// every point, 8.5 ms with the consumers taking 9 of the 21 (12 producer
+// points; 9 gave 9.4, 15 gave 9.5, 0 gave 13.3 ms).
 namespace rowln {
-constexpr int BM = 64, WIDTH = 512, BKW = 32;  // tile rows, the widest L, W slice depth
+constexpr int BM = 64, WIDTH = 512, BKW = 32;  // wgmma tile rows, the widest L, W slice depth
 constexpr int A_BYTES = BM * WIDTH * 2;        // a whole tile's A block
 constexpr int W_BYTES = BKW * WIDTH * 2;       // a W slice: 8 column atoms x 4 k-atoms
 constexpr int W_STAGES = 3;
@@ -935,6 +960,9 @@ constexpr int THREADS = 384, PRO_WARPS = 3, PRO_THREADS = PRO_WARPS * 32;
 constexpr int STATS_BYTES = 2 * BM * 8;        // (consumer, row) -> (sum, sum of squares)
 constexpr size_t SMEM = 1024 + 2 * (size_t)A_BYTES + W_STAGES * (size_t)W_BYTES + STATS_BYTES + 128;
 static_assert(SMEM <= 232448, "fits a block");
+// rows a tile computes and stores: whole groups of GROUP rows (64 or 63)
+template <int GROUP>
+constexpr int ROWS = BM - BM % GROUP;
 }  // namespace rowln
 
 // out = bf16(LN(bf16(acc + b))), flax numerics.
@@ -955,17 +983,24 @@ struct EpiLN {
   }
 };
 
-template <class Pro, class Epi>
+template <int GROUP, class Pro, class Epi>
 __global__ void __launch_bounds__(rowln::THREADS, 1)
-    rows_ln_kernel(Pro pro, __grid_constant__ const CUtensorMap mapW,
+    rows_ln_kernel(Pro pro, __grid_constant__ const CUtensorMap mapA,
+                   __grid_constant__ const CUtensorMap mapW,
                    __grid_constant__ const CUtensorMap mapOut, Epi epi, int M, int L, int tiles) {
   using namespace rowln;
+  static_assert(GROUP == 1 || GROUP == 3, "K9's rows or K8's points");
+  constexpr int TR = ROWS<GROUP>, OUT_ROWS = TR / GROUP;  // 64 / 64 or 63 / 21
+  // GROUP 3: the producer warps compute points 0 .. PRO_POINTS - 1 of a tile
+  // (four each), the consumers the other nine (share() below)
+  constexpr int PRO_POINTS = 12;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* abuf = align1024(smem_raw);  // two A buffers, then the W ring
   unsigned char* wring = abuf + 2 * A_BYTES;
   float2* stats = reinterpret_cast<float2*>(wring + W_STAGES * W_BYTES);
   const unsigned w_full0 = smem_addr(stats + 2 * BM), w_empty0 = w_full0 + 8 * W_STAGES;
   const unsigned a_full0 = w_empty0 + 8 * W_STAGES, a_empty0 = a_full0 + 16;
+  const unsigned x_full0 = a_empty0 + 16;  // GROUP 3: the TMA-brought rows of buffer b landed
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < W_STAGES; ++s) {
@@ -973,10 +1008,21 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
       mbar_init(w_empty0 + 8 * s, 8);  // every consumer warp
     }
     for (int b = 0; b < 2; ++b) {
-      mbar_init(a_full0 + 8 * b, PRO_THREADS);
+      mbar_init(a_full0 + 8 * b, GROUP == 1 ? PRO_THREADS : PRO_THREADS + 256);  // GROUP 3: the consumers too
       mbar_init(a_empty0 + 8 * b, 2);  // one thread of each consumer
+      mbar_init(x_full0 + 8 * b, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // GROUP 3: the padding row of both buffers, which no prologue writes, set
+  // to 0 (K8 measured 8.6-8.9 ms with this, 9.1 ms with the row left as
+  // shared memory held it; NVIDIA H100 80GB HBM3, 700 W)
+  if constexpr (TR < BM) {
+    for (int i = tid; i < 2 * 8 * (BM - TR) * 8; i += rowln::THREADS) {
+      const int chunk = i & 7, row = TR + ((i >> 3) % (BM - TR)), slice = (i >> 3) / (BM - TR);
+      *reinterpret_cast<uint4*>(abuf + slice * (BM * 128) + row * 128 + chunk * 16) = make_uint4(0, 0, 0, 0);
+    }
+    fence_async_shared();
   }
   __syncthreads();
   const int nk = (L + BKW - 1) / BKW;
@@ -999,50 +1045,83 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
         }
       return;
     }
-    // prologue warps: warp w computes rows w, w + 3, ... of each tile
-    constexpr int ROWS = (BM + PRO_WARPS - 1) / PRO_WARPS;  // 22
     // chunk c of row r of the A block: slice c / 8, the 128-byte swizzle
     const auto chunk = [](unsigned char* a, int r, int kc) {
       return reinterpret_cast<bf16*>(a + (kc >> 3) * (BM * 128) + r * 128 + (((kc & 7) ^ (r & 7)) << 4));
     };
-    for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
-      const int b = p & 1, m0 = tile * BM;
-      unsigned char* a = abuf + b * A_BYTES;
-      // lane i holds the handle of the warp's i-th row
-      const int my_row = warp + PRO_WARPS * lane;
-      const int handle = lane < ROWS && my_row < BM ? pro.index(m0 + my_row, M) : -1;
-      mbar_wait(a_empty0 + 8 * b, ((p >> 1) & 1) ^ 1);  // passes at once on the first use
+    if constexpr (GROUP == 1) {  // warp w computes rows w, w + 3, ... of each tile
+      constexpr int PER = (BM + PRO_WARPS - 1) / PRO_WARPS;  // 22
+      for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
+        const int b = p & 1, m0 = tile * BM;
+        unsigned char* a = abuf + b * A_BYTES;
+        // lane i holds the handle of the warp's i-th row
+        const int my_row = warp + PRO_WARPS * lane;
+        const int handle = lane < PER && my_row < BM ? pro.index(m0 + my_row, M) : -1;
+        mbar_wait(a_empty0 + 8 * b, ((p >> 1) & 1) ^ 1);  // passes at once on the first use
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const int r = warp + PRO_WARPS * i, hd = __shfl_sync(0xffffffffu, handle, i);
-        if (r < BM)
+        for (int i = 0; i < PER; ++i) {
+          const int r = warp + PRO_WARPS * i, hd = __shfl_sync(0xffffffffu, handle, i);
+          if (r < BM)
 #pragma unroll
-          for (int c = 0; c < 2; ++c) pro.copy(hd, (lane + 32 * c) * 8, L, chunk(a, r, lane + 32 * c));
-      }
-      cp_async_commit();
-#pragma unroll 1
-      for (int i = 0; i < ROWS; i += 2) {
-        typename Pro::Raw raw[2][2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int hd = __shfl_sync(0xffffffffu, handle, i + h);
-#pragma unroll
-          for (int c = 0; c < 2; ++c) pro.load(hd, (lane + 32 * c) * 8, L, raw[h][c]);
+            for (int c = 0; c < 2; ++c) pro.copy(hd, (lane + 32 * c) * 8, L, chunk(a, r, lane + 32 * c));
         }
-        if (i == 0) cp_async_wait<0>();  // this thread's copies have landed
+        cp_async_commit();
+#pragma unroll 1
+        for (int i = 0; i < PER; i += 2) {
+          typename Pro::Raw raw[2][2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = warp + PRO_WARPS * (i + h);
-          if (r >= BM) continue;
+          for (int h = 0; h < 2; ++h) {
+            const int hd = __shfl_sync(0xffffffffu, handle, i + h);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) pro.load(hd, (lane + 32 * c) * 8, L, raw[h][c]);
+          }
+          if (i == 0) cp_async_wait<0>();  // this thread's copies have landed
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = warp + PRO_WARPS * (i + h);
+            if (r >= BM) continue;
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kc = lane + 32 * c;
+              pro.make(raw[h][c], kc * 8, L, chunk(a, r, kc));
+            }
+          }
+        }
+        fence_async_shared();
+        mbar_arrive(a_full0 + 8 * b);
+      }
+    } else {  // warp w computes points w, w + 3, ... < PRO_POINTS (rows 3 pt .. 3 pt + 2) of each tile
+      constexpr int PER = PRO_POINTS / PRO_WARPS;
+      static_assert(PRO_POINTS % PRO_WARPS == 0, "the points divide among the warps");
+      const int slices = (L + 63) / 64;  // A slices that hold columns < L
+      for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
+        const int b = p & 1, o0 = tile * OUT_ROWS;
+        unsigned char* a = abuf + b * A_BYTES;
+        const unsigned x_full = x_full0 + 8 * b;
+        // lane i holds the handle of the warp's i-th point
+        const int handle = lane < PER ? pro.index(o0 + warp + PRO_WARPS * lane) : -1;
+        mbar_wait(a_empty0 + 8 * b, ((p >> 1) & 1) ^ 1);  // passes at once on the first use
+        if (warp == 0 && lane == 0) {  // the tile's first source rows by TMA, 0 past M and L
+          mbar_expect_tx(x_full, slices * TR * 128);
+          for (int s = 0; s < slices; ++s) tma_load_2d(smem_addr(a) + s * (BM * 128), &mapA, x_full, 64 * s, tile * TR);
+        }
+#pragma unroll 1
+        for (int i = 0; i < PER; ++i) {
+          const int pt = warp + PRO_WARPS * i, hd = __shfl_sync(0xffffffffu, handle, i);
+          typename Pro::Raw raw[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) pro.load(hd, o0 + pt, (lane + 32 * c) * 8, L, raw[c]);
+          if (i == 0) mbar_wait(x_full, (p >> 1) & 1);
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int kc = lane + 32 * c;
-            pro.make(raw[h][c], kc * 8, L, chunk(a, r, kc));
+            bf16* const rows[3] = {chunk(a, 3 * pt, kc), chunk(a, 3 * pt + 1, kc), chunk(a, 3 * pt + 2, kc)};
+            pro.make(raw[c], kc * 8, L, rows);
           }
         }
+        fence_async_shared();
+        mbar_arrive(a_full0 + 8 * b);
       }
-      fence_async_shared();
-      mbar_arrive(a_full0 + 8 * b);
     }
     return;
   }
@@ -1050,10 +1129,49 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
   constexpr unsigned B_N_STRIDE = (BKW / 8) * 1024, B_K_STRIDE = 1024;
   const int c = wg, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const bool elected = (tid & 127) == 0;
+  // GROUP 3: this thread's share of the prologue of the tile at position p
+  // of the walk (buffer p & 1), points PRO_POINTS .. OUT_ROWS - 1, a task one
+  // (point, 16-byte chunk of its three rows), all its loads in flight at once
+  // once the tile's TMA-brought rows have landed; then it arrives on a_full
+  // as the producer warps do.  Run between a tile's epilogue and the next
+  // tile's products, when the accumulators are dead.
+  const auto share = [&](int tile, int p) {
+    if constexpr (GROUP > 1) {
+      constexpr int TASKS = (OUT_ROWS - PRO_POINTS) * 64, PER = (TASKS + 255) / 256;
+      const int b = p & 1, o0 = tile * OUT_ROWS;
+      unsigned char* a = abuf + b * A_BYTES;
+      int hd[PER];
+      typename Pro::Raw raw[PER];
+#pragma unroll
+      for (int n = 0; n < PER; ++n) {
+        const int task = tid + 256 * n;
+        hd[n] = task < TASKS ? pro.index(o0 + PRO_POINTS + (task >> 6)) : -1;
+      }
+#pragma unroll
+      for (int n = 0; n < PER; ++n) {
+        const int task = tid + 256 * n;
+        pro.load(hd[n], o0 + PRO_POINTS + (task >> 6), (task & 63) * 8, L, raw[n]);
+      }
+      mbar_wait(x_full0 + 8 * b, (p >> 1) & 1);
+#pragma unroll
+      for (int n = 0; n < PER; ++n) {
+        const int task = tid + 256 * n, pt = PRO_POINTS + (task >> 6), kc = task & 63;
+        if (task >= TASKS) continue;
+        const auto chunk = [&](int r) {
+          return reinterpret_cast<bf16*>(a + (kc >> 3) * (BM * 128) + r * 128 + (((kc & 7) ^ (r & 7)) << 4));
+        };
+        bf16* const rows[3] = {chunk(3 * pt), chunk(3 * pt + 1), chunk(3 * pt + 2)};
+        pro.make(raw[n], kc * 8, L, rows);
+      }
+      fence_async_shared();
+      mbar_arrive(a_full0 + 8 * b);
+    }
+  };
+  share(blockIdx.x, 0);
   int stage = 0;
   unsigned phase = 0;
   for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
-    const int b = p & 1, m0 = tile * BM;
+    const int b = p & 1;
     unsigned char* a = abuf + b * A_BYTES;
     const unsigned a0 = smem_addr(a);
     float acc[128];
@@ -1123,41 +1241,83 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
                                      ((((j & 7) ^ (r & 7))) << 4) + 4 * q) = pack_bf16(v.x, v.y);
       }
     }
+    if constexpr (GROUP > 1) {
+      // each point's GROUP staged rows summed in f32 in slot order, a task
+      // one (point, 16-byte chunk of this consumer's 256 columns), then the
+      // sums written in place as rows 0 .. OUT_ROWS - 1 once every read is done
+      constexpr int TASKS = OUT_ROWS * 32, PER = (TASKS + 127) / 128;
+      const int t = tid & 127;
+      const auto at = [&](int r, int kc) {  // chunk kc of this consumer's row r
+        return a + (4 * c + (kc >> 3)) * (BM * 128) + r * 128 + ((((kc & 7) ^ (r & 7))) << 4);
+      };
+      bar_sync(6 + c, 128);  // this consumer's rows are staged
+      uint4 sum[PER];
+#pragma unroll
+      for (int n = 0; n < PER; ++n) {
+        const int task = t + 128 * n, pt = task >> 5, kc = task & 31;
+        if (task >= TASKS) continue;
+        float f[8], o[8];
+        load8(reinterpret_cast<const bf16*>(at(GROUP * pt, kc)), o);
+#pragma unroll
+        for (int k = 1; k < GROUP; ++k) {
+          load8(reinterpret_cast<const bf16*>(at(GROUP * pt + k, kc)), f);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) o[u] += f[u];
+        }
+        sum[n] = make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]), pack_bf16(o[6], o[7]));
+      }
+      bar_sync(6 + c, 128);  // every staged row read
+#pragma unroll
+      for (int n = 0; n < PER; ++n) {
+        const int task = t + 128 * n;
+        if (task < TASKS) *reinterpret_cast<uint4*>(at(task >> 5, task & 31)) = sum[n];
+      }
+    }
     fence_async_shared();  // made visible to the TMA unit, then stored by one thread
     bar_sync(6 + c, 128);
     if (elected) {
 #pragma unroll
       for (int bx = 0; bx < 4; ++bx)
-        if (64 * (4 * c + bx) < L) tma_store_2d(&mapOut, a0 + (4 * c + bx) * (BM * 128), 64 * (4 * c + bx), m0);
+        if (64 * (4 * c + bx) < L)
+          tma_store_2d(&mapOut, a0 + (4 * c + bx) * (BM * 128), 64 * (4 * c + bx), tile * OUT_ROWS);
       bulk_commit();
       bulk_wait_read<0>();
       mbar_arrive(a_empty0 + 8 * b);  // this consumer's half of the buffer is free again
     }
+    if (tile + gridDim.x < tiles) share(tile + gridDim.x, p + 1);
   }
 }
 
-template <class Pro, class Epi>
+template <int GROUP, class Pro, class Epi>
 static int rows_ln_attribute() {
   static const int err = static_cast<int>(cudaFuncSetAttribute(
-      rows_ln_kernel<Pro, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rowln::SMEM));
+      rows_ln_kernel<GROUP, Pro, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rowln::SMEM));
   return err;
 }
 
-// Launches rows_ln_kernel over M rows of L columns (L % 8 == 0, L <= 512; W
-// (L, L) row-major, out (M, L), both 16-byte aligned).
-template <class Pro, class Epi>
+// Launches rows_ln_kernel over M rows of L columns (L % 8 == 0, L <= 512,
+// M % GROUP == 0; W (L, L) row-major, out (M / GROUP, L), both 16-byte
+// aligned).  GROUP 3: Pro::rows_by_tma() is an (M, L) row-major bf16 matrix,
+// 16-byte aligned, the first source of every A row.
+template <int GROUP, class Pro, class Epi>
 int launch_rows_ln(const Pro& pro, const void* W, const Epi& epi, void* out, int M, int L, void* stream) {
+  constexpr int TR = rowln::ROWS<GROUP>;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (M <= 0 || L <= 0 || L % 8 || L > rowln::WIDTH || !aligned(W) || !aligned(out))
+  if (M <= 0 || M % GROUP || L <= 0 || L % 8 || L > rowln::WIDTH || !aligned(W) || !aligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mapW, mapOut;
+  CUtensorMap mapA, mapW, mapOut;
   if (int err = make_tensor_map(&mapW, W, L, L, L, rowln::BKW)) return err;
-  if (int err = make_tensor_map(&mapOut, out, M, L, L, rowln::BM)) return err;
-  if (int err = rows_ln_attribute<Pro, Epi>()) return err;
-  const int tiles = (M + rowln::BM - 1) / rowln::BM;
+  if (int err = make_tensor_map(&mapOut, out, M / GROUP, L, L, TR / GROUP)) return err;
+  mapA = mapW;  // not read with GROUP 1
+  if constexpr (GROUP > 1) {
+    if (!aligned(pro.rows_by_tma())) return static_cast<int>(cudaErrorInvalidValue);
+    if (int err = make_tensor_map(&mapA, pro.rows_by_tma(), M, L, L, TR)) return err;
+  }
+  if (int err = rows_ln_attribute<GROUP, Pro, Epi>()) return err;
+  const int tiles = (M + TR - 1) / TR;
   const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
-  rows_ln_kernel<Pro, Epi><<<grid, rowln::THREADS, rowln::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      pro, mapW, mapOut, epi, M, L, tiles);
+  rows_ln_kernel<GROUP, Pro, Epi><<<grid, rowln::THREADS, rowln::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      pro, mapA, mapW, mapOut, epi, M, L, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,4 @@
-"""Row MLP (K6), the finish alone (K12) and the row kernels that K7-K9 and
+"""Row MLP (K6), the finish alone (K12) and the row kernels that K7 and
 K13-K14 share.
 
 K6 replaces ``skyrim_tpu/ops/fused_mlp.py`` ``fused_mlp`` (Pallas body
@@ -35,7 +35,9 @@ variance, eps 1e-6) → compute dtype.
 On a CPU tensor ``fused_mlp`` runs ``reference_mlp`` and ``fused_finish``
 ``reference_finish``; on a CUDA tensor they launch the kernels or raise.
 ``<wrapper>.launches`` counts wrapper calls that launched,
-``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout).
+``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout), and
+``ln_rows.launches_by_nsum`` the LayerNorm rows kernel's launches by the
+number of rows it sums.
 """
 
 from __future__ import annotations
@@ -171,7 +173,11 @@ def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
         residual.data_ptr() if residual is not None else None, out.data_ptr(), R, C, nsum, _EPS, _stream(y),
     )
     _build.check(lib, err, "ln_rows")
+    ln_rows.launches_by_nsum[nsum] = ln_rows.launches_by_nsum.get(nsum, 0) + 1
     return out
+
+
+ln_rows.launches_by_nsum = {}  # nsum -> launches
 
 
 def segment_sum(x, local, S):

@@ -12,8 +12,11 @@ predecessors K13-K14.
   registers and is fastest on the plan's sorted ids.
 - K8 ``fused_m2g_tiled`` replaces ``fused_m2g_tiled`` (body
   ``_m2g_tiled_kernel``): the mesh→grid decoder over face tiles, the sum
-  over the 3 slots of finish(face row + bias + dst row).
-  csrc/graph_m2g.cu + csrc/fused_mlp.cu.
+  over the 3 slots of finish(face row + bias + dst row), in one launch
+  (csrc/rowgemm.cuh ``rows_ln_kernel`` on tiles of 21 points = 63 rows:
+  bias rows by TMA, the prologue a point at a time by producer warps, the
+  Dense by ``wgmma``, the LayerNorm and the slot sum in the epilogue).
+  csrc/graph_m2g.cu.
 - K9 ``fused_g2m_tiled`` replaces ``fused_g2m_tiled`` (body
   ``_g2m_tiled_kernel``): the grid→mesh encoder, grid-major over spatial
   tiles, returning (TH, TW, U, L) tile partials.  Only the filled slots
@@ -204,24 +207,32 @@ def fused_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
     L = KL // deg
     if deg != 3 or L % 8 or (TH, TW) != (-(-H // th), -(-W // tw)):
         raise ValueError(f"fused_m2g_tiled: deg {deg} (takes 3), L {L} (% 8), tiles {(TH, TW)} for {(H, W)}/{(th, tw)}")
+    if L > 512:
+        raise ValueError(f"fused_m2g_tiled takes L <= 512 (one block holds whole rows), got {L}")
     require(local_hw, (H, W), "m2g local", torch.int32)
     require(bias_hw, (H, W, KL), "m2g bias")
     require(ad_hw, (H, W, L), "m2g ad")
     require(uniq, (TH, TW, U, KL), "m2g uniq")
-    y = torch.empty((3 * H * W, L), dtype=torch.bfloat16, device=uniq.device)
+    require_rows16("fused_m2g_tiled", uniq, bias_hw, ad_hw)
+    out = torch.empty((H, W, L), dtype=torch.bfloat16, device=uniq.device)
     b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
-    lib = _lib("graph_m2g", "skt_m2g_gemm", [_P] * 8 + [_I] * 7 + [_P])
-    err = lib.skt_m2g_gemm(
-        uniq.data_ptr(), local_hw.data_ptr(), bias_hw.data_ptr(), ad_hw.data_ptr(), b0.data_ptr(),
-        w.data_ptr(), b.data_ptr(), y.data_ptr(), H, W, L, U, th, tw, TW, _stream(uniq),
+    scale, shift = _f32(ln[0]), _f32(ln[1])
+    lib = _m2g_lib()
+    err = lib.skt_m2g_messages(
+        uniq.data_ptr(), local_hw.data_ptr(), bias_hw.data_ptr(), ad_hw.data_ptr(), b0.data_ptr(), w.data_ptr(),
+        b.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(), H, W, L, U, th, tw, TW, _EPS,
+        _stream(uniq),
     )
-    _build.check(lib, err, "m2g_gemm")
-    out = ln_rows(y, ln, nsum=3)
+    _build.check(lib, err, "m2g_messages")
     fused_m2g_tiled.launches += 1
-    return out.view(H, W, L)
+    return out
 
 
 fused_m2g_tiled.launches = 0
+
+
+def _m2g_lib():
+    return _lib("graph_m2g", "skt_m2g_messages", [_P] * 10 + [_I] * 7 + [_F, _P])
 
 
 def g2m_plan(local_t, U, th, tw):

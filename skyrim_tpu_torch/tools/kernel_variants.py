@@ -2,7 +2,7 @@
 
     python -m skyrim_tpu_torch.tools.kernel_variants KIND [VARIANT ...]
 
-KIND is ``attention``, ``gemm``, ``round`` or ``g2m``.  A VARIANT is a directory: an
+KIND is ``attention``, ``gemm``, ``round``, ``g2m`` or ``m2g``.  A VARIANT is a directory: an
 edited copy of ``skyrim_tpu_torch/csrc`` (``""`` for the package's own, which
 is also what is timed when no variant is given).  The sources carry no
 build-time switches: an experiment is a copy with the change made in it.
@@ -37,6 +37,11 @@ variants.
   of the 721 x 1440 tables (1,629,780 filled slots, L 512): the messages
   kernel (prologue, products and LayerNorm) and the CSR sum.  The tables are
   built on the host first (about 10 s).
+- ``m2g``: ``graph_m2g.cu`` and ``fused_mlp.cu``; K8 at full width on the
+  face tiles of the 721 x 1440 tables (uniq (91, 12, 192, 1536), L 512):
+  the one launch ``skt_m2g_messages``, or, for a ``csrc`` that exports
+  ``skt_m2g_gemm`` instead (the two-launch K8 before it), that GEMM and the
+  LayerNorm rows with nsum 3, alone and together.
 
 Prints one line per report, per (round, variant, case); needs a CUDA device
 and nvcc.
@@ -53,9 +58,9 @@ from pathlib import Path
 ROUNDS, LAUNCHES = 4, 20
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp"),
-           "g2m": ("graph_g2m",)}  # fmt: skip
+           "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp")}  # fmt: skip
 REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
-            "round": ("rowgemm", ""), "g2m": ("graph_g2m", "")}  # fmt: skip
+            "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",)}  # fmt: skip
 
 
 def _bind(lib, name, argtypes):
@@ -257,7 +262,49 @@ def g2m_cases(torch, libs):
             "csr_sum": (lambda: cs(p(m), p(csr), p(out), n, Lw, st), None)}
 
 
-CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases}
+_M2G_TILES = []
+
+
+def m2g_cases(torch, libs):
+    from skyrim_tpu_torch.ops.graph import build_face_tiles, build_graphs
+
+    H, W, Lw = 721, 1440, 512
+    if not _M2G_TILES:  # built once for every variant
+        ft = build_face_tiles(build_graphs(H, W, 6)["m2g_face"].reshape(H, W), th=8, tw=128)
+        _M2G_TILES.append(ft)
+    ft = _M2G_TILES[0]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    TH, TW, U = ft["tile_faces"].shape
+    uniq = (torch.randn(TH, TW, U, 3 * Lw, device=dev, generator=g) * 0.3).to(torch.bfloat16)
+    local = torch.from_numpy(ft["tile_local"]).to(dev)
+    bias = (torch.randn(H * W, 3 * Lw, device=dev, generator=g) * 0.3).to(torch.bfloat16)
+    ad = (torch.randn(H * W, Lw, device=dev, generator=g) * 0.3).to(torch.bfloat16)
+    w = (torch.randn(Lw, Lw, device=dev, generator=g) * Lw**-0.5).to(torch.bfloat16)
+    b0, b, scale, shift = (torch.randn(Lw, device=dev, generator=g) * 0.1 for _ in range(4))
+    out = torch.empty(H * W, Lw, device=dev, dtype=torch.bfloat16)
+    st = torch.cuda.current_stream().cuda_stream
+    p = lambda t: t.data_ptr()  # noqa: E731
+    flops = 2 * 3 * H * W * Lw * Lw
+    lib = libs["graph_m2g"]
+    if hasattr(lib, "skt_m2g_messages"):
+        fn = _bind(lib, "skt_m2g_messages", [P] * 10 + [I] * 7 + [F, P])
+        return {"K8": (lambda: fn(p(uniq), p(local), p(bias), p(ad), p(b0), p(w), p(b), p(scale), p(shift), p(out),
+                                  H, W, Lw, U, 8, 128, TW, 1e-6, st), flops)}  # fmt: skip
+    gemm = _bind(lib, "skt_m2g_gemm", [P] * 8 + [I] * 7 + [P])
+    ln = _bind(libs["fused_mlp"], "skt_ln_rows", [P, P, P, P, P, I, I, I, F, P])
+    y = torch.empty(3 * H * W, Lw, device=dev, dtype=torch.bfloat16)
+
+    def first():
+        return gemm(p(uniq), p(local), p(bias), p(ad), p(b0), p(w), p(b), p(y), H, W, Lw, U, 8, 128, TW, st)
+
+    def norm():
+        return ln(p(y), p(scale), p(shift), None, p(out), H * W, Lw, 3, 1e-6, st)
+
+    return {"K8": (lambda: first() or norm(), flops), "K8 gemm": (first, flops), "K8 ln_rows": (norm, None)}
+
+
+CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases, "m2g": m2g_cases}
 
 
 def main(argv: list[str]) -> int:

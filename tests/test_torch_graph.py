@@ -322,16 +322,28 @@ def _m2g_inputs(H=11, W=18, L=16, n_faces=7, th=4, tw=8, seed=1):
             ft["th"], ft["tw"])
 
 
-def test_plain_m2g_matches_jax():
+# K8's shapes: face tiles that do not divide the grid (all three); grid
+# points not a multiple of the kernel's 21-point tile (11 x 18 = 198,
+# 37 x 70 = 2,590 = 21 * 123 + 7) and fewer than one tile (3 x 5)
+M2G_SHAPES = {
+    "11x18": dict(H=11, W=18, n_faces=7, th=4, tw=8),
+    "37x70": dict(H=37, W=70, n_faces=40, th=8, tw=16),
+    "3x5": dict(H=3, W=5, n_faces=5, th=2, tw=4),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(M2G_SHAPES))
+def test_plain_m2g_matches_jax(shape):
     import jax.numpy as jnp
 
     from skyrim_tpu.ops.graph_kernels import fused_m2g_tiled as j_fused
     from skyrim_tpu.ops.graph_kernels import reference_m2g_tiled as j_ref
 
-    a = _m2g_inputs()
+    a = _m2g_inputs(**M2G_SHAPES[shape])
+    H, W = a[1].shape
     for dt, jdt, close in ((torch.float32, jnp.float32, _close_f32), (torch.bfloat16, jnp.bfloat16, _close_bf16)):
         out = GK.fused_m2g_tiled(_t(a[0], dt), _t(a[1]), *_t(a[2:4], dt), *_t(a[4:7]), *a[7:])
-        assert out.shape == (11, 18, 16) and out.dtype == dt
+        assert out.shape == (H, W, 16) and out.dtype == dt
         jin = (_j(a[0], jdt), _j(a[1]), *_j(a[2:4], jdt), *_j(a[4:7]), *a[7:])
         close(out, j_fused(*jin, interpret=True))
         close(out, j_ref(*jin))
@@ -628,6 +640,61 @@ def test_m2g_kernel_matches_plain_partial_tiles(cuda):
     out = GK.fused_m2g_tiled(*args)
     torch.cuda.synchronize()
     _close_card(out, GK.reference_m2g_tiled(*args))
+
+
+def _m2g_card_args(cuda, shape, L):
+    a = _m2g_inputs(L=L, **M2G_SHAPES[shape])
+    bf = torch.bfloat16
+    return (_t(a[0], bf, cuda), _t(a[1], device=cuda), *_t(a[2:4], bf, cuda), *_t(a[4:7], device=cuda), *a[7:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [16, 64, 512])
+@pytest.mark.parametrize("shape", sorted(M2G_SHAPES))
+def test_m2g_kernel_matches_plain(cuda, shape, L):
+    """K8 in one launch, no LayerNorm rows launch beside it, against its
+    plain version: a partial last 21-point tile (11 x 18, 37 x 70), a grid
+    smaller than one tile (3 x 5), face tiles that do not divide the grid,
+    and L 16 and 64 (columns and W rows past L read as 0) as well as 512."""
+    args = _m2g_card_args(cuda, shape, L)
+    before, ln_before = GK.fused_m2g_tiled.launches, dict(FM.ln_rows.launches_by_nsum)
+    out = GK.fused_m2g_tiled(*args)
+    torch.cuda.synchronize()
+    assert GK.fused_m2g_tiled.launches == before + 1 and FM.ln_rows.launches_by_nsum == ln_before
+    _close_card(out, GK.reference_m2g_tiled(*args))
+
+
+@pytest.mark.gpu
+def test_m2g_kernel_guard_rows(cuda):
+    """K8's TMA store into an output with 64 sentinel rows past H·W (a
+    partial last tile): the guard rows come back unchanged, the rows before
+    them equal the wrapper's output."""
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    L = 512
+    uniq, local, bias, ad, b0, wb, ln, _, th, tw = _m2g_card_args(cuda, "37x70", L)
+    (H, W), (TH, TW, U, _) = local.shape, uniq.shape
+    n, sentinel = H * W, 0x7FA5
+    buf = torch.full((n + 64, L), sentinel, dtype=torch.int16, device=cuda)
+    w = wb[0].to(torch.bfloat16).contiguous()
+    lib = GK._m2g_lib()
+    err = lib.skt_m2g_messages(uniq.data_ptr(), local.data_ptr(), bias.data_ptr(), ad.data_ptr(), b0.data_ptr(),
+                               w.data_ptr(), wb[1].data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), buf.data_ptr(),
+                               H, W, L, U, th, tw, TW, _EPS, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    out = GK.fused_m2g_tiled(uniq, local, bias, ad, b0, wb, ln, 3, th, tw)
+    torch.cuda.synchronize()
+    assert (buf[n:] == sentinel).all()
+    assert torch.equal(buf[:n].view(torch.bfloat16), out.view(n, L))
+
+
+@pytest.mark.gpu
+def test_m2g_kernel_repeat_equal_bits(cuda):
+    """Two launches of K8 on the same inputs give the same bits."""
+    args = _m2g_card_args(cuda, "37x70", 512)
+    out, again = GK.fused_m2g_tiled(*args), GK.fused_m2g_tiled(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
