@@ -15,7 +15,11 @@ Phases:
      stage 2, shifted, and its window attention alone with a strong earth
      bias; K2 at both shapes; K3; K4.  GraphCast: K6 once per shape class
      (the feature-major Cin = 174 embedding, the grid update, the decoder's
-     node update, the Cout = 83 head, the mesh MLPs); K7 at the multimesh
+     node update, the Cout = 83 head, the mesh MLPs), and its output under
+     three faults (the grid update's residual dropped; the embedding's K
+     tail read from rows 174-175 of its input buffer, which hold 1e4, with
+     W1 rows to match; the grid update's LayerNorm statistics of each row
+     taken from the next row), which its check must refuse; K7 at the multimesh
      block plan, padding rows included, then with the ids of every block
      shuffled, with one block made of padding rows only, twice on the same
      inputs (the same bits), and with one real edge dropped per block, which
@@ -55,9 +59,10 @@ Phases:
      66 launches of the row GEMM through ops.gemm inside them),
      then GlobalModel("graphcast", ic_source="synthetic"), 721x1440, 83
      channels, latent 512, 16 rounds, refinement 6, a 4-step forecast
-     (21 K6, 16 K7, 1 K8, 1 K9 per forward, and 36 launches of the
-     LayerNorm rows kernel, none of them K8's; the cache build's launches are
-     counted apart); for each, per-step CUDA-event times, peak memory, one
+     (21 K6, 16 K7, 1 K8, 1 K9 per forward; 20 of the K6 calls finish in
+     one launch of the whole-row kernel, counted by rows, width and
+     residual, and the LayerNorm rows kernel runs 16 times, K7's only; the
+     cache build's launches are counted apart); for each, per-step CUDA-event times, peak memory, one
      profiled step, and rollout(save=True) for 2 steps into a temporary
      directory and a reload of the files.  Weights are random, from a seed.
      Then the module path: the full-width net's stage-1 and stage-2
@@ -292,8 +297,8 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
 def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     """Phase 3, GraphCast: K6-K9 at every full-width main-path shape against
     their plain versions, on the real static tables of the full model.
-    Returns the kernels' rows and, for three faults fed to K8, two to K9 and
-    one to K7, how far over its limit each output lies."""
+    Returns the kernels' rows and, for three faults fed to K6, three to K8,
+    two to K9 and one to K7, how far over its limit each output lies."""
     from skyrim_tpu_torch.models.graphcast import GraphCastConfig, build_tables
     from skyrim_tpu_torch.ops import fused_mlp as FM
     from skyrim_tpu_torch.ops import graph_kernels as GK
@@ -315,7 +320,7 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
         return (randn(L, scale=0.1), (randn(L, L, scale=L**-0.5), randn(L, scale=0.1)),
                 (1 + randn(L, scale=0.1), randn(L, scale=0.1)))
 
-    rows = []
+    rows, faults = [], {}
 
     def row(name, key, source, replaces, err, fn, plain, flops, nbytes, iters=5):
         b_ms, b_by = bound(flops, nbytes)
@@ -340,12 +345,16 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
                   residual=randn(n, cout, dtype=bf16) if use_res else None, x_transposed=xt)
         out = FM.fused_mlp(*args, **kw)
         torch.cuda.synchronize()
-        err = compare(torch, out, FM.reference_mlp(*args, **kw), f"K6 {name}")
+        ref = FM.reference_mlp(*args, **kw)
+        err = compare(torch, out, ref, f"K6 {name}")
         del out
+        if name in ("embed_grid", "grid_update"):
+            faults.update(mlp_faults(torch, g, name, args, kw, ref))
+        del ref
         flops = 2 * n * ((c1 + c2) * L + L * cout)
         nbytes = 2 * n * (c1 + c2 + cout * (2 if use_res else 1)) + 2 * ((c1 + c2) * L + L * cout)
         shape = f"({c1}{'T' if xt else ''}{f'+{c2}' if c2 else ''}, {n})->{L}->{cout}"
-        row(f"K6 fused_mlp {name} {shape}", (n, c1, c2, cout), "skyrim_tpu_torch/csrc/fused_mlp.cu",
+        row(f"K6 fused_mlp {name} {shape}", (n, c1, c2, cout), "skyrim_tpu_torch/csrc/fused_mlp.cu+rowgemm.cuh",
             "skyrim_tpu/ops/fused_mlp.py:117", err,
             lambda: FM.fused_mlp(*args, **kw), lambda: FM.reference_mlp(*args, **kw), flops, nbytes)
         del x, args, kw
@@ -438,7 +447,6 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     del h2, m2, out
     bias0 = bias_hw.view(H, W, 3, L)[:, :, :1].expand(H, W, 3, L).reshape(H, W, 3 * L)
     ad_next = torch.roll(ad_hw.view(N, L), -1, 0).view(H, W, L)
-    faults = {}
     for fault, make in ((f"K8: slot 2's message dropped for the {len(band)} latitude rows within 10 degrees "
                          "of the equator", lambda: dropped),
                         ("K8: slot 0's bias read for every slot",
@@ -501,6 +509,47 @@ def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
     torch.cuda.empty_cache()
     faults[f"K7: one edge dropped in each of {B} blocks"] = {"per_element": k7_fault}
     return rows, faults, k9_parts
+
+
+def mlp_faults(torch, g, name, args, kw, ref) -> dict:
+    """K6's check at full width against outputs that a faulty kernel would
+    give, each of which must fail it (2 ulps of max|plain|): at the grid
+    update, the residual dropped, and each row's LayerNorm statistics taken
+    from the next row (computed plainly from the plain pre-LayerNorm rows);
+    at embed_grid, the K tail read: the input as rows 0..175 of a buffer whose
+    rows 174-175 hold 1e4, with two W1 rows drawn like W1's to match."""
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    bf16 = torch.bfloat16
+    x, w1b1, w2b2, ln = args
+    bad = {}
+    if name == "grid_update":
+        bad["K6: the grid update's residual dropped"] = lambda: FM.fused_mlp(*args, **{**kw, "residual": None})
+
+        def stats_of_next_row():
+            h = FM._swish_f32(x.float() @ w1b1[0].to(bf16).float() + w1b1[1]).to(bf16)
+            y = (h.float() @ w2b2[0].to(bf16).float() + w2b2[1]).to(bf16).float()
+            del h
+            mu = torch.roll(y.mean(-1, keepdim=True), -1, 0)
+            var = torch.roll((y * y).mean(-1, keepdim=True), -1, 0) - mu * mu
+            y = ((y - mu) * torch.rsqrt(var.clamp_min(0) + _EPS) * ln[0] + ln[1]).to(bf16)
+            return (kw["residual"].float() + y.float()).to(bf16)
+
+        bad["K6: the grid update's LayerNorm statistics of each row taken from the next row"] = stats_of_next_row
+    else:
+        K1 = x.shape[0]
+        xbuf = torch.full((K1 + 2, x.shape[1]), 1e4, device=x.device, dtype=bf16)
+        xbuf[:K1] = x
+        w1 = torch.cat([w1b1[0], torch.randn(2, w1b1[0].shape[1], device=x.device, generator=g) * K1**-0.5])
+        bad["K6: embed_grid's K tail read from input rows 174-175 (1e4)"] = (
+            lambda: FM.fused_mlp(xbuf, (w1, w1b1[1]), w2b2, ln, **kw))
+    out = {}
+    for fault, make in bad.items():
+        out[fault] = {"max": over_limit(torch, make(), ref, False)}
+        log(f"{fault}: max err/limit {out[fault]['max']:.4g} under the check's rule (2 ulps of max|plain|)")
+        check(out[fault]["max"] > 1, f"K6's check passed a faulty output: {fault}")
+    return out
 
 
 def m2g_guard_rows(torch, args, out) -> None:
@@ -917,7 +966,7 @@ MODEL_OF = {"K1": "pangu", "K2": "pangu", "K3": "pangu", "K4": "pangu",
 
 
 def reset_counts() -> None:
-    from skyrim_tpu_torch.ops.fused_mlp import ln_rows
+    from skyrim_tpu_torch.ops.fused_mlp import ln_rows, mlp_finish
 
     fns = counters()
     for fn in fns.values():
@@ -925,17 +974,23 @@ def reset_counts() -> None:
     for k in BY_SHAPE:
         fns[k].launches_by_shape.clear()
     ln_rows.launches_by_nsum.clear()
+    mlp_finish.launches_by_shape.clear()
+
+
+ROW_KERNELS = ("ln_rows", "mlp_finish")  # launches inside K6-K9, counted by shape apart
 
 
 def read_counts() -> tuple[dict, dict]:
     """The kernels' launch counts, and by shape for BY_SHAPE; by_shape also
-    holds the LayerNorm rows kernel's launches by nsum under "ln_rows"."""
-    from skyrim_tpu_torch.ops.fused_mlp import ln_rows
+    holds the LayerNorm rows kernel's launches by nsum under "ln_rows" and
+    K6's whole-row finish's by (rows, L, residual) under "mlp_finish"."""
+    from skyrim_tpu_torch.ops.fused_mlp import ln_rows, mlp_finish
 
     fns = counters()
     counts = {k: fn.launches for k, fn in fns.items()}
     by_shape = {k: {tuple(s): v for s, v in fns[k].launches_by_shape.items()} for k in BY_SHAPE}
     by_shape["ln_rows"] = dict(ln_rows.launches_by_nsum)
+    by_shape["mlp_finish"] = dict(mlp_finish.launches_by_shape)
     return counts, by_shape
 
 
@@ -943,7 +998,7 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     """Launches per n_steps forwards of the main path: every kernel of the
     port is listed, so the other model's kernels must stay at 0."""
     counts = dict.fromkeys((*MODEL_OF, "gemm"), 0)
-    by_shape = {k: {} for k in (*BY_SHAPE, "ln_rows")}
+    by_shape = {k: {} for k in (*BY_SHAPE, *ROW_KERNELS)}
     if model.name == "pangu":
         # the row GEMM through ops.gemm: K1's four products, K3's and K4's Dense
         counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps, gemm=(16 * 4 + 2) * n_steps)
@@ -962,9 +1017,13 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
         (t["n_mesh"], L, L, L): (1 + rounds) * n_steps,  # g2m.MLP_0 and each round's MLP_1
     }
     by_shape["K7"] = {(*t["mesh_src_blocks"].shape, L, t["mesh_SB"]): rounds * n_steps}
-    # the LayerNorm rows kernel: after K6's products (all but the head's) and
-    # K7's; K8 and K9 normalise inside their one kernel, so none with nsum 3
-    by_shape["ln_rows"] = {1: (4 + 2 * rounds) * n_steps}
+    # K6's whole-row finish: every call with a LayerNorm (H == Cout == L),
+    # so all but the head's
+    by_shape["mlp_finish"] = {(N, L, False): n_steps, (N, L, True): 2 * n_steps,  # embed_grid; grid_update, m2g.MLP_0
+                              (t["n_mesh"], L, True): (1 + rounds) * n_steps}
+    # the LayerNorm rows kernel: after K7's products only; K6, K8 and K9
+    # normalise inside one kernel
+    by_shape["ln_rows"] = {1: rounds * n_steps}
     return counts, by_shape
 
 
@@ -1003,7 +1062,7 @@ def main_path(torch, model_name: str, g) -> dict:
     expect, expect_shape = expected_launches(gm.model, n_steps)
     for k, v in expect.items():
         check(counts[k] == v, f"{model_name} main path launched {k} {counts[k]} times, expected {v}")
-    for k in (*BY_SHAPE, "ln_rows"):
+    for k in (*BY_SHAPE, *ROW_KERNELS):
         check(by_shape[k] == expect_shape[k],
               f"{model_name} main path launched {k} by shape {by_shape[k]}, expected {expect_shape[k]}")
     check(fc.data.shape == (n_steps + 1, *shape), f"forecast shape {fc.data.shape}")
@@ -1190,7 +1249,7 @@ def main() -> int:
                                                  "peak_gb", "profile")} for name, run in mp.items()},
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
-        "k8_k9_k7_fault_err_over_limit": faults,
+        "fault_err_over_limit": faults,
         "k9_parts": k9_parts,
         "row_gemm": gemm_rows,
         "k14_fault_err_over_limit": k14_fault,

@@ -126,6 +126,10 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   return *reinterpret_cast<unsigned*>(&h);
 }
 
+__device__ __forceinline__ float2 unpack_bf16(unsigned u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
 // Tensor-core accumulators give the 4 lanes of a quad 2 consecutive columns
 // each of four 8-column tiles: x[t] = columns 2q, 2q + 1 of tile t in lane q.
 // After two exchanges (with lane q ^ 2, then q ^ 1) lane q holds all 8 columns

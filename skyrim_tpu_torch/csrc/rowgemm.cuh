@@ -51,7 +51,8 @@
 //                   owner, so the result is the same bits on every run, and
 //                   for ids in sorted order the f32 sum in row order.
 //   rows_ln_kernel  out = bf16(LN(bf16(prologue @ W + b))) for rows of up to
-//                   512 columns in one launch (K9), or the f32 sum of three
+//                   512 columns in one launch (K9; K6's finish, plain rows
+//                   by TMA and a residual added), or the f32 sum of three
 //                   consecutive rows' LayerNorms (K8's slots): 64 (or 63)
 //                   rows x all columns a tile, so the LayerNorm and the slot
 //                   sum run in the epilogue; the prologue computed once a row
@@ -212,48 +213,63 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// d (64 x N, f32) += a (64 x 16, K-major) * b (16 x N, N-major), both in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db);
+// d (64 x N, f32) += a (64 x 16) * b (16 x N, N-major), both in shared memory;
+// a K-major, or M-major where TA is 1 (the instruction's transpose bit for A,
+// as b always takes it)
+template <int N, int TA>
+struct Wgmma;
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, 1, 1, 1, 0, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db));
-}
+template <int TA>
+struct Wgmma<64, TA> {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, 1, 1, 1, %34, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "n"(TA));
+  }
+};
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, 1, 1, 1, 0, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
-}
+template <int TA>
+struct Wgmma<128, TA> {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, 1, 1, 1, %66, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "n"(TA));
+  }
+};
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<192>(float (&d)[96], uint64_t da, uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-      "%96, %97, 1, 1, 1, 0, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(da), "l"(db));
-}
+template <int TA>
+struct Wgmma<192, TA> {
+  static __device__ __forceinline__ void run(float (&d)[96], uint64_t da, uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "%96, %97, 1, 1, 1, %98, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "l"(da), "l"(db), "n"(TA));
+  }
+};
 
-template <>
-__device__ __forceinline__ void wgmma_bf16<256>(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, 1, 1, 1, 0, 1;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db));
+template <int TA>
+struct Wgmma<256, TA> {
+  static __device__ __forceinline__ void run(float (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+        "%128, %129, 1, 1, 1, %130, 1;\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "n"(TA));
+  }
+};
+
+template <int N, int TA = 0>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  Wgmma<N, TA>::run(d, da, db);
 }
 
 // Block tile 128 x BN over the whole K: warpgroup wg takes rows [64 wg, +64)
@@ -489,6 +505,14 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, ui
 //   done, so one consumer's epilogue (and its store) runs under the other's
 //   products instead of in step with them.
 //
+// - AT (feature-major A, K6's embed_grid): A is (K1, M) with M contiguous,
+//   an M-major operand as W is an N-major one.  A slice is BM / 64 boxes of
+//   64 M (128 bytes, the swizzle's span) x 64 K rows, each laid out as a W
+//   slice's column atom, and the products take it through the instruction's
+//   transpose bit for A.  K rows past K1 come in as 0 from the map's
+//   out-of-bounds fill (K1 = 174: three slices, the last one 18 rows short).
+//   A template flag, so that the row-major instances compile as before.
+//
 // What bounds it (NVIDIA H100 80GB HBM3, 700 W): the products alone run at
 // 660-670 TFLOP/s on 512-wide rows, above torch.matmul's ~600; what is left
 // is the epilogue wherever it is longer than the other consumer's products,
@@ -506,7 +530,7 @@ struct TmaTile {
 };
 constexpr int TMA_THREADS = 384;  // two consumer warpgroups and a producer warpgroup
 
-template <int BM, int BN, class Epi>
+template <int BM, int BN, class Epi, bool AT = false>
 __global__ void __launch_bounds__(TMA_THREADS, 1)
     rowgemm_tma_kernel(__grid_constant__ const CUtensorMap mapA1,
                        __grid_constant__ const CUtensorMap mapA2,
@@ -559,7 +583,10 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
         const unsigned full = full0 + 8 * stage, slot = smem_addr(ring + stage * T::STAGE);
         mbar_expect_tx(full, T::STAGE);
         const int k0 = kt * BK;
-        if (k0 < K1)
+        if (AT)
+#pragma unroll
+          for (int j = 0; j < BM / 64; ++j) tma_load_2d(slot + j * (BK / 8) * 1024, &mapA1, full, m0 + 64 * j, k0);
+        else if (k0 < K1)
           tma_load_2d(slot, &mapA1, full, k0, m0);
         else
           tma_load_2d(slot, &mapA2, full, k0 - K1, m0);
@@ -602,9 +629,10 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 #pragma unroll
         for (int ks = 0; ks < BK / 16; ++ks)
 #pragma unroll
-          for (int h = 0; h < BM / 64; ++h)
-            wgmma_bf16<BN>(acc[h], wgmma_desc(a0 + h * 64 * 128 + ks * 32, 16, 1024),
-                           wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
+          for (int h = 0; h < BM / 64; ++h)  // AT: box h, two k-atoms a step; else rows 64h.., 32 bytes a step
+            wgmma_bf16<BN, AT>(acc[h], AT ? wgmma_desc(a0 + h * 64 * 128 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE)
+                                          : wgmma_desc(a0 + h * 64 * 128 + ks * 32, 16, 1024),
+                               wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
         wgmma_commit();
         // one group left in flight: the previous slice's products are done,
         // its slot goes back to the producer
@@ -651,23 +679,25 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
 // the first call's result.  (Static: a function-local static of an inline
 // function or a template is one object for every library loaded in the
 // process, so one library's first call would stand for all.)
-template <int BM, int BN, class Epi>
+template <int BM, int BN, class Epi, bool AT>
 static int tma_kernel_attribute() {
   static const int err = static_cast<int>(cudaFuncSetAttribute(
-      rowgemm_tma_kernel<BM, BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rowgemm_tma_kernel<BM, BN, Epi, AT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)TmaTile<BM, BN>::SMEM));
   return err;
 }
 
 constexpr int TMA_NOT_TAKEN = -1;
 
-template <int BM, int BN, class Epi>
-int launch_tma_tiles(const ARows<true>& a, const bf16* W, const Epi& epi, int M, int N, int K,
+// AT: a is feature-major (K1, M), row stride a.s1k, no second part.
+template <int BM, int BN, bool AT, bool VEC, class Epi>
+int launch_tma_tiles(const ARows<VEC>& a, const bf16* W, const Epi& epi, int M, int N, int K,
                      cudaStream_t st) {
   const long long tiles = (long long)(N / BN) * ((M + BM - 1) / BM);
   if (tiles > 0x7fffffffLL) return TMA_NOT_TAKEN;
   CUtensorMap mapA1, mapA2, mapW, mapOut, mapRes;
-  if (int err = make_tensor_map(&mapA1, a.a1, M, a.K1, a.s1m, BM)) return err;
+  if (int err = AT ? make_tensor_map(&mapA1, a.a1, a.K1, M, a.s1k, BK) : make_tensor_map(&mapA1, a.a1, M, a.K1, a.s1m, BM))
+    return err;
   if (int err = make_tensor_map(&mapW, W, K, N, N, BK)) return err;
   if (int err = make_tensor_map(&mapOut, epi.out, M, N, N, BM)) return err;
   mapRes = mapOut;
@@ -676,30 +706,41 @@ int launch_tma_tiles(const ARows<true>& a, const bf16* W, const Epi& epi, int M,
   mapA2 = mapA1;
   if (a.K2)
     if (int err = make_tensor_map(&mapA2, a.a2, M, a.K2, a.K2, BM)) return err;
-  if (int err = tma_kernel_attribute<BM, BN, Epi>()) return err;
+  if (int err = tma_kernel_attribute<BM, BN, Epi, AT>()) return err;
   const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
-  rowgemm_tma_kernel<BM, BN, Epi><<<grid, TMA_THREADS, TmaTile<BM, BN>::SMEM, st>>>(
+  rowgemm_tma_kernel<BM, BN, Epi, AT><<<grid, TMA_THREADS, TmaTile<BM, BN>::SMEM, st>>>(
       mapA1, mapA2, mapW, mapOut, mapRes, epi, M, N, a.K1, K, (int)tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches rowgemm_tma_kernel where the operands allow it: 16-byte aligned
-// bases and row strides, N a multiple of 128 or 192, and a split first part
-// that ends on a slice.  TMA_NOT_TAKEN for other shapes: the caller takes
-// rowgemm_kernel.  A CUDA without the encoder, or an encoder that refuses
-// operands that passed these tests, is an error and goes back to the wrapper,
-// which raises.  Tiles: 128 x 128 a consumer where N % 128 == 0 (128
-// accumulators a thread), else 64 x 192.
-template <class Epi>
-int launch_rowgemm_tma(const ARows<true>& a, const bf16* W, const Epi& epi, int M, int N, int K,
+// Launches rowgemm_tma_kernel where the operands allow it, by their shapes:
+// 16-byte aligned bases, W and out, N a multiple of 128 or 192, and
+// - ARows<true>, rows: row strides of 16 bytes' multiples, a split first
+//   part that ends on a slice;
+// - ARows<false>, feature-major (s1m == 1, s1k == M): no second part, M % 8
+//   == 0 (the map's row stride, 2M bytes, a multiple of 16).
+// TMA_NOT_TAKEN for other shapes: the caller takes rowgemm_kernel.  A CUDA
+// without the encoder, or an encoder that refuses operands that passed these
+// tests, is an error and goes back to the wrapper, which raises.  Tiles: 128
+// x 128 a consumer where N % 128 == 0 (128 accumulators a thread), else 64 x
+// 192.
+template <bool VEC, class Epi>
+int launch_rowgemm_tma(const ARows<VEC>& a, const bf16* W, const Epi& epi, int M, int N, int K,
                        cudaStream_t st) {
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  if (M <= 0 || (N % 128 && N % 192) || a.s1k != 1 || a.s1m % 8 || a.K1 % 8 || a.K2 % 8 ||
-      !aligned(a.a1) || !aligned(W) || !aligned(epi.out) || !aligned(epi.residual()) ||
-      (a.K2 && (a.K1 % BK || !aligned(a.a2))))
+  if (M <= 0 || (N % 128 && N % 192) || !aligned(a.a1) || !aligned(W) || !aligned(epi.out) ||
+      !aligned(epi.residual()))
     return TMA_NOT_TAKEN;
-  if (N % 128 == 0) return launch_tma_tiles<128, 128>(a, W, epi, M, N, K, st);
-  return launch_tma_tiles<64, 192>(a, W, epi, M, N, K, st);
+  if constexpr (VEC) {
+    if (a.s1k != 1 || a.s1m % 8 || a.K1 % 8 || a.K2 % 8 || (a.K2 && (a.K1 % BK || !aligned(a.a2))))
+      return TMA_NOT_TAKEN;
+    if (N % 128 == 0) return launch_tma_tiles<128, 128, false>(a, W, epi, M, N, K, st);
+    return launch_tma_tiles<64, 192, false>(a, W, epi, M, N, K, st);
+  } else {
+    if (a.s1m != 1 || a.s1k != M || M % 8 || a.K2) return TMA_NOT_TAKEN;
+    if (N % 128 == 0) return launch_tma_tiles<128, 128, true>(a, W, epi, M, N, K, st);
+    return launch_tma_tiles<64, 192, true>(a, W, epi, M, N, K, st);
+  }
 }
 
 // C[M, N] = epi(A[M, K] @ W[K, N]).  One block a tile, the column blocks of
@@ -899,6 +940,9 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 //   so the next tile's prologue runs while this one multiplies.  Each thread
 //   fences its stores for the async proxy (wgmma) and arrives on the
 //   buffer's a_full barrier.  Rows past M and columns past L come in as 0.
+//   GROUP 1 with TmaRows (K6's finish: A is plain rows, nothing computed):
+//   one thread brings the tile's 64 rows by TMA, boxes of 64 columns in the
+//   128-byte swizzle straight into the A slices, completing on a_full.
 //   GROUP 1, a row at a time (Pro::index / copy / load / make): warp w takes
 //   the rows w, w + 3, ..., a lane two 16-byte chunks of each.  The first
 //   source of every chunk comes by cp.async straight to the chunk's place in
@@ -927,6 +971,10 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 //   128-byte swizzle.  GROUP 3: under the consumer's named barrier 6 + c,
 //   each point's three staged rows are read and summed in f32, then (after
 //   a second barrier) the 21 bf16 sums written in place as rows 0 .. 20.
+//   Epi::RESIDUAL (GROUP 1): once both consumers are past barrier 5 (the A
+//   buffer read), one thread of each brings the residual's boxes of its
+//   columns by TMA into the staging places (res_full[c]), and each output
+//   pair is added to the residual pair it overwrites.
 //   One thread of each consumer stores its four boxes by TMA (rows past the
 //   output clipped), waits until the store has read them and arrives on the
 //   buffer's a_empty barrier: the producer may refill it.  GROUP 3: then
@@ -950,7 +998,10 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 // 512-thread block cannot compile the m64n256 product within 128
 // registers).  K8 (49,440 tiles): 11.4 ms with the three warps computing
 // every point, 8.5 ms with the consumers taking 9 of the 21 (12 producer
-// points; 9 gave 9.4, 15 gave 9.5, 0 gave 13.3 ms).
+// points; 9 gave 9.4, 15 gave 9.5, 0 gave 13.3 ms).  K6's finish (16,223
+// tiles over the grid rows, nothing to compute): 1.59 ms, 2.28 ms with the
+// residual, whose TMA load in the epilogue nothing hides (kernel_variants
+// mlp); with the residual's pairs or chunks in registers it took 2.8-4.0 ms.
 namespace rowln {
 constexpr int BM = 64, WIDTH = 512, BKW = 32;  // wgmma tile rows, the widest L, W slice depth
 constexpr int A_BYTES = BM * WIDTH * 2;        // a whole tile's A block
@@ -967,6 +1018,7 @@ constexpr int ROWS = BM - BM % GROUP;
 
 // out = bf16(LN(bf16(acc + b))), flax numerics.
 struct EpiLN {
+  static constexpr bool RESIDUAL = false;
   const float* b;      // (L,) dense bias
   const float* scale;  // (L,) LayerNorm scale
   const float* shift;  // (L,) LayerNorm bias
@@ -983,13 +1035,30 @@ struct EpiLN {
   }
 };
 
+// out = bf16(res + bf16(LN(bf16(acc + b)))), the residual (M, L) after the
+// LayerNorm, as K6's LayerNorm rows kernel adds it (GROUP 1).
+struct EpiLNRes : EpiLN {
+  static constexpr bool RESIDUAL = true;
+  const bf16* res;
+};
+
+// rows_ln_kernel's A as plain (M, L) row-major bf16 rows, brought by TMA with
+// nothing computed (K6's second Dense, GROUP 1).
+struct TmaRows {
+  const bf16* a;
+  __host__ __device__ const bf16* rows_by_tma() const { return a; }
+};
+
 template <int GROUP, class Pro, class Epi>
 __global__ void __launch_bounds__(rowln::THREADS, 1)
     rows_ln_kernel(Pro pro, __grid_constant__ const CUtensorMap mapA,
                    __grid_constant__ const CUtensorMap mapW,
-                   __grid_constant__ const CUtensorMap mapOut, Epi epi, int M, int L, int tiles) {
+                   __grid_constant__ const CUtensorMap mapOut,
+                   __grid_constant__ const CUtensorMap mapRes, Epi epi, int M, int L, int tiles) {
   using namespace rowln;
   static_assert(GROUP == 1 || GROUP == 3, "K9's rows or K8's points");
+  constexpr bool A_BY_TMA = std::is_same<Pro, TmaRows>::value;  // K6's finish: plain rows, nothing computed
+  static_assert((!A_BY_TMA && !Epi::RESIDUAL) || GROUP == 1, "plain rows and the residual are GROUP 1's");
   constexpr int TR = ROWS<GROUP>, OUT_ROWS = TR / GROUP;  // 64 / 64 or 63 / 21
   // GROUP 3: the producer warps compute points 0 .. PRO_POINTS - 1 of a tile
   // (four each), the consumers the other nine (share() below)
@@ -1001,6 +1070,7 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
   const unsigned w_full0 = smem_addr(stats + 2 * BM), w_empty0 = w_full0 + 8 * W_STAGES;
   const unsigned a_full0 = w_empty0 + 8 * W_STAGES, a_empty0 = a_full0 + 16;
   const unsigned x_full0 = a_empty0 + 16;  // GROUP 3: the TMA-brought rows of buffer b landed
+  const unsigned res_full0 = x_full0 + 16;  // Epi::RESIDUAL: consumer c's residual boxes landed
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
     for (int s = 0; s < W_STAGES; ++s) {
@@ -1008,9 +1078,11 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
       mbar_init(w_empty0 + 8 * s, 8);  // every consumer warp
     }
     for (int b = 0; b < 2; ++b) {
-      mbar_init(a_full0 + 8 * b, GROUP == 1 ? PRO_THREADS : PRO_THREADS + 256);  // GROUP 3: the consumers too
+      // GROUP 3: the consumers too; plain rows: the TMA thread's one arrival with the bytes
+      mbar_init(a_full0 + 8 * b, A_BY_TMA ? 1 : GROUP == 1 ? PRO_THREADS : PRO_THREADS + 256);
       mbar_init(a_empty0 + 8 * b, 2);  // one thread of each consumer
       mbar_init(x_full0 + 8 * b, 1);
+      if constexpr (Epi::RESIDUAL) mbar_init(res_full0 + 8 * b, 1);  // per consumer
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1049,7 +1121,18 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
     const auto chunk = [](unsigned char* a, int r, int kc) {
       return reinterpret_cast<bf16*>(a + (kc >> 3) * (BM * 128) + r * 128 + (((kc & 7) ^ (r & 7)) << 4));
     };
-    if constexpr (GROUP == 1) {  // warp w computes rows w, w + 3, ... of each tile
+    if constexpr (A_BY_TMA) {  // one thread brings each tile's rows by TMA, 0 past M and L
+      if (warp || lane) return;
+      const int slices = (L + 63) / 64;  // A slices that hold columns < L
+      for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
+        const int b = p & 1;
+        const unsigned a_full = a_full0 + 8 * b;
+        mbar_wait(a_empty0 + 8 * b, ((p >> 1) & 1) ^ 1);  // passes at once on the first use
+        mbar_expect_tx(a_full, slices * BM * 128);
+        for (int s = 0; s < slices; ++s)
+          tma_load_2d(smem_addr(abuf + b * A_BYTES) + s * (BM * 128), &mapA, a_full, 64 * s, tile * BM);
+      }
+    } else if constexpr (GROUP == 1) {  // warp w computes rows w, w + 3, ... of each tile
       constexpr int PER = (BM + PRO_WARPS - 1) / PRO_WARPS;  // 22
       for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
         const int b = p & 1, m0 = tile * BM;
@@ -1221,6 +1304,20 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
       if (q == 0) stats[c * BM + 16 * w + g + 8 * h] = make_float2(s[h], s2[h]);
     }
     bar_sync(5, 256);  // both consumers' partials written, both past their products
+    // Epi::RESIDUAL: the A buffer is free, so the residual's boxes of this
+    // consumer's columns come by TMA into the places the output is staged in
+    // (rows past M as 0), and the normalisation below adds each pair where it
+    // stages it
+    if constexpr (Epi::RESIDUAL) {
+      if (elected) {
+        const unsigned res_full = res_full0 + 8 * c;
+        int boxes = 0;
+        for (int bx = 0; bx < 4; ++bx) boxes += 64 * (4 * c + bx) < L;
+        mbar_expect_tx(res_full, boxes * BM * 128);
+        for (int bx = 0; bx < boxes; ++bx)
+          tma_load_2d(a0 + (4 * c + bx) * (BM * 128), &mapRes, res_full, 64 * (4 * c + bx), tile * BM);
+      }
+    }
     float mu[2], inv[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -1228,6 +1325,7 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
       mu[h] = (s[h] + o.x) / L;  // the same bits in both consumers: f32 addition commutes
       inv[h] = rsqrtf(fmaxf((s2[h] + o.y) / L - mu[h] * mu[h], 0.f) + epi.eps);
     }
+    if constexpr (Epi::RESIDUAL) mbar_wait(res_full0 + 8 * c, p & 1);
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = 256 * c + 8 * j + 2 * q;
@@ -1237,8 +1335,15 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
         float2 v = make_float2(0.f, 0.f);
         if (col < L) v = epi.norm(col, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], mu[h], inv[h]);
         // box 4c + j / 8 (columns of 64), the 16-byte chunk j % 8 of row r in the swizzle
-        *reinterpret_cast<unsigned*>(a + (4 * c + (j >> 3)) * (BM * 128) + r * 128 +
-                                     ((((j & 7) ^ (r & 7))) << 4) + 4 * q) = pack_bf16(v.x, v.y);
+        unsigned* const dst = reinterpret_cast<unsigned*>(a + (4 * c + (j >> 3)) * (BM * 128) + r * 128 +
+                                                          ((((j & 7) ^ (r & 7))) << 4) + 4 * q);
+        if constexpr (Epi::RESIDUAL) {  // bf16(res + bf16(LN(y))), res where the pair is staged
+          if (col < L) {
+            const float2 rr = unpack_bf16(*dst);
+            v = make_float2(bf16_round(v.x) + rr.x, bf16_round(v.y) + rr.y);
+          }
+        }
+        *dst = pack_bf16(v.x, v.y);
       }
     }
     if constexpr (GROUP > 1) {
@@ -1297,19 +1402,24 @@ static int rows_ln_attribute() {
 
 // Launches rows_ln_kernel over M rows of L columns (L % 8 == 0, L <= 512,
 // M % GROUP == 0; W (L, L) row-major, out (M / GROUP, L), both 16-byte
-// aligned).  GROUP 3: Pro::rows_by_tma() is an (M, L) row-major bf16 matrix,
-// 16-byte aligned, the first source of every A row.
+// aligned).  GROUP 3 and TmaRows: Pro::rows_by_tma() is an (M, L) row-major
+// bf16 matrix, 16-byte aligned, the first source of every A row (TmaRows:
+// the only one).  EpiLNRes: its residual (M, L), 16-byte aligned.
 template <int GROUP, class Pro, class Epi>
 int launch_rows_ln(const Pro& pro, const void* W, const Epi& epi, void* out, int M, int L, void* stream) {
   constexpr int TR = rowln::ROWS<GROUP>;
   const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
   if (M <= 0 || M % GROUP || L <= 0 || L % 8 || L > rowln::WIDTH || !aligned(W) || !aligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap mapA, mapW, mapOut;
+  CUtensorMap mapA, mapW, mapOut, mapRes;
   if (int err = make_tensor_map(&mapW, W, L, L, L, rowln::BKW)) return err;
   if (int err = make_tensor_map(&mapOut, out, M / GROUP, L, L, TR / GROUP)) return err;
-  mapA = mapW;  // not read with GROUP 1
-  if constexpr (GROUP > 1) {
+  mapA = mapRes = mapW;  // not read where the prologue computes every row (K9), without a residual
+  if constexpr (Epi::RESIDUAL) {
+    if (!aligned(epi.res)) return static_cast<int>(cudaErrorInvalidValue);
+    if (int err = make_tensor_map(&mapRes, epi.res, M, L, L, TR)) return err;
+  }
+  if constexpr (GROUP > 1 || std::is_same<Pro, TmaRows>::value) {
     if (!aligned(pro.rows_by_tma())) return static_cast<int>(cudaErrorInvalidValue);
     if (int err = make_tensor_map(&mapA, pro.rows_by_tma(), M, L, L, TR)) return err;
   }
@@ -1317,7 +1427,7 @@ int launch_rows_ln(const Pro& pro, const void* W, const Epi& epi, void* out, int
   const int tiles = (M + TR - 1) / TR;
   const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
   rows_ln_kernel<GROUP, Pro, Epi><<<grid, rowln::THREADS, rowln::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      pro, mapA, mapW, mapOut, epi, M, L, tiles);
+      pro, mapA, mapW, mapOut, mapRes, epi, M, L, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,13 +9,17 @@ feature-major (Cin, N) and reads it in place; the residual is added after
 the LayerNorm, in the compute dtype.
 
 Kernels (csrc/fused_mlp.cu with csrc/rowgemm.cuh, the ``wgmma`` row GEMM
-of every port kernel that multiplies): the first GEMM with a
-split-K first layer and an f32 swish epilogue, the second GEMM with its
-bias (and the residual when there is no LayerNorm), then the LayerNorm
-rows kernel, which adds the residual.  Rows that are not 16-byte aligned
-(Cin 174, 3, 4) or feature-major load element by element inside the same
-GEMM.  Bound on this card: operations (1.09 TFLOP for a 512→512→512 MLP
-over the 1,038,240 grid rows, 1.10 ms at 989 TFLOP/s bf16).
+of every port kernel that multiplies), two launches as ``mlp_paths``
+names them by shape: the first GEMM with a split-K first layer and an f32
+swish epilogue, its A read as ``a_path`` says (aligned rows; feature-major
+(Cin, N) by TMA, ``embed_grid``; element loads for rows of 174, 3 or 4
+values and other feature-major inputs); then, with a LayerNorm and
+H == Cout ≤ 512, the finish in one launch of the whole-row kernel
+``rows_ln_kernel`` (second Dense, bias, LayerNorm and residual, h brought
+by TMA), else the second GEMM with its bias (and the residual when there
+is no LayerNorm) and, with a LayerNorm, the LayerNorm rows kernel, which
+adds the residual.  Bound on this card: operations (1.09 TFLOP for a
+512→512→512 MLP over the 1,038,240 grid rows, 1.10 ms at 989 TFLOP/s bf16).
 
 K12 ``fused_finish`` replaces ``fused_finish`` of the same JAX module
 (Pallas body ``_finish_kernel``): ``LN(Dense(swish(x + b0)))`` over rows,
@@ -35,9 +39,10 @@ variance, eps 1e-6) → compute dtype.
 On a CPU tensor ``fused_mlp`` runs ``reference_mlp`` and ``fused_finish``
 ``reference_finish``; on a CUDA tensor they launch the kernels or raise.
 ``<wrapper>.launches`` counts wrapper calls that launched,
-``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout), and
-``ln_rows.launches_by_nsum`` the LayerNorm rows kernel's launches by the
-number of rows it sums.
+``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout),
+``mlp_finish.launches_by_shape`` the whole-row finish's by (rows, L,
+residual), and ``ln_rows.launches_by_nsum`` the LayerNorm rows kernel's
+launches by the number of rows it sums.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32, _layernorm_f32
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ACT_NONE, _ACT_SWISH = 0, 1  # rowgemm::Act
+_A_MODES = {"elements": 0, "rows": 1, "feature_major_tma": 2}  # fused_mlp.cu AMode
 
 
 def _swish_f32(h: torch.Tensor) -> torch.Tensor:
@@ -88,7 +94,8 @@ def _lib():
     lib.skt_mlp_gemm.argtypes = [_P, _L, _L, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.skt_ln_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
     lib.skt_segment_sum.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
-    for fn in (lib.skt_mlp_gemm, lib.skt_ln_rows, lib.skt_segment_sum):
+    lib.skt_mlp_finish.argtypes = [_P] * 7 + [_I, _I, _F, _P]
+    for fn in (lib.skt_mlp_gemm, lib.skt_mlp_finish, lib.skt_ln_rows, lib.skt_segment_sum):
         fn.restype = _I
     return lib
 
@@ -125,11 +132,28 @@ def require_rows16(name: str, *ts) -> None:
         raise ValueError(f"{name}: inputs must start on a 16-byte boundary")
 
 
+def a_path(M, K1, K2, N, transposed, aligned=True):
+    """How the row GEMM reads its A, by the operands' shapes: ``"rows"``
+    (16-byte aligned rows: the TMA kernel where N % 128 or N % 192 == 0,
+    else the ``cp.async`` ring), ``"feature_major_tma"`` (feature-major
+    (K1, M) by TMA on the aligned kernel: no second part, M % 8 == 0 so that
+    the rows of 2M bytes stay 16-byte aligned, N % 128 or % 192 == 0) or
+    ``"elements"`` (element loads on the ring: rows of 174, 3 or 4 values,
+    and every other feature-major input).  ``aligned``: every base starts on
+    a 16-byte boundary.  A choice by shape made before the launch; a launch
+    that fails raises, it does not fall back."""
+    wide = N % 128 == 0 or N % 192 == 0
+    if transposed:
+        return "feature_major_tma" if K2 == 0 and M % 8 == 0 and wide and aligned else "elements"
+    return "rows" if K1 % 8 == 0 and K2 % 8 == 0 and aligned else "elements"
+
+
 def mlp_gemm(a, w, b, *, a2=None, swish=False, residual=None, transposed=False):
     """One launch of the row GEMM: ``act(a ‖ a2 @ w + b)`` [+ residual] → bf16.
 
     ``a`` (M, K1) rows, or (K1, M) feature-major with ``transposed``;
-    ``a2`` (M, K2) rows; ``w`` (K1 + K2, N) bf16; ``b`` (N,) f32."""
+    ``a2`` (M, K2) rows; ``w`` (K1 + K2, N) bf16; ``b`` (N,) f32.  A is read
+    as ``a_path`` names."""
     K1, M = a.shape if transposed else a.shape[::-1]
     K2 = 0 if a2 is None else a2.shape[1]
     N = w.shape[1]
@@ -141,16 +165,62 @@ def mlp_gemm(a, w, b, *, a2=None, swish=False, residual=None, transposed=False):
     if residual is not None:
         require(residual, (M, N), "mlp_gemm residual")
     s1m, s1k = (1, M) if transposed else (K1, 1)
-    vec = int(not transposed and K1 % 8 == 0 and K2 % 8 == 0 and _aligned(a, a2))
+    mode = _A_MODES[a_path(M, K1, K2, N, transposed, _aligned(a, a2, w, residual))]
     out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
     lib = _lib()
     err = lib.skt_mlp_gemm(
         a.data_ptr(), s1m, s1k, K1, a2.data_ptr() if a2 is not None else None, K2,
         w.data_ptr(), b.data_ptr(), residual.data_ptr() if residual is not None else None,
-        out.data_ptr(), M, N, _ACT_SWISH if swish else _ACT_NONE, vec, _stream(a),
+        out.data_ptr(), M, N, _ACT_SWISH if swish else _ACT_NONE, mode, _stream(a),
     )
     _build.check(lib, err, "mlp_gemm")
     return out
+
+
+def mlp_paths(N, Cin, Cin2, H, Cout, ln, residual, transposed):
+    """The two launches ``fused_mlp`` makes for these shapes: how its first
+    product reads x (``a_path``), and its finish: ``"rows_ln"`` (one launch
+    of the whole-row kernel: second Dense, bias, LayerNorm, residual) where
+    there is a LayerNorm and H == Cout, Cout % 8 == 0 and Cout ≤ 512 (the
+    kernel's W is (L, L) and a block holds whole rows of up to 512);
+    ``"gemm_ln_rows"`` (the second GEMM, then the LayerNorm rows kernel)
+    for the other LayerNorm shapes; ``"gemm"`` (the second GEMM, the
+    residual in its epilogue) without a LayerNorm.  ``ln`` and ``residual``
+    say whether there is one; the bases are taken as 16-byte aligned.  A
+    choice by shape, made before the launches."""
+    if ln and H == Cout and Cout % 8 == 0 and Cout <= 512:
+        finish = "rows_ln"
+    else:
+        finish = "gemm_ln_rows" if ln else "gemm"
+    return a_path(N, Cin, Cin2, H, transposed), finish
+
+
+def mlp_finish(h, wb, ln, residual=None):
+    """One launch of the whole-row kernel: ``bf16([residual +]
+    bf16(LN(bf16(h @ W + b))))`` over (M, L) rows, W (L, L), L % 8 == 0,
+    L ≤ 512; h is read by TMA and must start on a 16-byte boundary."""
+    M, L = h.shape
+    if L % 8 or L > 512 or tuple(wb[0].shape) != (L, L):
+        raise ValueError(f"mlp_finish takes L % 8 == 0, L <= 512 and an (L, L) kernel, got {tuple(h.shape)}, "
+                         f"kernel {tuple(wb[0].shape)}")
+    require(h, (M, L), "mlp_finish h")
+    if residual is not None:
+        require(residual, (M, L), "mlp_finish residual")
+    require_rows16("mlp_finish", h, residual)
+    w, b, scale, shift = _bf16(wb[0]), _f32(wb[1]), _f32(ln[0]), _f32(ln[1])  # held until the launch is queued
+    out = torch.empty((M, L), dtype=torch.bfloat16, device=h.device)
+    lib = _lib()
+    err = lib.skt_mlp_finish(
+        h.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(), M, L, _EPS, _stream(h),
+    )
+    _build.check(lib, err, "mlp_finish")
+    key = (M, L, residual is not None)
+    mlp_finish.launches_by_shape[key] = mlp_finish.launches_by_shape.get(key, 0) + 1
+    return out
+
+
+mlp_finish.launches_by_shape = {}  # (rows, L, residual) -> launches
 
 
 def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
@@ -250,13 +320,18 @@ def fused_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False
     if x.dtype != torch.bfloat16 or x.ndim != 2:
         raise ValueError(f"fused_mlp takes a bf16 2-d input, got {x.dtype} {tuple(x.shape)}")
     Cin, N = x.shape if x_transposed else x.shape[::-1]
-    Cout = w2b2[0].shape[1]
+    H, Cout = w2b2[0].shape
     if ln is not None and Cout % 8:
         raise ValueError(f"fused_mlp's LayerNorm takes Cout % 8 == 0, got {Cout}")
+    _, finish = mlp_paths(N, Cin, 0 if x2 is None else x2.shape[1], H, Cout, ln is not None, residual is not None,
+                          x_transposed)
     h = mlp_gemm(x, _bf16(w1b1[0]), _f32(w1b1[1]), a2=x2, swish=True, transposed=x_transposed)
-    y = mlp_gemm(h, _bf16(w2b2[0]), _f32(w2b2[1]), residual=residual if ln is None else None)
+    if finish == "rows_ln":
+        out = mlp_finish(h, w2b2, ln, residual)
+    else:
+        y = mlp_gemm(h, _bf16(w2b2[0]), _f32(w2b2[1]), residual=residual if ln is None else None)
+        out = y if ln is None else ln_rows(y, ln, residual=residual, out=y)
     del h
-    out = y if ln is None else ln_rows(y, ln, residual=residual, out=y)
     fused_mlp.launches += 1
     key = (N, Cin, 0 if x2 is None else x2.shape[1], Cout)
     fused_mlp.launches_by_shape[key] = fused_mlp.launches_by_shape.get(key, 0) + 1

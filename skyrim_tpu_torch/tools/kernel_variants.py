@@ -2,7 +2,7 @@
 
     python -m skyrim_tpu_torch.tools.kernel_variants KIND [VARIANT ...]
 
-KIND is ``attention``, ``gemm``, ``round``, ``g2m`` or ``m2g``.  A VARIANT is a directory: an
+KIND is ``attention``, ``gemm``, ``round``, ``g2m``, ``m2g`` or ``mlp``.  A VARIANT is a directory: an
 edited copy of ``skyrim_tpu_torch/csrc`` (``""`` for the package's own, which
 is also what is timed when no variant is given).  The sources carry no
 build-time switches: an experiment is a copy with the change made in it.
@@ -42,6 +42,18 @@ variants.
   the one launch ``skt_m2g_messages``, or, for a ``csrc`` that exports
   ``skt_m2g_gemm`` instead (the two-launch K8 before it), that GEMM and the
   LayerNorm rows with nsum 3, alone and together.
+- ``mlp``: ``fused_mlp.cu``; K6 at its five full-width shapes (the
+  feature-major ``embed_grid`` 174 -> 512 -> 512 with LayerNorm, the grid
+  update and the decoder's node update, 512 (+ 512) -> 512 -> 512 with
+  LayerNorm and residual over 1,038,240 rows, a mesh MLP over 40,962 rows,
+  the head 512 -> 512 -> 83), each K6 call as the variant makes it: the
+  first product with its swish, then the finish in one ``skt_mlp_finish``
+  launch where the variant exports it and the shape has a LayerNorm with H
+  == Cout, else the second product and the LayerNorm rows.  ``embed_grid``'s
+  first product alone as well: feature-major A by TMA where the variant's
+  ``fused_mlp.cu`` names ``A_FEATURE_MAJOR_TMA``, else by element loads; and,
+  as a yardstick timed only, a torch copy of its transpose into (N, 176)
+  rows followed by the aligned rows GEMM.
 
 Prints one line per report, per (round, variant, case); needs a CUDA device
 and nvcc.
@@ -58,9 +70,9 @@ from pathlib import Path
 ROUNDS, LAUNCHES = 4, 20
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp"),
-           "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp")}  # fmt: skip
+           "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp"), "mlp": ("fused_mlp",)}  # fmt: skip
 REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
-            "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",)}  # fmt: skip
+            "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",), "mlp": ("rowgemm",)}  # fmt: skip
 
 
 def _bind(lib, name, argtypes):
@@ -69,7 +81,7 @@ def _bind(lib, name, argtypes):
     return fn
 
 
-def attention_cases(torch, libs):
+def attention_cases(torch, libs, _src):
     from skyrim_tpu_torch.ops.flash_window_attention import BODIES, attention_body
     from skyrim_tpu_torch.ops.windows import shift_attention_mask
 
@@ -127,7 +139,7 @@ def _gemm_operands(torch, M, K, N):
     return _operands[(M, K, N)]
 
 
-def gemm_cases(torch, libs):
+def gemm_cases(torch, libs, _src):
     mlp = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
     gemm = _bind(libs["gemm"], "skt_gemm_bf16", [P] * 5 + [I] * 4 + [P])
     stream = torch.cuda.current_stream().cuda_stream
@@ -187,7 +199,7 @@ def host_costs(torch, label, lib, launches=1000):
           f"cudaFuncSetAttribute {ns[1]:.0f}, whole skt_mlp_gemm launch {ns[2]:.0f}")
 
 
-def round_cases(torch, libs):
+def round_cases(torch, libs, _src):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     B, M, Lw, SB = 322, 1024, 512, 176
@@ -231,7 +243,7 @@ def round_cases(torch, libs):
 _G2M_PLAN = []
 
 
-def g2m_cases(torch, libs):
+def g2m_cases(torch, libs, _src):
     from skyrim_tpu_torch.ops.graph import build_g2m_tiles, build_graphs, g2m_row_plan
 
     H, W, Lw = 721, 1440, 512
@@ -265,7 +277,7 @@ def g2m_cases(torch, libs):
 _M2G_TILES = []
 
 
-def m2g_cases(torch, libs):
+def m2g_cases(torch, libs, _src):
     from skyrim_tpu_torch.ops.graph import build_face_tiles, build_graphs
 
     H, W, Lw = 721, 1440, 512
@@ -304,7 +316,101 @@ def m2g_cases(torch, libs):
     return {"K8": (lambda: first() or norm(), flops), "K8 gemm": (first, flops), "K8 ln_rows": (norm, None)}
 
 
-CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases, "m2g": m2g_cases}
+# K6's full-width shapes: name, rows, Cin, Cin2, Cout, residual (None: no
+# LayerNorm, False: LayerNorm, True: LayerNorm and residual), feature-major
+MLP_SHAPES = (
+    ("embed_grid", 721 * 1440, 174, 0, 512, False, True),
+    ("grid_update", 721 * 1440, 512, 0, 512, True, False),
+    ("m2g.MLP_0", 721 * 1440, 512, 512, 512, True, False),
+    ("mesh MLP", 40962, 512, 512, 512, True, False),
+    ("head", 721 * 1440, 512, 0, 83, None, False),
+)
+_MLP_OPERANDS: dict = {}
+
+
+def _mlp_operands(torch, M, c1, c2, cout, xt):
+    key = (M, c1, c2, cout, xt)
+    if key not in _MLP_OPERANDS:
+        dev, Lw = torch.device("cuda"), 512
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+
+        _MLP_OPERANDS[key] = dict(
+            x=randn(*((c1, M) if xt else (M, c1))), x2=randn(M, c2) if c2 else None,
+            w1=randn(c1 + c2, Lw, scale=(c1 + c2) ** -0.5), b1=randn(Lw, scale=0.1, dtype=torch.float32),
+            w2=randn(Lw, cout, scale=Lw**-0.5), b2=randn(cout, scale=0.1, dtype=torch.float32),
+            scale=1 + randn(cout, scale=0.1, dtype=torch.float32), shift=randn(cout, scale=0.1, dtype=torch.float32),
+            res=randn(M, cout), h=torch.empty(M, Lw, device=dev, dtype=torch.bfloat16),
+            y=torch.empty(M, cout, device=dev, dtype=torch.bfloat16),
+        )  # fmt: skip
+    return _MLP_OPERANDS[key]
+
+
+def mlp_cases(torch, libs, src):
+    lib = libs["fused_mlp"]
+    mg = _bind(lib, "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
+    ln = _bind(lib, "skt_ln_rows", [P, P, P, P, P, I, I, I, F, P])
+    fin = _bind(lib, "skt_mlp_finish", [P] * 7 + [I] * 2 + [F, P]) if hasattr(lib, "skt_mlp_finish") else None
+    fm_tma = "A_FEATURE_MAJOR_TMA" in (src / "fused_mlp.cu").read_text()
+    st = torch.cuda.current_stream().cuda_stream
+    p = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    Lw, cases = 512, {}
+    for name, M, c1, c2, cout, res, xt in MLP_SHAPES:
+        o = _mlp_operands(torch, M, c1, c2, cout, xt)
+        s1m, s1k, mode = (1, M, 2 if fm_tma else 0) if xt else (c1, 1, 1)
+        r = o["res"] if res else None
+
+        def first(o=o, s1m=s1m, s1k=s1k, mode=mode, M=M, c1=c1, c2=c2):
+            return mg(p(o["x"]), s1m, s1k, c1, p(o["x2"]), c2, p(o["w1"]), p(o["b1"]), None, p(o["h"]), M, Lw, 1, mode, st)
+
+        if res is None:  # no LayerNorm: the second product alone
+            def finish(o=o, M=M, cout=cout):
+                return mg(p(o["h"]), Lw, 1, Lw, None, 0, p(o["w2"]), p(o["b2"]), None, p(o["y"]), M, cout, 0, 1, st)
+        elif fin is not None:
+            def finish(o=o, r=r, M=M):
+                return fin(p(o["h"]), p(o["w2"]), p(o["b2"]), p(o["scale"]), p(o["shift"]), p(r), p(o["y"]), M, Lw,
+                           1e-6, st)  # fmt: skip
+        else:
+            def finish(o=o, r=r, M=M, cout=cout):
+                return (mg(p(o["h"]), Lw, 1, Lw, None, 0, p(o["w2"]), p(o["b2"]), None, p(o["y"]), M, cout, 0, 1, st)
+                        or ln(p(o["y"]), p(o["scale"]), p(o["shift"]), p(r), p(o["y"]), M, cout, 1, 1e-6, st))
+        flops = 2 * M * ((c1 + c2) * Lw + Lw * cout)
+        cases[f"K6 {name}"] = (lambda first=first, finish=finish: first() or finish(), flops)
+        if xt:
+            cases[f"K6 {name} first product"] = (first, 2 * M * c1 * Lw)
+            # the first product's result against torch in f32 on the first 4096 rows
+            first()
+            torch.cuda.synchronize()
+            h = o["x"][:, :4096].T.float() @ o["w1"].float() + o["b1"]
+            err = float((o["h"][:4096].float() - torch.nn.functional.silu(h)).abs().max())
+            print(f"{src}: K6 {name} first product ({'TMA' if mode == 2 else 'element loads'}): "
+                  f"max |kernel - torch| over 4096 rows = {err:.4g}")
+    return cases
+
+
+def mlp_yardsticks(torch, libs):
+    """embed_grid's first product as a torch copy of its transpose into
+    (N, 176) rows (zero-padded to 16-byte rows) and the aligned rows GEMM."""
+    mg = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
+    name, M, c1, c2, cout, _, _ = MLP_SHAPES[0]
+    o = _mlp_operands(torch, M, c1, c2, cout, True)
+    rows = torch.zeros(M, 176, device=o["x"].device, dtype=torch.bfloat16)
+    w1 = torch.zeros(176, 512, device=o["x"].device, dtype=torch.bfloat16)
+    w1[:c1] = o["w1"]
+    st = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rows[:, :c1].copy_(o["x"].t())
+        return mg(rows.data_ptr(), 176, 1, 176, None, 0, w1.data_ptr(), o["b1"].data_ptr(), None, o["h"].data_ptr(),
+                  M, 512, 1, 1, st)  # fmt: skip
+
+    return {f"K6 {name} first product: transposing copy + aligned rows GEMM": (call, 2 * M * c1 * 512)}
+
+
+CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases, "m2g": m2g_cases,
+         "mlp": mlp_cases}  # fmt: skip
 
 
 def main(argv: list[str]) -> int:
@@ -343,8 +449,9 @@ def main(argv: list[str]) -> int:
                     print(f"{label}: {line.split('for ')[-1][:110]}: {lines[i + 1].strip()}; {lines[i + 2].strip()}")
             libs.setdefault(label, {})[name] = ctypes.CDLL(str(lib))
         calls, refused = {}, 0
+        srcs = dict(variants)
         for label, loaded in libs.items():
-            cases = CASES[kind](torch, loaded)
+            cases = CASES[kind](torch, loaded, srcs[label])
             errs = {case: call() for case, (call, _) in cases.items()}
             torch.cuda.synchronize()
             lib = next(iter(loaded.values()))
@@ -358,6 +465,9 @@ def main(argv: list[str]) -> int:
                     calls[(label, case)] = (call, flops)
         for case, (call, flops) in yardsticks(torch, kind).items():
             calls[("torch.matmul", case)] = (call, flops)
+        if kind == "mlp":
+            for case, (call, flops) in mlp_yardsticks(torch, libs[variants[0][0]]).items():
+                calls[("torch copy", case)] = (call, flops)
         torch.cuda.synchronize()
         for rnd in range(ROUNDS):
             for (label, case), (call, flops) in calls.items():

@@ -220,6 +220,9 @@ MLP_CASES = {
     "transposed": (700, 21, 0, 48, 16, True, False, True),
     "head_cout83": (300, 32, 0, 32, 83, False, False, False),
     "no_ln_residual": (300, 16, 0, 32, 16, False, True, False),
+    # H == Cout with all four: the card's whole-row finish (second Dense,
+    # LayerNorm, residual in one launch)
+    "h_eq_cout_ln_x2_residual": (300, 24, 16, 32, 32, True, True, False),
 }
 
 
@@ -471,12 +474,69 @@ def _close_card(out, ref):
 GPU_MLP_CASES = {
     # name: (N, Cin, Cin2, H, Cout, ln, residual, x_transposed)
     "embed_grid_cin174_transposed": (1000, 174, 0, 64, 64, True, False, True),
+    # feature-major: N % 8 != 0 takes the element loads, N % 8 == 0 (and not
+    # a multiple of the 128-row tile) the TMA kernel
+    "feature_major_n1001_elements": (1001, 174, 0, 128, 128, True, False, True),
+    "feature_major_n1000_tma": (1000, 174, 0, 128, 128, True, False, True),
     "embed_mesh_cin3": (1000, 3, 0, 64, 64, True, False, False),
     "edge_embed_cin4": (1000, 4, 0, 64, 64, True, False, False),
     "mesh_x2_residual": (1000, 64, 64, 64, 64, True, True, False),
     "head_cout83": (1000, 64, 0, 64, 83, False, False, False),
     "no_ln_residual": (1000, 64, 0, 128, 64, False, True, False),
+    # the whole-row finish with its residual, M not a multiple of its 64-row tile
+    "ln_residual_l64": (1000, 64, 0, 64, 64, True, True, False),
+    "ln_x2_residual_l64": (1001, 64, 64, 64, 64, True, True, False),
+    "ln_residual_l512": (1000, 512, 0, 512, 512, True, True, False),
+    "ln_x2_residual_l512": (1001, 512, 512, 512, 512, True, True, False),
+    # a LayerNorm with H != Cout: the second GEMM and the LayerNorm rows kernel
+    "ln_h128_cout64_chain": (1000, 64, 0, 128, 64, True, True, False),
 }
+
+# fused_mlp's two launches by shape (ops/fused_mlp.py mlp_paths): the first
+# product's A path and the finish.  GraphCast at published width (N = 721 x
+# 1440 grid rows, 40,962 mesh nodes, L 512: the 21 K6 calls of a forward and
+# the cache build's embedders), its golden test configuration's embedding,
+# and every card test case above.
+_GN = 721 * 1440
+MLP_PATHS = {
+    "graphcast_embed_grid": ((_GN, 174, 0, 512, 512, True, False, True), ("feature_major_tma", "rows_ln")),
+    "graphcast_grid_update": ((_GN, 512, 0, 512, 512, True, True, False), ("rows", "rows_ln")),
+    "graphcast_m2g_mlp0": ((_GN, 512, 512, 512, 512, True, True, False), ("rows", "rows_ln")),
+    "graphcast_head": ((_GN, 512, 0, 512, 83, False, False, False), ("rows", "gemm")),
+    "graphcast_mesh_mlps": ((40962, 512, 512, 512, 512, True, True, False), ("rows", "rows_ln")),
+    "graphcast_embed_mesh": ((40962, 3, 0, 512, 512, True, False, False), ("elements", "rows_ln")),
+    "graphcast_edge_embed": ((3 * _GN, 4, 0, 512, 512, True, False, False), ("elements", "rows_ln")),
+    "golden_embed_grid": ((19 * 36, 16, 0, 16, 16, True, False, True), ("elements", "rows_ln")),
+    "embed_grid_cin174_transposed": (GPU_MLP_CASES["embed_grid_cin174_transposed"], ("elements", "rows_ln")),
+    "feature_major_n1001_elements": (GPU_MLP_CASES["feature_major_n1001_elements"], ("elements", "rows_ln")),
+    "feature_major_n1000_tma": (GPU_MLP_CASES["feature_major_n1000_tma"], ("feature_major_tma", "rows_ln")),
+    "embed_mesh_cin3": (GPU_MLP_CASES["embed_mesh_cin3"], ("elements", "rows_ln")),
+    "edge_embed_cin4": (GPU_MLP_CASES["edge_embed_cin4"], ("elements", "rows_ln")),
+    "mesh_x2_residual": (GPU_MLP_CASES["mesh_x2_residual"], ("rows", "rows_ln")),
+    "head_cout83": (GPU_MLP_CASES["head_cout83"], ("rows", "gemm")),
+    "no_ln_residual": (GPU_MLP_CASES["no_ln_residual"], ("rows", "gemm")),
+    "ln_residual_l64": (GPU_MLP_CASES["ln_residual_l64"], ("rows", "rows_ln")),
+    "ln_x2_residual_l64": (GPU_MLP_CASES["ln_x2_residual_l64"], ("rows", "rows_ln")),
+    "ln_residual_l512": (GPU_MLP_CASES["ln_residual_l512"], ("rows", "rows_ln")),
+    "ln_x2_residual_l512": (GPU_MLP_CASES["ln_x2_residual_l512"], ("rows", "rows_ln")),
+    "ln_h128_cout64_chain": (GPU_MLP_CASES["ln_h128_cout64_chain"], ("rows", "gemm_ln_rows")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MLP_PATHS))
+def test_mlp_paths(case):
+    """The dispatch rule names the paths the kernels are built for: the
+    feature-major TMA path only for embed_grid's shapes (no x2, N % 8 == 0,
+    H a multiple of 128), the whole-row finish for every LayerNorm with
+    H == Cout, the chain elsewhere; unaligned bases take the element loads."""
+    spec, expected = MLP_PATHS[case]
+    assert FM.mlp_paths(*spec) == expected
+    N, Cin, Cin2, H, _, _, _, xt = spec
+    assert FM.a_path(N, Cin, Cin2, H, xt, aligned=False) == "elements"
+
+
+def test_mlp_paths_cover_card_cases():
+    assert set(GPU_MLP_CASES) <= set(MLP_PATHS)
 
 
 @pytest.mark.gpu
@@ -488,10 +548,89 @@ def test_mlp_kernel_matches_plain(cuda, case):
     kw = dict(x2=_t(a["x2"], torch.bfloat16, cuda), residual=_t(a["residual"], torch.bfloat16, cuda),
               x_transposed=xt)
     before = FM.fused_mlp.launches
+    ln_before, fin_before = sum(FM.ln_rows.launches_by_nsum.values()), sum(FM.mlp_finish.launches_by_shape.values())
     out = FM.fused_mlp(*args, **kw)
     torch.cuda.synchronize()
     assert FM.fused_mlp.launches == before + 1
+    finish = FM.mlp_paths(*GPU_MLP_CASES[case])[1]
+    assert sum(FM.mlp_finish.launches_by_shape.values()) - fin_before == (finish == "rows_ln")
+    assert sum(FM.ln_rows.launches_by_nsum.values()) - ln_before == (finish == "gemm_ln_rows")
     _close_card(out, FM.reference_mlp(*args, **kw))
+
+
+def _mlp_card_args(cuda, case):
+    a, xt = _mlp_inputs(GPU_MLP_CASES[case])
+    args = [_t(a[k], torch.bfloat16 if k == "x" else torch.float32, cuda) for k in ("x", "w1b1", "w2b2", "ln")]
+    kw = dict(x2=_t(a["x2"], torch.bfloat16, cuda), residual=_t(a["residual"], torch.bfloat16, cuda),
+              x_transposed=xt)
+    return args, kw
+
+
+@pytest.mark.gpu
+def test_mlp_launches_ln_finish_and_head_chain(cuda):
+    """A LayerNorm case launches the whole-row finish and no LayerNorm rows
+    kernel; the head (Cout 83, no LayerNorm) still takes the second GEMM."""
+    for case, finishes in (("ln_x2_residual_l512", 1), ("head_cout83", 0)):
+        args, kw = _mlp_card_args(cuda, case)
+        ln_before, fin_before = dict(FM.ln_rows.launches_by_nsum), dict(FM.mlp_finish.launches_by_shape)
+        FM.fused_mlp(*args, **kw)
+        torch.cuda.synchronize()
+        assert FM.ln_rows.launches_by_nsum == ln_before
+        M, L = GPU_MLP_CASES[case][0], GPU_MLP_CASES[case][4]
+        key = (M, L, kw["residual"] is not None)
+        assert FM.mlp_finish.launches_by_shape.get(key, 0) - fin_before.get(key, 0) == finishes
+
+
+@pytest.mark.gpu
+def test_mlp_repeat_equal_bits(cuda):
+    """Two calls of K6 on the same inputs give the same bits."""
+    args, kw = _mlp_card_args(cuda, "ln_x2_residual_l512")
+    out, again = FM.fused_mlp(*args, **kw), FM.fused_mlp(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+def test_mlp_finish_guard_rows(cuda):
+    """The whole-row finish's TMA store into an output with 64 sentinel rows
+    past M (M not a multiple of the 64-row tile): the guard rows come back
+    unchanged, the rows before them equal the wrapper's output."""
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    M, L = 1001, 512
+    rng = np.random.default_rng(8)
+    h, res = _t(_n(rng, M, L), torch.bfloat16, cuda), _t(_n(rng, M, L), torch.bfloat16, cuda)
+    wb = (_t(_n(rng, L, L, s=L**-0.5), torch.bfloat16, cuda), _t(_n(rng, L, s=0.1), device=cuda))
+    ln = (_t(1 + _n(rng, L, s=0.1), device=cuda), _t(_n(rng, L, s=0.1), device=cuda))
+    sentinel = 0x7FA5
+    buf = torch.full((M + 64, L), sentinel, dtype=torch.int16, device=cuda)
+    lib = FM._lib()
+    err = lib.skt_mlp_finish(h.data_ptr(), wb[0].data_ptr(), wb[1].data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
+                             res.data_ptr(), buf.data_ptr(), M, L, _EPS, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    out = FM.mlp_finish(h, wb, ln, res)
+    torch.cuda.synchronize()
+    assert (buf[M:] == sentinel).all()
+    assert torch.equal(buf[:M].view(torch.bfloat16), out)
+
+
+@pytest.mark.gpu
+def test_mlp_feature_major_k_tail_not_read(cuda):
+    """embed_grid's A as rows 0..173 of a (176, N) buffer, W1 as rows 0..173
+    of a (176, H) buffer, both with 1e4 in rows 174-175: the feature-major
+    TMA path's K tail comes in as zeros, never from those rows."""
+    N, Cin, H = 1000, 174, 128
+    assert FM.a_path(N, Cin, 0, H, True) == "feature_major_tma"
+    a, _ = _mlp_inputs((N, Cin, 0, H, H, True, False, True))
+    xbuf = torch.full((Cin + 2, N), 1e4, dtype=torch.bfloat16, device=cuda)
+    wbuf = torch.full((Cin + 2, H), 1e4, dtype=torch.bfloat16, device=cuda)  # bf16: the wrapper reads it in place
+    xbuf[:Cin] = _t(a["x"], torch.bfloat16, cuda)
+    wbuf[:Cin] = _t(a["w1b1"][0], torch.bfloat16, cuda)
+    x, w1b1 = xbuf[:Cin], (wbuf[:Cin], _t(a["w1b1"][1], device=cuda))
+    args = (x, w1b1, _t(a["w2b2"], device=cuda), _t(a["ln"], device=cuda))
+    out = FM.fused_mlp(*args, x_transposed=True)
+    torch.cuda.synchronize()
+    _close_card(out, FM.reference_mlp(*args, x_transposed=True))
 
 
 def _close_card_per_element(out, ref):
