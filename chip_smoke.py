@@ -12,8 +12,10 @@ Phases:
   3. each kernel at its full-width main-path shapes in bf16 against its
      plain PyTorch version on the card, timed with CUDA events beside the
      plain version and, for K2, torch.roll.  Pangu: K1 at stage 1 and
-     stage 2, shifted, and its window attention alone with a strong earth
-     bias; K2 at both shapes; K3; K4.  GraphCast: K6 once per shape class
+     stage 2, shifted, each row named with its path and the launches of one
+     call counted (five: LN1 + qkv and LN2 + fc1 each one ln_gemm launch),
+     and its window attention alone with a strong earth bias; K2 at both
+     shapes; K3; K4.  GraphCast: K6 once per shape class
      (the feature-major Cin = 174 embedding, the grid update, the decoder's
      node update, the Cout = 83 head, the mesh MLPs), and its output under
      three faults (the grid update's residual dropped; the embedding's K
@@ -27,8 +29,12 @@ Phases:
      N = 83; K = 174 feature-major; K = 1,024 split 512 + 512) against
      torch.matmul in f32, its TMA store into an output with 64 guard rows
      past a ragged M (N 192 and 512, residual epilogue), which must come back
-     bit-identical, and every aligned shape it takes on the main paths
-     (Pangu's eight block products, K3's and K4's Dense, K7's second
+     bit-identical, and every shape it takes on the main paths (Pangu's
+     eight block products, four of them -- LN1 + qkv, LN2 + fc1 + GELU at
+     both stages -- with the LayerNorm in the prologue (ops.gemm.ln_gemm),
+     timed beside the LayerNorm rows launch + GEMM pair they replace and
+     refusing three faults: each row's statistics from the next row, the
+     LayerNorm left out, beta dropped; K3's and K4's Dense, K7's second
      product, K6's grid update) against its plain version, with its rate,
      bound and launches per forward beside torch.matmul's (timed only); K8 and K9 on the real full-width
      tile tables (partial face tiles in K8, its one launch also stored into
@@ -47,7 +53,7 @@ Phases:
      scaled_dot_product_attention (timed only), each row named with the kernel body its shape takes
      (ops/flash_window_attention.py attention_body); K5 and K1 at FuXi's V1
      trunk geometry (window (1, 6, 12), wlen
-     72, hd 64); K12 over the grid rows and the mesh edges; K13 over the grid
+     72, hd 64; K1 there on its seven-launch chain, C 1536); K12 over the grid rows and the mesh edges; K13 over the grid
      rows, deg 3; K14 on the full-width grid->mesh block plan (target_rows
      8192, padding rows included) and its output with one row dropped per
      block, which its check must refuse.  These ops are entry points of their
@@ -55,8 +61,10 @@ Phases:
      wrapper, the count set to 0 just before;
   4. the main paths, each with every launch count set to 0 just before and
      read just after: GlobalModel("pangu", ic_source="synthetic") at
-     721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward, and
-     66 launches of the row GEMM through ops.gemm inside them),
+     721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward;
+     inside them 32 launches of ln_gemm, 34 of the row GEMM through ops.gemm
+     -- K1's proj and fc2, K3's and K4's Dense -- and no LayerNorm rows
+     launch; all 16 K1 calls on the ln_gemm path),
      then GlobalModel("graphcast", ic_source="synthetic"), 721x1440, 83
      channels, latent 512, 16 rounds, refinement 6, a 4-step forecast
      (21 K6, 16 K7, 1 K8, 1 K9 per forward; 20 of the K6 calls finish in
@@ -168,6 +176,23 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def k1_launches(torch, args, window, heads) -> str:
+    """One call of fused_swin_block with its kernels' launches counted: its
+    path (ops.fused_block.block_path) and the launches, which must be five
+    on the ln_gemm path and seven on the chain."""
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm
+
+    kernels = (ln_gemm, gemm, FB.layernorm, FB.window_attention)
+    before = [k.launches for k in kernels]
+    FB.fused_swin_block(*args, window, heads)
+    torch.cuda.synchronize()
+    n = sum(k.launches - b for k, b in zip(kernels, before))
+    path = FB.block_path(args[0].shape[-1])
+    check(n == {"ln_gemm": 5, "chain": 7}[path], f"K1 at C {args[0].shape[-1]} ({path}) launched {n} kernels a call")
+    return f"[{path}: {n} launches a call]"
+
+
 def kernel_checks(torch, g) -> tuple[list[dict], dict]:
     """Phase 3: every kernel at its main-path shapes against its plain version.
     Returns the kernels' rows and the max errors of the attention-alone checks."""
@@ -225,14 +250,15 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
         ref = FB.reference_swin_block(*args, window, heads)
         err = compare(torch, out, ref, f"K1 {stage}")
         del out, ref
+        path = k1_launches(torch, args, window, heads)
         N = Z * H * Wd
         flops = 2 * N * C * (4 * C + 2 * hidden) + 4 * (nz * nh * nw) * heads * wlen * wlen * (C // heads)
         nbytes = 2 * N * C * 2 + 2 * C * (4 * C + 2 * hidden) + args[3].numel() * 4 + args[4].numel() * 4
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(
-            name=f"K1 fused_swin_block {stage} {tuple(x.shape)} [attention: {attention_body(wlen, C // heads)} body]",
+            name=f"K1 fused_swin_block {stage} {tuple(x.shape)} [attention: {attention_body(wlen, C // heads)} body] {path}",
             shape=tuple(x.shape),
-            route="cuda", source="skyrim_tpu_torch/csrc/fused_block.cu+attention.cuh+gemm.cu",
+            route="cuda", source="skyrim_tpu_torch/csrc/gemm.cu+rowgemm.cuh+attention.cuh+fused_block.cu",
             replaces="skyrim_tpu/ops/fused_block.py:202", max_abs_err=err,
             ms=time_ms(torch, lambda: FB.fused_swin_block(*args, window, heads), 10),
             plain_ms=time_ms(torch, lambda: FB.reference_swin_block(*args, window, heads), 3),
@@ -608,18 +634,19 @@ def g2m_parts(torch, args, plan, n_edges) -> dict:
     return parts
 
 
-# The aligned row GEMM's shapes on the main paths: name, M, K, N, epilogue
-# (what K1, K3, K4 give ops.gemm.gemm; "mlp": ops.fused_mlp.mlp_gemm, bias
+# The row GEMM's shapes on the main paths: name, M, K, N, epilogue (what K1,
+# K3, K4 give ops.gemm.gemm; "ln", "ln_gelu": ops.gemm.ln_gemm, the
+# LayerNorm in the prologue, bias or GELU; "mlp": ops.fused_mlp.mlp_gemm, bias
 # only), and the kernel (with its by-shape key) whose launches it shares.
 S1, S2 = (8, 186, 360, 192), (8, 96, 180, 384)
 GEMM_ROWS = (
-    ("Pangu stage 1/4 qkv", 535680, 192, 576, "bias", ("K1", S1)),
+    ("Pangu stage 1/4 LN1 + qkv", 535680, 192, 576, "ln", ("K1", S1)),
     ("Pangu stage 1/4 proj + residual", 535680, 192, 192, "residual", ("K1", S1)),
-    ("Pangu stage 1/4 fc1 + GELU", 535680, 192, 768, "gelu", ("K1", S1)),
+    ("Pangu stage 1/4 LN2 + fc1 + GELU", 535680, 192, 768, "ln_gelu", ("K1", S1)),
     ("Pangu stage 1/4 fc2 + residual", 535680, 768, 192, "residual", ("K1", S1)),
-    ("Pangu stage 2/3 qkv", 138240, 384, 1152, "bias", ("K1", S2)),
+    ("Pangu stage 2/3 LN1 + qkv", 138240, 384, 1152, "ln", ("K1", S2)),
     ("Pangu stage 2/3 proj + residual", 138240, 384, 384, "residual", ("K1", S2)),
-    ("Pangu stage 2/3 fc1 + GELU", 138240, 384, 1536, "gelu", ("K1", S2)),
+    ("Pangu stage 2/3 LN2 + fc1 + GELU", 138240, 384, 1536, "ln_gelu", ("K1", S2)),
     ("Pangu stage 2/3 fc2 + residual", 138240, 1536, 384, "residual", ("K1", S2)),
     ("K3 Dense", 131040, 768, 384, "bias", ("K3", None)),
     ("K4 Dense", 131040, 384, 768, "bias", ("K4", None)),
@@ -629,20 +656,24 @@ GEMM_ROWS = (
 GUARD_ROWS, SENTINEL = 64, 0x7FA5  # a bf16 NaN pattern no product writes
 
 
-def row_gemm_checks(torch, g) -> list[dict]:
+def row_gemm_checks(torch, g) -> tuple[list[dict], dict]:
     """Phase 3, the row GEMM alone (csrc/rowgemm.cuh): its ragged edges
     through skt_mlp_gemm against torch.matmul in f32 on the same bf16
     operands, within the kernel tolerance; the TMA store into an output with
     GUARD_ROWS rows past M (skt_gemm_bf16 called through the library, residual
     epilogue, M not a multiple of the row tile, N 192 and 512), which must come
-    back bit-identical; then every aligned shape of the main paths (GEMM_ROWS)
+    back bit-identical; then every shape of the main paths (GEMM_ROWS)
     against its plain version, timed with torch.matmul in bf16 on the same
-    operands beside it (the yardstick: called nowhere in the port)."""
+    operands beside it (the yardstick: called nowhere in the port), the
+    LayerNorm-prologue rows also with the pair of launches they replace and
+    under three faults (ln_gemm_faults).  Returns the rows and the faults'
+    errors over the limit."""
     import ctypes
 
     from skyrim_tpu_torch.ops import _build
+    from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops import fused_mlp as FM
-    from skyrim_tpu_torch.ops.gemm import gemm, plain_gemm
+    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm, plain_gemm, plain_ln_gemm
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -681,28 +712,74 @@ def row_gemm_checks(torch, g) -> list[dict]:
         out.append(dict(name=name, max_abs_err=err, guard_rows_identical=True))
         del a, w, b, r, buf
 
+    faults = {}
     for what, M, K, N, epi, launch_of in GEMM_ROWS:
         a, w, b = randn(M, K, dtype=bf16), randn(K, N, scale=K**-0.5, dtype=bf16), randn(N, scale=0.1)
         r = randn(M, N, dtype=bf16) if epi == "residual" else None
-        if epi == "mlp":
+        gelu, extra = epi in ("gelu", "ln_gelu"), {}
+        if epi.startswith("ln"):
+            # rows of the residual stream's kind: each its own scale and
+            # offset, so that a LayerNorm left out or misapplied shows; beta
+            # drawn at 0.3 so that its drop does
+            a = (a.float() * (0.5 + 3 * torch.rand(M, 1, device=dev, generator=g)) + randn(M, 1)).to(bf16)
+            ln = (1 + randn(K, scale=0.1), randn(K, scale=0.3))
+            fn = lambda: ln_gemm(a, ln, w, b, gelu=gelu)  # noqa: E731
+            ref = plain_ln_gemm(a, ln, w, b, gelu=gelu)
+        elif epi == "mlp":
             fn = lambda: FM.mlp_gemm(a, w, b)  # noqa: E731
+            ref = plain_gemm(a, w, b)
         else:
-            fn = lambda: gemm(a, w, b, gelu=epi == "gelu", residual=r)  # noqa: E731
+            fn = lambda: gemm(a, w, b, gelu=gelu, residual=r)  # noqa: E731
+            ref = plain_gemm(a, w, b, gelu=gelu, residual=r)
         c = fn()
         torch.cuda.synchronize()
-        err = compare(torch, c, plain_gemm(a, w, b, gelu=epi == "gelu", residual=r), f"row GEMM, {what}")
+        err = compare(torch, c, ref, f"row GEMM, {what}")
         del c
+        if epi.startswith("ln"):
+            faults.update(ln_gemm_faults(torch, what, a, ln, w, b, gelu, ref))
+            h = FB.layernorm(a, *ln)
+            # the pair it replaces (the LayerNorm rows launch, then the aligned
+            # GEMM on h), and that GEMM alone
+            extra = dict(pair_ms=time_ms(torch, lambda: gemm(FB.layernorm(a, *ln), w, b, gelu=gelu), 10),
+                         gemm_alone_ms=time_ms(torch, lambda: gemm(h, w, b, gelu=gelu), 10))
+            del h
+        del ref
         ms = time_ms(torch, fn, 10)
         lib_ms = time_ms(torch, lambda: torch.matmul(a, w), 10)
         flops = 2 * M * K * N
         b_ms, b_by = bound(flops, 2 * (M * K + K * N + M * N * (2 if r is not None else 1)))
         out.append(dict(name=f"row GEMM, {what}: ({M}, {K}) @ ({K}, {N})", max_abs_err=err, ms=ms,
                         tflops=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                        library_tflops=flops / lib_ms / 1e9, launch_of=launch_of))
+                        library_tflops=flops / lib_ms / 1e9, **extra, launch_of=launch_of))
         del a, w, b, r
         torch.cuda.empty_cache()
     for r in out:
         log("  ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in r.items()))
+    return out, faults
+
+
+def ln_gemm_faults(torch, what, x, ln, w, b, gelu, ref) -> dict:
+    """ln_gemm's check at full width against outputs that a faulty kernel
+    would give, each of which must fail it (2 ulps of max|plain|): each row's
+    LayerNorm statistics taken from the next row, the LayerNorm left out (x
+    multiplied as it is), beta dropped (computed plainly)."""
+    from skyrim_tpu_torch.ops.gemm import _EPS, plain_gemm, plain_ln_gemm
+
+    xf = x.float()
+    mu = torch.roll(xf.mean(-1, keepdim=True), -1, 0)
+    var = torch.roll((xf * xf).mean(-1, keepdim=True), -1, 0) - mu * mu
+    h_next = ((xf - mu) * torch.rsqrt(var.clamp_min(0) + _EPS) * ln[0] + ln[1]).to(torch.bfloat16)
+    del xf, mu, var
+    bad = {
+        f"K1 {what}: each row's LayerNorm statistics taken from the next row": lambda: plain_gemm(h_next, w, b, gelu=gelu),
+        f"K1 {what}: the LayerNorm left out": lambda: plain_gemm(x, w, b, gelu=gelu),
+        f"K1 {what}: beta dropped": lambda: plain_ln_gemm(x, (ln[0], torch.zeros_like(ln[1])), w, b, gelu=gelu),
+    }
+    out = {}
+    for fault, make in bad.items():
+        out[fault] = {"max": over_limit(torch, make(), ref, False)}
+        log(f"{fault}: max err/limit {out[fault]['max']:.4g} under the check's rule (2 ulps of max|plain|)")
+        check(out[fault]["max"] > 1, f"ln_gemm's check passed a faulty output: {fault}")
     return out
 
 
@@ -826,7 +903,8 @@ def attention_op_checks(torch, g) -> list[dict]:
          randn(hidden, C, scale=hidden**-0.5), randn(C, scale=0.1)),
         window, heads,
     )
-    op_row(torch, rows, f"K1 fused_swin_block FuXi V1 trunk {(Z, H, Wd, C)} [attention: {FA.attention_body(wlen, C // heads)} body]",
+    path = k1_launches(torch, args[:-2], *args[-2:])
+    op_row(torch, rows, f"K1 fused_swin_block FuXi V1 trunk {(Z, H, Wd, C)} [attention: {FA.attention_body(wlen, C // heads)} body] {path}",
            "skyrim_tpu_torch/csrc/fused_block.cu+attention.cuh+gemm.cu", "skyrim_tpu/ops/fused_block.py:202",
            FB.fused_swin_block, args, FB.reference_swin_block,
            2 * N * C * (4 * C + 2 * hidden) + 4 * 16 * 15 * heads * wlen * wlen * (C // heads),
@@ -949,10 +1027,11 @@ def counters():
     from skyrim_tpu_torch.ops import resample as RS
     from skyrim_tpu_torch.ops import roll as RL
     from skyrim_tpu_torch.ops.fused_mlp import fused_finish, fused_mlp
-    from skyrim_tpu_torch.ops.gemm import gemm
+    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm
 
     return {"K1": FB.fused_swin_block, "K2": RL.roll3d, "K3": RS.fused_downsample,
-            "K4": RS.fused_upsample, "K5": FA.fused_window_attention_4d, "gemm": gemm, "K6": fused_mlp,
+            "K4": RS.fused_upsample, "K5": FA.fused_window_attention_4d, "gemm": gemm, "ln_gemm": ln_gemm,
+            "layernorm": FB.layernorm, "K6": fused_mlp,
             "K7": GK.fused_round_messages, "K8": GK.fused_m2g_tiled, "K9": GK.fused_g2m_tiled,
             "K10": FA.fused_window_attention, "K11": FA.flash_window_attention, "K12": fused_finish,
             "K13": GK.fused_fixed_degree_messages, "K14": GK.fused_block_messages}
@@ -965,7 +1044,11 @@ MODEL_OF = {"K1": "pangu", "K2": "pangu", "K3": "pangu", "K4": "pangu",
             "K5": "ops", "K10": "ops", "K11": "ops", "K12": "ops", "K13": "ops", "K14": "ops"}
 
 
+OP_KERNELS = ("gemm", "ln_gemm", "layernorm")  # launches inside K1, K3, K4 (ops.gemm, K1's LayerNorm rows)
+
+
 def reset_counts() -> None:
+    from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops.fused_mlp import ln_rows, mlp_finish
 
     fns = counters()
@@ -975,15 +1058,19 @@ def reset_counts() -> None:
         fns[k].launches_by_shape.clear()
     ln_rows.launches_by_nsum.clear()
     mlp_finish.launches_by_shape.clear()
+    FB.fused_swin_block.launches_by_path.clear()
 
 
-ROW_KERNELS = ("ln_rows", "mlp_finish")  # launches inside K6-K9, counted by shape apart
+# launches counted by shape apart: inside K6-K9, and K1's calls by path
+ROW_KERNELS = ("ln_rows", "mlp_finish", "K1 path")
 
 
 def read_counts() -> tuple[dict, dict]:
     """The kernels' launch counts, and by shape for BY_SHAPE; by_shape also
-    holds the LayerNorm rows kernel's launches by nsum under "ln_rows" and
-    K6's whole-row finish's by (rows, L, residual) under "mlp_finish"."""
+    holds the LayerNorm rows kernel's launches by nsum under "ln_rows",
+    K6's whole-row finish's by (rows, L, residual) under "mlp_finish" and
+    K1's calls by ops.fused_block.block_path under "K1 path"."""
+    from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops.fused_mlp import ln_rows, mlp_finish
 
     fns = counters()
@@ -991,20 +1078,25 @@ def read_counts() -> tuple[dict, dict]:
     by_shape = {k: {tuple(s): v for s, v in fns[k].launches_by_shape.items()} for k in BY_SHAPE}
     by_shape["ln_rows"] = dict(ln_rows.launches_by_nsum)
     by_shape["mlp_finish"] = dict(mlp_finish.launches_by_shape)
+    by_shape["K1 path"] = dict(FB.fused_swin_block.launches_by_path)
     return counts, by_shape
 
 
 def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     """Launches per n_steps forwards of the main path: every kernel of the
     port is listed, so the other model's kernels must stay at 0."""
-    counts = dict.fromkeys((*MODEL_OF, "gemm"), 0)
+    counts = dict.fromkeys((*MODEL_OF, *OP_KERNELS), 0)
     by_shape = {k: {} for k in (*BY_SHAPE, *ROW_KERNELS)}
     if model.name == "pangu":
-        # the row GEMM through ops.gemm: K1's four products, K3's and K4's Dense
-        counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps, gemm=(16 * 4 + 2) * n_steps)
+        # the row GEMM through ops.gemm: K1's proj and fc2, K3's and K4's
+        # Dense; K1's LN1 + qkv and LN2 + fc1 each one ln_gemm launch (both
+        # widths take that path), no LayerNorm rows launch
+        counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps, gemm=(16 * 2 + 2) * n_steps,
+                      ln_gemm=16 * 2 * n_steps)
         # per forward: 4 blocks (and rolls) at stage 1/4, 12 at stage 2/3
         for k in ("K1", "K2"):
             by_shape[k] = {(8, 186, 360, 192): 4 * n_steps, (8, 96, 180, 384): 12 * n_steps}
+        by_shape["K1 path"] = {"ln_gemm": 16 * n_steps}
         return counts, by_shape
     cfg, t = model.cfg, model.tables
     L, N, rounds = cfg.latent, cfg.lat * cfg.lon, cfg.processor_rounds
@@ -1208,7 +1300,8 @@ def main() -> int:
         rows, attn_err = kernel_checks(torch, g)
         log(f"K1 window attention alone, earth bias at {ATTN_BIAS_SCALE}: max_abs_err {attn_err}")
         gc_rows, faults, k9_parts = graphcast_kernel_checks(torch, g)
-        gemm_rows = row_gemm_checks(torch, g)
+        gemm_rows, ln_faults = row_gemm_checks(torch, g)
+        faults.update(ln_faults)
         msg_rows, k14_fault = message_op_checks(torch, g)
         rows += gc_rows + attention_op_checks(torch, g) + msg_rows
         for r in rows:

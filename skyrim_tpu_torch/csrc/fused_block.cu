@@ -1,7 +1,9 @@
 // K1 pieces: LayerNorm and windowed multi-head attention with earth bias and
-// shift mask.  With the GEMM of gemm.cu they make up the pre-norm Swin/Pangu
+// shift mask.  With the GEMMs of gemm.cu they make up the pre-norm Swin/Pangu
 // block that replaces skyrim_tpu/ops/fused_block.py fused_swin_block_4d
-// (_fused_block_kernel); ops/fused_block.py composes the seven launches.
+// (_fused_block_kernel); ops/fused_block.py composes the launches: five where
+// the rows fit gemm.cu's LayerNorm-prologue GEMM (C <= 512, Pangu), the
+// seven-launch chain with the LayerNorms below for wider rows (FuXi's C 1536).
 //
 // skt_layernorm_bf16: rowgemm.cuh's ln_rows_kernel with one row per output,
 // one warp per token row, f32 statistics (flax numerics).  Bound: bytes (one

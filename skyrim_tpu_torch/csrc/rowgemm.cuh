@@ -1,7 +1,8 @@
 // Row-GEMM building blocks: the tiled GEMM of every port kernel that
 // multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6 and K7;
 // K12-K14 in graph_finish.cu), K8's and K9's row kernel with its LayerNorm
-// inside (rows_ln_kernel), and the row kernels the GraphCast kernels share.
+// inside (rows_ln_kernel), K1's GEMM with the LayerNorm in its prologue
+// (ln_gemm_kernel), and the row kernels the GraphCast kernels share.
 //
 // The four GraphCast TPU kernels (skyrim_tpu/ops/fused_mlp.py fused_mlp and
 // ops/graph_kernels.py fused_round_messages / fused_m2g_tiled /
@@ -38,8 +39,9 @@
 //                   allow.
 //   ln_rows_kernel  one warp per output row: out = bf16([res +] sum_k
 //                   bf16(LN(y[row * nsum + k]))), sum in f32, nsum 1 to 4,
-//                   through common.cuh's layernorm_rows_warp; also Pangu's
-//                   LayerNorm (fused_block.cu, nsum 1).
+//                   through common.cuh's layernorm_rows_warp; also K1's
+//                   LayerNorms on its chain for rows wider than 512
+//                   (fused_block.cu, nsum 1).
 //   segsum_kernel   out[g, s, :] = sum of the rows r of group g with
 //                   local[g, r] == s, in f32, then bf16; local values outside
 //                   [0, S) are skipped.  One block per (group, 128 columns),
@@ -59,6 +61,11 @@
 //                   by producer warps into a whole-tile A buffer, W by TMA,
 //                   two consumer warpgroups of 256 columns each exchanging
 //                   row sums (see below).
+//   ln_gemm_kernel  out = epi(bf16(LN(x)) @ W + b) for rows of up to 512
+//                   columns (K1's LN1 + qkv and LN2 + fc1): a row block of x
+//                   by TMA, normalised once in place in shared memory by
+//                   producer warps, then multiplied by every N tile's W
+//                   slices by two consumer warpgroups in turn (see below).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time, not linked
@@ -477,6 +484,19 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, ui
   return static_cast<int>(res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue);
 }
 
+// A consumer's staged epilogue tile (BM rows, boxes of 64 columns in the
+// 128-byte swizzle; rowgemm_tma_kernel, ln_gemm_kernel): its first `boxes`
+// boxes stored by TMA from one thread at (m0, n0), rows and columns past
+// the matrix clipped; returns once the store has read the staging tile.
+template <int BM>
+__device__ __forceinline__ void store_tile(const CUtensorMap* mapOut, unsigned char* out_tile, int boxes,
+                                           int m0, int n0) {
+#pragma unroll
+  for (int b = 0; b < boxes; ++b) tma_store_2d(mapOut, smem_addr(out_tile) + b * (BM * 128), n0 + 64 * b, m0);
+  bulk_commit();
+  bulk_wait_read<0>();
+}
+
 // The row GEMM for aligned rows (ARows<true>; N % 128 == 0, or % 192 == 0 for
 // Pangu's 192 and 576): one persistent block an SM walks the tiles blockIdx.x,
 // + gridDim.x, ..., each BM rows x BN columns over the whole K.
@@ -664,12 +684,8 @@ __global__ void __launch_bounds__(TMA_THREADS, 1)
       fence_async_shared();  // ... made visible to the TMA unit, then stored by one thread
       bar_sync(3 + me, 128);
       if (elected) {
-#pragma unroll
-        for (int b = 0; b < BN / 64; ++b)
-          tma_store_2d(&mapOut, smem_addr(out_tile) + b * (BM * 128), n0 + 64 * b, m0);
-        bulk_commit();
-        bulk_wait_read<0>();  // the staging tile is free again: for the producer's residual
-        if (has_res) mbar_arrive(out_free0 + 8 * me);
+        store_tile<BM>(&mapOut, out_tile, BN / 64, m0, n0);  // the staging tile is free again
+        if (has_res) mbar_arrive(out_free0 + 8 * me);  // ... for the producer's residual
       }
     }
   }
@@ -1429,6 +1445,309 @@ int launch_rows_ln(const Pro& pro, const void* W, const Epi& epi, void* out, int
   rows_ln_kernel<GROUP, Pro, Epi><<<grid, rowln::THREADS, rowln::SMEM, static_cast<cudaStream_t>(stream)>>>(
       pro, mapA, mapW, mapOut, mapRes, epi, M, L, tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// --- ln_gemm_kernel: LayerNorm in the prologue -> Dense, whole rows of K a block ---
+//
+// out = epi(bf16(LN(x) * scale + shift) @ W + b), flax LayerNorm numerics,
+// for M rows of K <= 512 columns (K % 8 == 0), W (K, N) row-major (N % 8 ==
+// 0), in one launch: K1's LN1 + qkv and LN2 + fc1 + GELU (the TPU kernel
+// skyrim_tpu/ops/fused_block.py _fused_block_kernel normalises inside the
+// block, lines 109 and 157), where a LayerNorm rows launch wrote h to device
+// memory for the aligned row GEMM to read back.  Epi::pair(v) turns the
+// f32 sums (bias + products) of two consecutive columns into the values
+// stored.
+//
+// One persistent block an SM takes a contiguous run of the tiles (row
+// block, N tile) in row order, the blocks' runs differing by one tile at
+// most (an even last wave).  A row block is BM rows x the whole K, a tile
+// BM x BN.
+// - LayerNorm warps (warps 0-2 of the last warpgroup, setmaxnreg
+//   PRO_REGS): scale and shift into shared memory once; then for each row
+//   block of the run, lane 0 of warp 0 brings the raw rows by TMA (boxes of
+//   64 columns in the 128-byte swizzle, 0 past M and K) into one of the A
+//   buffers once the consumers are past their products on it (a_empty,
+//   x_full); the three warps then normalise the block in place, four rows a
+//   warp at a time, eight lanes a row (f32 statistics, fast variance clipped
+//   at 0, f32 affine, bf16 h), fence their stores for the async proxy and
+//   arrive on a_full.  So the LayerNorm runs once a row, not once per N
+//   tile, and the next row block's under this one's products (two A
+//   buffers up to K 512 at 64 rows, up to K 256 at 128).
+// - W thread (lane 0 of warp 3): the run's W slices (64 K x BN, boxes of 64
+//   columns) by TMA into a ring (w_full / w_empty), tile by tile, as deep as
+//   shared memory allows; rows past K and columns past N read as 0.
+// - NC consumer warpgroups (setmaxnreg CON_REGS) take the run's tiles in
+//   turn, tile q by consumer q % NC: wgmma on the tile's rows of the A block
+//   and the W slices, the products ordered by named barriers 1 .. NC (a
+//   consumer waits for tile q - 1's products and signals tile q + 1's), so
+//   that one consumer's epilogue runs under the other's products.
+//   The accumulators start from the tile's bias.  Epilogue: each
+//   accumulator pair through Epi::pair, into the staging tile as one
+//   bf16x2 word (the 128-byte swizzle: a warp's 32 words in 32 banks, no
+//   exchange between lanes, unlike rowgemm_tma_kernel's), then stored by
+//   TMA (store_tile; rows past M and columns past N clipped).  A
+//   consumer's warps arrive on a_empty once past their last products of a
+//   row block.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, 700 W; PERF.md, tools/
+// kernel_variants.py lngemm): not the products (with them left out the
+// four instances keep 72-102 % of their time) but what feeds and drains
+// them: the LayerNorm warps at stage 1, the GELU epilogue of fc1, the W
+// ring's depth at K 384 (W streams from L2 once per 64-row block, 2.5 GB
+// for stage-2 fc1).  Sharing W slices between two blocks of a cluster by
+// TMA multicast halved that stream and gained nothing.
+namespace lng {
+// The layouts kept: A blocks and tiles of BM rows, tiles BN wide, NC
+// consumers.  Rows of K <= 256 take the tall one (two 128-row A buffers and
+// six W slices fit: W streams from L2 once per 128 rows), wider rows the
+// other (PERF.md §6, the variants of ln_gemm_kernel).
+constexpr int TALL_BM = 128, TALL_BN = 64, BM = 64, BN = 128, NC = 2;
+constexpr int MAX_K = 512, MAX_STAGES = 8, NA = 2, LN_WARPS = 3, PRO_REGS = 56;  // NA: A buffers
+
+template <int BM_, int BN_, int NC_>
+struct Layout {
+  static constexpr int THREADS = (NC_ + 1) * 128;
+  static constexpr int LAUNCH_REGS = (65536 / THREADS) / 8 * 8 > 248 ? 248 : (65536 / THREADS) / 8 * 8;
+  static constexpr int CON_FREE = ((THREADS * LAUNCH_REGS - 128 * PRO_REGS) / (NC_ * 128)) / 8 * 8;
+  static constexpr int CON_REGS = CON_FREE > 240 ? 240 : CON_FREE;
+  static constexpr int W_BYTES = BK * BN_ * 2;     // a W slice, 64 K x BN
+  static constexpr int OUT_BYTES = BM_ * BN_ * 2;  // a consumer's staging tile
+  // alignment, staging tiles, A barriers, the LayerNorm's scale and shift
+  static constexpr int FIXED = 1024 + NC_ * OUT_BYTES + 3 * NA * 8 + 16 + 2 * MAX_K * 4;
+  static constexpr int SMEM = 232448;
+  static_assert(BM_ == 64 || BM_ == 128, "whole wgmma rows");
+  static_assert(BN_ % 64 == 0 && BN_ <= 256, "whole boxes, a wgmma width");
+  int a_bytes, stages;  // an A buffer's bytes, W slices in the ring (the launch needs 3)
+  __host__ __device__ explicit Layout(int K) {
+    a_bytes = BM_ * 128 * ((K + BK - 1) / BK);
+    const int s = (SMEM - FIXED - NA * a_bytes) / (W_BYTES + 16);
+    stages = s < MAX_STAGES ? s : MAX_STAGES;
+  }
+};
+
+}  // namespace lng
+
+template <int BM, int BN, int NC, class Epi>
+__global__ void __launch_bounds__(lng::Layout<BM, BN, NC>::THREADS, 1)
+    ln_gemm_kernel(__grid_constant__ const CUtensorMap mapX, __grid_constant__ const CUtensorMap mapW,
+                   __grid_constant__ const CUtensorMap mapOut, const float* __restrict__ scale,
+                   const float* __restrict__ shift, Epi epi, int M, int N, int K, float eps,
+                   long long tiles) {
+  using Lay = lng::Layout<BM, BN, NC>;
+  const Lay lay(K);
+  constexpr int NA = lng::NA;
+  const int S = lay.stages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* abuf = align1024(smem_raw);  // the A buffers, the staging tiles, the W ring
+  unsigned char* staging = abuf + NA * lay.a_bytes;
+  unsigned char* wring = staging + NC * Lay::OUT_BYTES;
+  const unsigned w_full0 = smem_addr(wring + S * Lay::W_BYTES), w_empty0 = w_full0 + 8 * S;
+  const unsigned x_full0 = w_empty0 + 8 * S, a_full0 = x_full0 + 8 * NA, a_empty0 = a_full0 + 8 * NA;
+  // the LayerNorm's scale, then its shift, in f32
+  float* gb = reinterpret_cast<float*>(wring + S * Lay::W_BYTES + ((16 * S + 24 * NA + 15) & ~15));
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(w_full0 + 8 * s, 1);
+      mbar_init(w_empty0 + 8 * s, 4);  // the four warps of the consumer that multiplied
+    }
+    for (int b = 0; b < NA; ++b) {
+      mbar_init(x_full0 + 8 * b, 1);
+      mbar_init(a_full0 + 8 * b, lng::LN_WARPS * 32);
+      mbar_init(a_empty0 + 8 * b, 4 * NC);  // every consumer warp, once a row block
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int NT = (N + BN - 1) / BN, nk = (K + BK - 1) / BK;
+  // this block's run of tiles [t0, t1) (not empty: the grid is at most the
+  // tile count), row blocks rb0 .. rb1
+  const long long t0 = tiles * blockIdx.x / gridDim.x, t1 = tiles * (blockIdx.x + 1) / gridDim.x;
+  const int rb0 = (int)(t0 / NT), rb1 = (int)((t1 - 1) / NT);
+  if (wg == NC) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(lng::PRO_REGS));
+    const int warp = (tid >> 5) & 3;
+    if (warp == lng::LN_WARPS) {
+      if (lane == 0) {  // the W thread
+        int stage = 0;
+        unsigned phase = 0;
+        for (long long t = t0; t < t1; ++t) {
+          const int n0 = (int)(t % NT) * BN;
+          for (int kt = 0; kt < nk; ++kt) {
+            mbar_wait(w_empty0 + 8 * stage, phase ^ 1);  // passes at once the first time round
+            const unsigned full = w_full0 + 8 * stage, slot = smem_addr(wring + stage * Lay::W_BYTES);
+            mbar_expect_tx(full, Lay::W_BYTES);
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j) tma_load_2d(slot + j * (BK / 8) * 1024, &mapW, full, n0 + 64 * j, kt * BK);
+            if (++stage == S) stage = 0, phase ^= 1;
+          }
+        }
+      }
+    } else {
+      // the LayerNorm warps: scale and shift into shared memory once ...
+      for (int i = tid - 128 * NC; i < K; i += lng::LN_WARPS * 32) gb[i] = scale[i], gb[lng::MAX_K + i] = shift[i];
+      bar_sync(2 * NC + 1, lng::LN_WARPS * 32);
+      // ... then a row block at a time, four rows a warp at a time, eight
+      // lanes a row: lane s of a row's eight takes its 16-byte chunks s, s + 8, ...
+      const int sub = lane & 7, nv = K / 8;
+      for (int rb = rb0, p = 0; rb <= rb1; ++rb, ++p) {
+        const int b = p % NA, use = p / NA;
+        unsigned char* a = abuf + b * lay.a_bytes;
+        if (warp == 0 && lane == 0) {  // the raw rows by TMA, once the buffer is free
+          mbar_wait(a_empty0 + 8 * b, (use & 1) ^ 1);  // passes at once on the first use
+          mbar_expect_tx(x_full0 + 8 * b, nk * BM * 128);
+          for (int s = 0; s < nk; ++s)
+            tma_load_2d(smem_addr(a) + s * (BM * 128), &mapX, x_full0 + 8 * b, 64 * s, rb * BM);
+        }
+        mbar_wait(x_full0 + 8 * b, use & 1);
+        for (int r = 4 * warp + (lane >> 3); r < BM; r += 4 * lng::LN_WARPS) {
+          const auto chunk = [&](int v) {  // 16-byte chunk v of row r: slice v / 8, the 128-byte swizzle
+            return reinterpret_cast<bf16*>(a + (v >> 3) * (BM * 128) + r * 128 + (((v & 7) ^ (r & 7)) << 4));
+          };
+          float s = 0.f, s2 = 0.f;
+#pragma unroll 2
+          for (int v = sub; v < nv; v += 8) {
+            float f[8];
+            load8(chunk(v), f);
+#pragma unroll
+            for (int u = 0; u < 8; ++u) s += f[u], s2 += f[u] * f[u];
+          }
+#pragma unroll
+          for (int o = 4; o > 0; o >>= 1) {  // over the row's eight lanes
+            s += __shfl_xor_sync(0xffffffffu, s, o);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+          }
+          const float mu = s / K, inv = rsqrtf(fmaxf(s2 / K - mu * mu, 0.f) + eps);
+#pragma unroll 2
+          for (int v = sub; v < nv; v += 8) {
+            float f[8], g[8], t[8];
+            load8(chunk(v), f);
+            const float4* gv = reinterpret_cast<const float4*>(gb + 8 * v);
+            const float4* tv = reinterpret_cast<const float4*>(gb + lng::MAX_K + 8 * v);
+            *reinterpret_cast<float4*>(g) = gv[0], *reinterpret_cast<float4*>(g + 4) = gv[1];
+            *reinterpret_cast<float4*>(t) = tv[0], *reinterpret_cast<float4*>(t + 4) = tv[1];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) f[u] = (f[u] - mu) * inv * g[u] + t[u];
+            store8(chunk(v), f);
+          }
+        }
+        fence_async_shared();
+        mbar_arrive(a_full0 + 8 * b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(Lay::CON_REGS));
+    constexpr unsigned B_N_STRIDE = (BK / 8) * 1024, B_K_STRIDE = 1024;
+    const int me = wg, w = (tid >> 5) & 3, g = lane >> 2, q = lane & 3;
+    const bool elected = (tid & 127) == 0;
+    unsigned char* out_tile = staging + me * Lay::OUT_BYTES;
+    for (int rb = rb0, p = 0; rb <= rb1; ++rb, ++p) {
+      const int b = p % NA;
+      const unsigned a0 = smem_addr(abuf + b * lay.a_bytes);
+      const long long base = (long long)rb * NT;  // the row block's first tile
+      const int jlo = (int)((t0 > base ? t0 : base) - base), jhi = (int)((t1 < base + NT ? t1 : base + NT) - base);
+      const int q_lo = (int)(base + jlo - t0);  // the run's position of tile jlo
+      mbar_wait(a_full0 + 8 * b, (p / NA) & 1);
+      int j = jlo + ((me - q_lo % NC) % NC + NC) % NC;  // this consumer's first tile: position % NC == me
+      if (j >= jhi && lane == 0) mbar_arrive(a_empty0 + 8 * b);  // none in this row block
+      for (; j < jhi; j += NC) {
+        const int qt = q_lo + j - jlo, m0 = rb * BM, n0 = j * BN;
+        int stage = (qt * nk) % S;  // the W thread's slice qt * nk of the run
+        unsigned phase = ((qt * nk) / S) & 1;
+        // the products accumulate onto the bias: acc[h][4i + 2e + c] is row
+        // 64h + 16w + g + 8e, column 8i + 2q + c (0 past N)
+        float acc[BM / 64][BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = n0 + 8 * i + 2 * q;
+          const float2 b = col < N ? __ldg(reinterpret_cast<const float2*>(epi.bias + col)) : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int h = 0; h < BM / 64; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) acc[h][4 * i + 2 * e] = b.x, acc[h][4 * i + 2 * e + 1] = b.y;
+        }
+        if (qt > 0) bar_sync(1 + me, 256);  // tile qt - 1's products are done
+        for (int kt = 0; kt < nk; ++kt) {
+          mbar_wait(w_full0 + 8 * stage, phase);
+          const unsigned b0 = smem_addr(wring + stage * Lay::W_BYTES);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < BK / 16; ++ks)
+#pragma unroll
+            for (int h = 0; h < BM / 64; ++h)  // A slice kt, rows 64h.., 32 bytes a step
+              wgmma_bf16<BN>(acc[h], wgmma_desc(a0 + kt * (BM * 128) + h * 64 * 128 + ks * 32, 16, 1024),
+                             wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous slice's products are done: its slot goes back
+          if (kt > 0 && lane == 0) mbar_arrive(w_empty0 + 8 * (stage == 0 ? S - 1 : stage - 1));
+          if (++stage == S) stage = 0, phase ^= 1;
+        }
+        wgmma_wait<0>();
+        if (lane == 0) {
+          mbar_arrive(w_empty0 + 8 * (stage == 0 ? S - 1 : stage - 1));
+          if (j + NC >= jhi) mbar_arrive(a_empty0 + 8 * b);  // past its last products on this A block
+        }
+        if (t0 + qt + 1 < t1) bar_arrive(1 + (me + 1) % NC, 256);  // tile qt + 1 may multiply
+        bar_sync(1 + NC + me, 128);  // the last store has read the staging tile
+        // one bf16x2 word a pair, at 4q in chunk i % 8 of box i / 8
+#pragma unroll
+        for (int h = 0; h < BM / 64; ++h)
+#pragma unroll
+          for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int r = 64 * h + 16 * w + g + 8 * e;
+              const float2 v = epi.pair(make_float2(acc[h][4 * i + 2 * e], acc[h][4 * i + 2 * e + 1]));
+              *reinterpret_cast<unsigned*>(out_tile + (i >> 3) * (BM * 128) + r * 128 + (((i & 7) ^ (r & 7)) << 4) +
+                                           4 * q) = pack_bf16(v.x, v.y);
+            }
+        fence_async_shared();
+        bar_sync(1 + NC + me, 128);
+        if (elected) store_tile<BM>(&mapOut, out_tile, min(BN / 64, (N - n0 + 63) / 64), m0, n0);
+      }
+    }
+  }
+}
+
+template <int BM, int BN, int NC, class Epi>
+static int ln_gemm_attribute() {
+  static const int err = static_cast<int>(cudaFuncSetAttribute(
+      ln_gemm_kernel<BM, BN, NC, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, lng::Layout<BM, BN, NC>::SMEM));
+  return err;
+}
+
+template <int BM, int BN, class Epi>
+int launch_ln_gemm_as(const void* x, const float* scale, const float* shift, const void* W, const Epi& epi,
+                      int M, int N, int K, float eps, cudaStream_t st) {
+  using Lay = lng::Layout<BM, BN, lng::NC>;
+  CUtensorMap mapX, mapW, mapOut;
+  if (int err = make_tensor_map(&mapX, x, M, K, K, BM)) return err;
+  if (int err = make_tensor_map(&mapW, W, K, N, N, BK)) return err;
+  if (int err = make_tensor_map(&mapOut, epi.out, M, N, N, BM)) return err;
+  if (int err = ln_gemm_attribute<BM, BN, lng::NC, Epi>()) return err;
+  const long long tiles = (long long)((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
+  ln_gemm_kernel<BM, BN, lng::NC, Epi><<<grid, Lay::THREADS, Lay::SMEM, st>>>(mapX, mapW, mapOut, scale, shift,
+                                                                              epi, M, N, K, eps, tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches ln_gemm_kernel in one of lng's layouts, by K: x (M, K) and W (K,
+// N) row-major bf16, epi.out (M, N) bf16, scale and shift f32 (K,); 0 < K <=
+// 512, K % 8 == 0, N % 8 == 0, x, W and out 16-byte aligned.
+// cudaErrorInvalidValue for other operands (the wrapper raises).
+template <class Epi>
+int launch_ln_gemm(const void* x, const float* scale, const float* shift, const void* W, const Epi& epi,
+                   int M, int N, int K, float eps, void* stream) {
+  using namespace lng;
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  if (M <= 0 || N <= 0 || K <= 0 || K > MAX_K || K % 8 || N % 8 || !aligned(x) || !aligned(W) ||
+      !aligned(epi.out) || Layout<BM, BN, NC>(K).stages < 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Layout<TALL_BM, TALL_BN, NC>(K).stages >= 6)
+    return launch_ln_gemm_as<TALL_BM, TALL_BN>(x, scale, shift, W, epi, M, N, K, eps, st);
+  return launch_ln_gemm_as<BM, BN>(x, scale, shift, W, epi, M, N, K, eps, st);
 }
 
 }  // namespace rowgemm

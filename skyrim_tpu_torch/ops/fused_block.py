@@ -13,22 +13,36 @@ output (N = 535,680 tokens, C = 192), ≈ 0.54 ms at 989 TFLOP/s bf16.
 
 Design: the TPU kernel keeps a whole window tile in VMEM; a Hopper
 thread block has 227 KB of shared memory, less than the packed qkv of
-one 144-token window at C = 384 with its scores, so the block runs as
-seven launches of hand-written kernels: LN1 (csrc/fused_block.cu) →
-qkv GEMM+bias (csrc/gemm.cu, the wgmma row GEMM of csrc/rowgemm.cuh) →
-window attention (csrc/attention.cuh, the bodies of K5: scores in
-registers at the models' geometries, a shared-memory score tile for any
-other wlen and hd that fit) → proj GEMM+bias+residual → LN2 → fc1
-GEMM+bias+GELU → fc2 GEMM+bias+residual.  LN and the GEMMs are per token and run on the flat
-(Z·H·W, C) view; the attention kernel reads q/k/v straight out of
-(Z, H, W, 3C) by index math, so no window relayout touches memory.  The
-intermediates (qkv, attention output, x1, LN outputs, MLP hidden) do
-round-trip device memory: fusing them is later work.
+one 144-token window at C = 384 with its scores, so the block runs as a
+chain of hand-written kernels, chosen by width in ``block_path``:
+
+- ``"ln_gemm"`` (C ≤ 512: both Pangu widths), five launches: LN1 + qkv
+  GEMM + bias (``ops.gemm.ln_gemm``: csrc/gemm.cu on ``ln_gemm_kernel``
+  of csrc/rowgemm.cuh, the LayerNorm computed once a row in shared memory
+  in the prologue of the product that consumes it) → window attention
+  (csrc/attention.cuh, the bodies of K5: scores in registers at the
+  models' geometries, a shared-memory score tile for any other wlen and
+  hd that fit) → proj GEMM + bias + residual (``ops.gemm.gemm``, the wgmma
+  row GEMM) → LN2 + fc1 GEMM + bias + GELU (``ln_gemm``) → fc2 GEMM + bias
+  + residual.
+- ``"chain"`` (wider rows, FuXi's V1 trunk at C 1536: a row block of
+  them does not fit shared memory), seven launches: the LayerNorms run
+  alone (csrc/fused_block.cu, the LayerNorm rows kernel) and each product
+  on ``gemm``.
+
+LN and the GEMMs are per token and run on the flat (Z·H·W, C) view; the
+attention kernel reads q/k/v straight out of (Z, H, W, 3C) by index
+math, so no window relayout touches memory.  qkv, the attention output,
+x1 and the MLP hidden round-trip device memory (ROADMAP §2: fusing fc1
+with fc2 needs more registers than a thread has).
 
 On a CPU tensor the wrapper runs ``reference_swin_block``, the plain
 PyTorch version of the same function; on a CUDA tensor it launches the
 kernels or raises.  ``fused_swin_block.launches`` counts wrapper calls
-that launched the kernels, ``launches_by_shape`` the same by input shape.
+that launched the kernels, ``launches_by_shape`` the same by input shape
+and ``launches_by_path`` by ``block_path``; ``layernorm.launches`` and
+``window_attention.launches`` count those two kernels' launches
+(``ops.gemm``'s wrappers count theirs).
 """
 
 from __future__ import annotations
@@ -44,19 +58,9 @@ from skyrim_tpu_torch.ops.flash_window_attention import (
     reference_window_attention_4d,
     reference_window_attention_qkv,  # noqa: F401  (the attention-alone checks of K1 reach it here)
 )
-from skyrim_tpu_torch.ops.gemm import gemm
+from skyrim_tpu_torch.ops.gemm import LN_GEMM_MAX_K, _EPS, _layernorm_f32, gemm, ln_gemm
 
-_EPS = 1e-6
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _layernorm_f32(t, scale, bias):
-    """flax LayerNorm numerics: f32 stats, fast variance, eps 1e-6."""
-    tf = t.float()
-    mu = tf.mean(-1, keepdim=True)
-    var = ((tf * tf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
-    h = (tf - mu) * torch.rsqrt(var + _EPS)
-    return h * scale.float() + bias.float()
 
 
 def reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads):
@@ -100,7 +104,11 @@ def layernorm(x2d, scale, bias):
         rows, C, _EPS, torch.cuda.current_stream(x2d.device).cuda_stream,
     )
     _build.check(lib, err, "layernorm")
+    layernorm.launches += 1
     return out
+
+
+layernorm.launches = 0
 
 
 def window_attention(qkv, bias, mask, window, heads):
@@ -111,7 +119,20 @@ def window_attention(qkv, bias, mask, window, heads):
     ``bias`` (n_types, heads, wlen, wlen) with n_types 1 or nz·nh, or 3-D;
     ``mask`` (nz, nh, wlen, wlen) or None."""
     lib = _lib()
-    return attention_4d(qkv, bias, mask, window, heads, lib, lib.skt_window_attention_bf16, "window_attention")
+    out = attention_4d(qkv, bias, mask, window, heads, lib, lib.skt_window_attention_bf16, "window_attention")
+    window_attention.launches += 1
+    return out
+
+
+window_attention.launches = 0
+
+
+def block_path(C: int) -> str:
+    """K1's launches for rows of width C: ``"ln_gemm"`` (five: each
+    LayerNorm in the prologue of the product that consumes it) where a row
+    block fits ``ln_gemm_kernel``'s shared memory, else ``"chain"`` (seven:
+    the LayerNorms launched alone)."""
+    return "ln_gemm" if C <= LN_GEMM_MAX_K else "chain"
 
 
 def fused_swin_block(
@@ -134,18 +155,24 @@ def fused_swin_block(
     Z, H, Wd, C = x.shape
     N = Z * H * Wd
     xf = x.view(N, C)
-    h = layernorm(xf, *ln1)
-    qkv = gemm(h, _bf16(qkv_wb[0]), _f32(qkv_wb[1]))
+    path = block_path(C)
+    if path == "ln_gemm":
+        qkv = ln_gemm(xf, ln1, _bf16(qkv_wb[0]), _f32(qkv_wb[1]))
+    else:
+        qkv = gemm(layernorm(xf, *ln1), _bf16(qkv_wb[0]), _f32(qkv_wb[1]))
     o = window_attention(qkv.view(Z, H, Wd, 3 * C), bias, mask, window, heads)
     x1 = gemm(o.view(N, C), _bf16(proj_wb[0]), _f32(proj_wb[1]), residual=xf)
-    h2 = layernorm(x1, *ln2)
-    m = gemm(h2, _bf16(mlp_wb[0]), _f32(mlp_wb[1]), gelu=True)
+    if path == "ln_gemm":
+        m = ln_gemm(x1, ln2, _bf16(mlp_wb[0]), _f32(mlp_wb[1]), gelu=True)
+    else:
+        m = gemm(layernorm(x1, *ln2), _bf16(mlp_wb[0]), _f32(mlp_wb[1]), gelu=True)
     out = gemm(m, _bf16(mlp_wb[2]), _f32(mlp_wb[3]), residual=x1)
     fused_swin_block.launches += 1
-    by_shape = fused_swin_block.launches_by_shape
-    by_shape[x.shape] = by_shape.get(x.shape, 0) + 1
+    for counts, key in ((fused_swin_block.launches_by_shape, x.shape), (fused_swin_block.launches_by_path, path)):
+        counts[key] = counts.get(key, 0) + 1
     return out.view(Z, H, Wd, C)
 
 
 fused_swin_block.launches = 0
 fused_swin_block.launches_by_shape = {}  # Pangu runs two block widths
+fused_swin_block.launches_by_path = {}  # block_path's choice

@@ -2,7 +2,7 @@
 
     python -m skyrim_tpu_torch.tools.kernel_variants KIND [VARIANT ...]
 
-KIND is ``attention``, ``gemm``, ``round``, ``g2m``, ``m2g`` or ``mlp``.  A VARIANT is a directory: an
+KIND is ``attention``, ``gemm``, ``round``, ``g2m``, ``m2g``, ``mlp`` or ``lngemm``.  A VARIANT is a directory: an
 edited copy of ``skyrim_tpu_torch/csrc`` (``""`` for the package's own, which
 is also what is timed when no variant is given).  The sources carry no
 build-time switches: an experiment is a copy with the change made in it.
@@ -54,6 +54,15 @@ variants.
   ``fused_mlp.cu`` names ``A_FEATURE_MAJOR_TMA``, else by element loads; and,
   as a yardstick timed only, a torch copy of its transpose into (N, 176)
   rows followed by the aligned rows GEMM.
+- ``lngemm``: ``gemm.cu`` and ``fused_block.cu``; K1's LayerNorm-prologue
+  products at full width: LN1 + qkv and LN2 + fc1 + GELU at stage 1
+  (M 535,680, K 192, N 576 and 768) and stage 2 (M 138,240, K 384, N 1,152
+  and 1,536), each one ``skt_ln_gemm_bf16`` launch where the variant exports
+  it, else the pair it replaces (``skt_layernorm_bf16`` into h, then
+  ``skt_gemm_bf16`` on h); ``torch.matmul`` in bf16 on the same operands
+  timed beside them (a yardstick).  The layouts are ``rowgemm.cuh``'s
+  ``lng::TALL_BM``, ``TALL_BN`` (rows of K <= 256), ``BM``, ``BN`` and ``NC``:
+  edit them in a copy.
 
 Prints one line per report, per (round, variant, case); needs a CUDA device
 and nvcc.
@@ -70,9 +79,11 @@ from pathlib import Path
 ROUNDS, LAUNCHES = 4, 20
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp"),
-           "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp"), "mlp": ("fused_mlp",)}  # fmt: skip
+           "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp"), "mlp": ("fused_mlp",),
+           "lngemm": ("gemm", "fused_block")}  # fmt: skip
 REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
-            "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",), "mlp": ("rowgemm",)}  # fmt: skip
+            "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",), "mlp": ("rowgemm",),
+            "lngemm": ("EpiGemm",)}  # fmt: skip
 
 
 def _bind(lib, name, argtypes):
@@ -167,12 +178,71 @@ def gemm_cases(torch, libs, _src):
     return cases
 
 
+# name, M, K, N, GELU
+LNGEMM_SHAPES = (
+    ("Pangu s1 LN1 + qkv", 535680, 192, 576, 0),
+    ("Pangu s1 LN2 + fc1 + GELU", 535680, 192, 768, 1),
+    ("Pangu s2 LN1 + qkv", 138240, 384, 1152, 0),
+    ("Pangu s2 LN2 + fc1 + GELU", 138240, 384, 1536, 1),
+)
+
+
+def lngemm_cases(torch, libs, _src):
+    gemm = _bind(libs["gemm"], "skt_gemm_bf16", [P] * 5 + [I] * 4 + [P])
+    fused = hasattr(libs["gemm"], "skt_ln_gemm_bf16")
+    if fused:
+        lng = _bind(libs["gemm"], "skt_ln_gemm_bf16", [P] * 6 + [I] * 4 + [F, P])
+    else:
+        ln = _bind(libs["fused_block"], "skt_layernorm_bf16", [P] * 4 + [I] * 2 + [F, P])
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {}
+    for name, M, K, N, gelu in LNGEMM_SHAPES:
+        x, w, b, _, out = _gemm_operands(torch, M, K, N)
+        scale, shift = _ln_params(torch, K)
+        h = _h_buffer(torch, M, K)
+        if fused:
+            def call(x=x, w=w, b=b, out=out, scale=scale, shift=shift, M=M, K=K, N=N, gelu=gelu):
+                return lng(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                           M, N, K, gelu, 1e-6, stream)  # fmt: skip
+        else:
+            def call(x=x, w=w, b=b, out=out, scale=scale, shift=shift, h=h, M=M, K=K, N=N, gelu=gelu):
+                return (ln(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), h.data_ptr(), M, K, 1e-6, stream)
+                        or gemm(h.data_ptr(), w.data_ptr(), b.data_ptr(), None, out.data_ptr(), M, N, K, gelu, stream))
+        out.zero_()
+        call()  # held against torch in f32 on the first 4096 rows
+        torch.cuda.synchronize()
+        xf = x[:4096].float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
+        hr = ((xf - mu) * torch.rsqrt(var + 1e-6) * scale + shift).to(torch.bfloat16).float()
+        ref = (hr @ w.float() + b).to(torch.bfloat16).float()
+        if gelu:
+            ref = torch.nn.functional.gelu(ref, approximate="tanh")
+        err = float((out[:4096].float() - ref).abs().max())
+        print(f"{name} ({M}, {K}) @ ({K}, {N}) {'one launch' if fused else 'LayerNorm + GEMM'}: "
+              f"max |kernel - torch| over 4096 rows = {err:.4g}")
+        cases[f"{name} ({M}, {K}) @ ({K}, {N})"] = (call, 2 * M * K * N)
+    return cases
+
+
+def _ln_params(torch, K):
+    g = torch.Generator(device="cuda").manual_seed(K)
+    return 1 + 0.1 * torch.randn(K, device="cuda", generator=g), 0.1 * torch.randn(K, device="cuda", generator=g)
+
+
+def _h_buffer(torch, M, K):
+    key = ("h", M, K)
+    if key not in _operands:
+        _operands[key] = torch.empty(M, K, device="cuda", dtype=torch.bfloat16)
+    return _operands[key]
+
+
 def yardsticks(torch, kind):
-    """torch.matmul in bf16 on each gemm case's operands (timed, never used)."""
-    if kind != "gemm":
-        return {}
+    """torch.matmul in bf16 on each gemm or lngemm case's operands (timed,
+    never used)."""
+    shapes = {"gemm": GEMM_SHAPES, "lngemm": LNGEMM_SHAPES}.get(kind, ())
     out = {}
-    for name, M, K, N, _ in GEMM_SHAPES:
+    for name, M, K, N, _ in shapes:
         a, w = _gemm_operands(torch, M, K, N)[:2]
         out[f"{name} ({M}, {K}) @ ({K}, {N})"] = (lambda a=a, w=w: torch.matmul(a, w), 2 * M * K * N)
     return out
@@ -410,7 +480,7 @@ def mlp_yardsticks(torch, libs):
 
 
 CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases, "m2g": m2g_cases,
-         "mlp": mlp_cases}  # fmt: skip
+         "mlp": mlp_cases, "lngemm": lngemm_cases}  # fmt: skip
 
 
 def main(argv: list[str]) -> int:

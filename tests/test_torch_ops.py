@@ -23,7 +23,7 @@ import torch
 from skyrim_tpu_torch.ops import fused_block as FB
 from skyrim_tpu_torch.ops import resample as RS
 from skyrim_tpu_torch.ops import roll as RL
-from skyrim_tpu_torch.ops.gemm import gemm, plain_gemm
+from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm, plain_gemm, plain_ln_gemm
 from skyrim_tpu_torch.ops.windows import shift_attention_mask, window_partition, window_reverse
 
 WINDOW = (2, 6, 12)
@@ -132,6 +132,59 @@ def test_gemm_cpu_takes_plain_version():
     before = gemm.launches
     np.testing.assert_allclose(gemm(a, w, b, gelu=True).numpy(), plain_gemm(a, w, b, gelu=True).numpy())
     assert gemm.launches == before  # plain path launches nothing
+
+
+def _ln_gemm_inputs(M, K, N, seed=0):
+    """Rows for the LayerNorm-prologue GEMM (numpy, f32): normal rows, rows
+    whose mean lies 6 standard deviations from 0 (values on a 1/16 grid, so
+    that every sum of x and x² is exact in f32 in any order, and the fast
+    variance E[x²] − E[x]² cancels five of its bits the same way in both
+    frameworks), and all-zero rows (the window padding); γ ≠ 1, β ≠ 0."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    x[1::5] = np.round(16 * (6 + rng.normal(size=x[1::5].shape))) / 16
+    x[3::5] = 0
+    ln = ((1 + 0.1 * rng.normal(size=K)).astype(np.float32), (0.1 * rng.normal(size=K)).astype(np.float32))
+    w = (rng.normal(size=(K, N)) * K**-0.5).astype(np.float32)
+    b = (0.1 * rng.normal(size=N)).astype(np.float32)
+    return x, ln, w, b
+
+
+@pytest.mark.parametrize("K", [192, 384])
+@pytest.mark.parametrize("gelu", [False, True], ids=["bias", "gelu"])
+def test_plain_ln_gemm_matches_jax(K, gelu):
+    """plain_ln_gemm against the JAX kernel's own arithmetic for LN1 + qkv
+    and LN2 + fc1 (skyrim_tpu/ops/fused_block.py: _layernorm_f32, the f32 dot,
+    + bias, nn.gelu) at M 37, in f32 at atol 3e-5 (the tolerance of
+    tests/ops/test_fused_block.py:49)."""
+    import flax.linen as nn
+    import jax
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.fused_block import _layernorm_f32 as j_layernorm_f32
+
+    M, N = 37, (4 if gelu else 3) * K
+    x, ln, w, b = _ln_gemm_inputs(M, K, N)
+    assert np.abs(x[1::5].mean(1)).min() > 5 and not x[3::5].any()
+    h = j_layernorm_f32(jnp.asarray(x), jnp.asarray(ln[0])[None], jnp.asarray(ln[1])[None])
+    ref = jax.lax.dot_general(h, jnp.asarray(w), (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32)
+    ref = ref + jnp.asarray(b)
+    if gelu:
+        ref = nn.gelu(ref)
+    before = ln_gemm.launches
+    out = ln_gemm(torch.from_numpy(x), _to(ln, torch.from_numpy), torch.from_numpy(w), torch.from_numpy(b), gelu=gelu)
+    assert ln_gemm.launches == before  # the plain version on the CPU launches nothing
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-5, rtol=0)
+    plain = plain_ln_gemm(torch.from_numpy(x), _to(ln, torch.from_numpy), torch.from_numpy(w), torch.from_numpy(b), gelu=gelu)
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())
+
+
+@pytest.mark.parametrize("C,path", [(16, "ln_gemm"), (192, "ln_gemm"), (384, "ln_gemm"), (512, "ln_gemm"),
+                                    (520, "chain"), (1536, "chain")])  # fmt: skip
+def test_block_path_by_width(C, path):
+    """K1 runs five launches (LayerNorms in ln_gemm's prologue) where a row
+    block fits the kernel's shared memory, the seven-launch chain above it."""
+    assert FB.block_path(C) == path
 
 
 # -- on the card ---------------------------------------------------------------
@@ -278,3 +331,114 @@ def test_wrappers_raise_on_unsupported_cuda_input(cuda):
         gemm(a, a.new_zeros(16, 8), a.new_zeros(8))
     with pytest.raises(ValueError, match="bf16"):
         RS.fused_downsample(torch.randn(2, 4, 4, 16, device=cuda), (a, a), (a, a))
+
+
+def _cuda_ln_gemm_inputs(M, K, N, dev, seed=0):
+    x, ln, w, b = _ln_gemm_inputs(M, K, N, seed)
+    return (torch.from_numpy(x).to(dev).to(torch.bfloat16), _to(ln, lambda a: torch.from_numpy(a).to(dev)),
+            torch.from_numpy(w).to(dev).to(torch.bfloat16), torch.from_numpy(b).to(dev))  # fmt: skip
+
+
+# (M, K, N): Pangu's two widths with qkv's and fc1's N at an M that is not a
+# multiple of the row block (K <= 256 takes 128-row blocks and 64-wide tiles,
+# wider rows 64-row blocks and 128-wide tiles); one row; a K that is not a
+# multiple of the 64-wide slice and rows shorter than one (the small
+# configurations' C 16); the widest K; an N that is not a multiple of the
+# tile; a run of tiles long enough for every block to span several row blocks
+LN_GEMM_SHAPES = [(1000, 192, 576), (1000, 192, 768), (1000, 384, 1152), (1000, 384, 1536), (1, 192, 576),
+                  (130, 200, 96), (777, 16, 48), (777, 32, 128), (300, 512, 2048), (300, 384, 200),
+                  (40000, 192, 576), (20000, 384, 1536)]  # fmt: skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", LN_GEMM_SHAPES)
+@pytest.mark.parametrize("gelu", [False, True], ids=["bias", "gelu"])
+def test_ln_gemm_kernel_matches_plain(cuda, M, K, N, gelu):
+    x, ln, w, b = _cuda_ln_gemm_inputs(M, K, N, cuda)
+    before = ln_gemm.launches
+    out = ln_gemm(x, ln, w, b, gelu=gelu)
+    torch.cuda.synchronize()
+    assert ln_gemm.launches == before + 1
+    assert_bf16_close(out, plain_ln_gemm(x, ln, w, b, gelu=gelu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(1000, 192, 576), (40962, 384, 1536), (777, 16, 48)])
+def test_ln_gemm_tma_store_writes_only_its_rows(cuda, M, K, N):
+    """skt_ln_gemm_bf16 through the library into an output with 64 guard rows
+    past a ragged M: the guard rows come back with their bits, the M rows
+    equal the wrapper's output."""
+    from skyrim_tpu_torch.ops import _build
+    from skyrim_tpu_torch.ops.gemm import _EPS, _lib
+
+    x, ln, w, b = _cuda_ln_gemm_inputs(M, K, N, cuda)
+    sentinel = 0x7FA5  # a bf16 NaN pattern no product writes
+    buf = torch.full((M + 64, N), sentinel, device=cuda, dtype=torch.int16)
+    lib = _lib()
+    err = lib.skt_ln_gemm_bf16(x.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(), w.data_ptr(), b.data_ptr(),
+                               buf.data_ptr(), M, N, K, 1, _EPS, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "skt_ln_gemm_bf16")
+    torch.cuda.synchronize()
+    assert bool((buf[M:] == sentinel).all())
+    assert torch.equal(buf[:M].view(torch.bfloat16), ln_gemm(x, ln, w, b, gelu=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [192, 384])
+def test_ln_gemm_check_refuses_faults(cuda, K):
+    """The kernel passes the check; three outputs a faulty kernel would give
+    (each row's statistics taken from the next row, the LayerNorm left out,
+    β dropped) fail it."""
+    M, N = 4096, 3 * K
+    x, ln, w, b = _cuda_ln_gemm_inputs(M, K, N, cuda)
+    ref = plain_ln_gemm(x, ln, w, b)
+    assert_bf16_close(ln_gemm(x, ln, w, b), ref)
+    xf = x.float()
+    mu = torch.roll(xf.mean(-1, keepdim=True), -1, 0)
+    var = torch.roll((xf * xf).mean(-1, keepdim=True), -1, 0) - mu * mu
+    h_next = ((xf - mu) * torch.rsqrt(var.clamp_min(0) + 1e-6) * ln[0] + ln[1]).to(torch.bfloat16)
+    faults = {
+        "statistics of the next row": plain_gemm(h_next, w, b),
+        "LayerNorm left out": plain_gemm(x, w, b),
+        "beta dropped": plain_ln_gemm(x, (ln[0], torch.zeros_like(ln[1])), w, b),
+    }
+    for name, out in faults.items():
+        with pytest.raises(AssertionError):
+            assert_bf16_close(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,heads,window,dims,path,launches", [
+    (192, 6, (2, 6, 12), (4, 12, 24), "ln_gemm", 5),
+    (384, 12, (2, 6, 12), (4, 12, 24), "ln_gemm", 5),
+    (1536, 24, (1, 6, 12), (1, 12, 24), "chain", 7),
+])  # fmt: skip
+def test_swin_block_launches_by_path(cuda, C, heads, window, dims, path, launches):
+    """fused_swin_block launches five kernels at Pangu's widths (no LayerNorm
+    rows launch) and seven at FuXi's C 1536, by the kernels' counters, and
+    agrees with its plain version on either path."""
+    from skyrim_tpu_torch.ops.windows import shift_attention_mask
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=cuda, generator=g) * scale
+
+    wlen, hidden = int(np.prod(window)), 4 * C
+    nz, nh = dims[0] // window[0], dims[1] // window[1]
+    mask = torch.from_numpy(shift_attention_mask(dims, window, tuple(w // 2 for w in window), dims)).to(cuda)
+    args = [randn(*dims, C).to(torch.bfloat16), (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+            (randn(C, 3 * C, scale=C**-0.5), randn(3 * C, scale=0.1)), randn(nz * nh, heads, wlen, wlen, scale=0.02),
+            mask, (randn(C, C, scale=C**-0.5), randn(C, scale=0.1)), (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+            (randn(C, hidden, scale=C**-0.5), randn(hidden, scale=0.1), randn(hidden, C, scale=hidden**-0.5),
+             randn(C, scale=0.1))]  # fmt: skip
+    kernels = (ln_gemm, gemm, FB.layernorm, FB.window_attention)
+    before = [k.launches for k in kernels]
+    by_path = dict(FB.fused_swin_block.launches_by_path)
+    out = FB.fused_swin_block(*args, window, heads)
+    torch.cuda.synchronize()
+    counts = [k.launches - n for k, n in zip(kernels, before)]
+    assert sum(counts) == launches
+    assert counts == ([2, 2, 0, 1] if path == "ln_gemm" else [0, 4, 2, 1])
+    assert FB.fused_swin_block.launches_by_path[path] == by_path.get(path, 0) + 1
+    assert_bf16_close(out, FB.reference_swin_block(*args, window, heads))
