@@ -15,7 +15,14 @@ Phases:
      stage 2, shifted, each row named with its path and the launches of one
      call counted (five: LN1 + qkv and LN2 + fc1 each one ln_gemm launch),
      and its window attention alone with a strong earth bias; K2 at both
-     shapes; K3; K4.  GraphCast: K6 once per shape class
+     shapes; K3 and K4, each one launch, on the strided views of the stage
+     buffers the forward hands them (K3's odd H, 181, read in place), each
+     check refusing three faulty outputs (beta dropped, parity slabs (i, j)
+     swapped, each row's statistics from the next row), K4 also held at
+     its rounding point (a group mean of 64, by the rms of the error), where
+     its LayerNorm run before the bf16 rounding must fail, and
+     torch.matmul of each product alone timed beside them.  GraphCast: K6
+     once per shape class
      (the feature-major Cin = 174 embedding, the grid update, the decoder's
      node update, the Cout = 83 head, the mesh MLPs), and its output under
      three faults (the grid update's residual dropped; the embedding's K
@@ -34,8 +41,8 @@ Phases:
      both stages -- with the LayerNorm in the prologue (ops.gemm.ln_gemm),
      timed beside the LayerNorm rows launch + GEMM pair they replace and
      refusing three faults: each row's statistics from the next row, the
-     LayerNorm left out, beta dropped; K3's and K4's Dense, K7's second
-     product, K6's grid update) against its plain version, with its rate,
+     LayerNorm left out, beta dropped; K7's second product, K6's grid
+     update) against its plain version, with its rate,
      bound and launches per forward beside torch.matmul's (timed only); K8 and K9 on the real full-width
      tile tables (partial face tiles in K8, its one launch also stored into
      an output with 64 guard rows past H*W, which must come back
@@ -62,9 +69,9 @@ Phases:
   4. the main paths, each with every launch count set to 0 just before and
      read just after: GlobalModel("pangu", ic_source="synthetic") at
      721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward;
-     inside them 32 launches of ln_gemm, 34 of the row GEMM through ops.gemm
-     -- K1's proj and fc2, K3's and K4's Dense -- and no LayerNorm rows
-     launch; all 16 K1 calls on the ln_gemm path),
+     inside them 32 launches of ln_gemm, 32 of the row GEMM through ops.gemm
+     -- K1's proj and fc2 -- and no LayerNorm rows launch; all 16 K1 calls
+     on the ln_gemm path),
      then GlobalModel("graphcast", ic_source="synthetic"), 721x1440, 83
      channels, latent 512, 16 rounds, refinement 6, a 4-step forecast
      (21 K6, 16 K7, 1 K8, 1 K9 per forward; 20 of the K6 calls finish in
@@ -197,7 +204,6 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
     """Phase 3: every kernel at its main-path shapes against its plain version.
     Returns the kernels' rows and the max errors of the attention-alone checks."""
     from skyrim_tpu_torch.ops import fused_block as FB
-    from skyrim_tpu_torch.ops import resample as RS
     from skyrim_tpu_torch.ops import roll as RL
     from skyrim_tpu_torch.ops.flash_window_attention import attention_body
     from skyrim_tpu_torch.ops.windows import shift_attention_mask, window_partition, window_reverse
@@ -283,41 +289,151 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
         ))
         del x
 
-    # K3: (8, 182, 360, 192) -> (8, 91, 180, 384)
-    C, Co = 192, 384
-    x = randn(8, 182, 360, C, dtype=bf16)
-    ln = (1 + randn(4 * C, scale=0.1), randn(4 * C, scale=0.1))
-    wb = (randn(4 * C, Co, scale=(4 * C) ** -0.5), randn(Co, scale=0.1))
-    err = compare(torch, RS.fused_downsample(x, ln, wb), RS.reference_downsample(x, ln, wb), "K3 fused_downsample")
-    M = 8 * 91 * 180
-    b_ms, b_by = bound(2 * M * 4 * C * Co, x.numel() * 2 + M * Co * 2 + 4 * C * Co * 2)
-    rows.append(dict(
-        name="K3 fused_downsample (8, 182, 360, 192)", shape=None, route="cuda",
-        source="skyrim_tpu_torch/csrc/resample.cu+gemm.cu",
-        replaces="skyrim_tpu/ops/resample.py:111", max_abs_err=err,
-        ms=time_ms(torch, lambda: RS.fused_downsample(x, ln, wb), 20),
-        plain_ms=time_ms(torch, lambda: RS.reference_downsample(x, ln, wb), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
-    del x
-
-    # K4: (8, 91, 180, 384) -> (8, 182, 360, 192)
-    x = randn(8, 91, 180, Co, dtype=bf16)
-    wb = (randn(Co, 4 * C, scale=Co**-0.5), randn(4 * C, scale=0.1))
-    ln = (1 + randn(C, scale=0.1), randn(C, scale=0.1))
-    err = compare(torch, RS.fused_upsample(x, wb, ln), RS.reference_upsample(x, wb, ln), "K4 fused_upsample")
-    b_ms, b_by = bound(2 * M * Co * 4 * C, x.numel() * 2 + M * 4 * C * 2 + Co * 4 * C * 2)
-    rows.append(dict(
-        name="K4 fused_upsample (8, 91, 180, 384)", shape=None, route="cuda",
-        source="skyrim_tpu_torch/csrc/resample.cu+gemm.cu",
-        replaces="skyrim_tpu/ops/resample.py:220", max_abs_err=err,
-        ms=time_ms(torch, lambda: RS.fused_upsample(x, wb, ln), 20),
-        plain_ms=time_ms(torch, lambda: RS.reference_upsample(x, wb, ln), 5),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    ))
-    del x
     torch.cuda.empty_cache()
     return rows, attn_err
+
+
+def resample_checks(torch, g) -> tuple[list[dict], dict, dict]:
+    """Phase 3, K3 and K4 at Pangu's full width on their main-path inputs,
+    each one launch: K3 on the (8, 181, 360, 192) view of the stage-1 buffer
+    (8, 186, 360, 192) -> (8, 91, 180, 384), against the plain version on
+    the padded copy; K4 on the (8, 91, 180, 384) view of the stage-2 buffer
+    (8, 96, 180, 384) -> (8, 182, 360, 192).  Pixels drawn each with its own
+    scale and offset and beta at 0.3, so that the faults below show; each
+    kernel's check must refuse the outputs of a faulty kernel (beta dropped,
+    parity slabs (i, j) swapped, each row's statistics from the next row).
+    K4's rounding point apart: with a group mean of 64 (the bias, exact in
+    bf16) the LayerNorm's input rounding moves every value by up to half an
+    ulp of 64, so the kernel is held there to the plain version that rounds
+    where it does, by the rms of the error against 2e-2 * std (a single
+    element may flip by an ulp on the f32 summation order), and the
+    LayerNorm run before the rounding must fail that.  torch.matmul of each
+    product alone is timed beside them (a yardstick; the port never calls
+    it).  Returns the kernels' rows, the faults' errors over their limits and
+    the yardsticks."""
+    from skyrim_tpu_torch.ops import resample as RS
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    C, N = 192, 384
+    M = 8 * 91 * 180
+    rows, faults = [], {}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    def pixels(*shape):  # each pixel its own scale and offset
+        lead = (*shape[:-1], 1)
+        return randn(*shape) * (0.5 + 3 * torch.rand(*lead, device=dev, generator=g)) + randn(*lead)
+
+    def refused(name, out, ref):
+        faults[name] = {"max": over_limit(torch, out, ref, False)}
+        log(f"{name}: max err/limit {faults[name]['max']:.4g}")
+        check(faults[name]["max"] > 1, f"the check passed a faulty output: {name}")
+
+    def stats(v, shift=0):  # f32 LayerNorm statistics of the last axis, optionally of the row `shift` ahead
+        mu = v.mean(-1, keepdim=True)
+        var = ((v * v).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
+        return (torch.roll(mu, -shift, 0), torch.roll(var, -shift, 0)) if shift else (mu, var)
+
+    def layernorm(v, ln, st):
+        return (v - st[0]) * torch.rsqrt(st[1] + 1e-6) * ln[0] + ln[1]
+
+    # K3
+    x = pixels(8, 186, 360, C).to(bf16)[:, :181]
+    ln, wb = (1 + randn(4 * C, scale=0.1), randn(4 * C, scale=0.3)), (randn(4 * C, N, scale=(4 * C) ** -0.5), randn(N, scale=0.1))
+    prep = RS.prepare_downsample(ln, wb)
+    out = RS.fused_downsample(x, ln, wb, prep)
+    torch.cuda.synchronize()
+    xp = RS.pad_even_h(x)
+    ref = RS.reference_downsample(xp, ln, wb)
+    err = compare(torch, out, ref, "K3 fused_downsample")
+    del out
+
+    def dense3(h):
+        return (h.to(bf16) @ wb[0].to(bf16) + wb[1].to(bf16)).reshape(ref.shape)
+
+    def merged(swap):  # (M, 4C) f32 in the lane order (2i + j) C + c, or (2j + i) C + c
+        v = xp.float().reshape(8, 91, 2, 180, 2, C)
+        return (v.permute(0, 1, 3, 4, 2, 5) if swap else v.permute(0, 1, 3, 2, 4, 5)).reshape(M, 4 * C)
+
+    refused("K3: beta dropped", RS.reference_downsample(xp, (ln[0], torch.zeros_like(ln[1])), wb), ref)
+    v = merged(True)
+    refused("K3: parity slabs (i, j) swapped", dense3(layernorm(v, ln, stats(v))), ref)
+    v = merged(False)
+    refused("K3: each row's statistics from the next row", dense3(layernorm(v, ln, stats(v, 1))), ref)
+    del v, ref
+    b_ms, b_by = bound(2 * M * 4 * C * N, x.numel() * 2 + M * N * 2 + 4 * C * N * 2)
+    rows.append(dict(
+        name="K3 fused_downsample (8, 181, 360, 192) in (8, 186, 360, 192) -> (8, 91, 180, 384)", shape=None,
+        route="cuda", source="skyrim_tpu_torch/csrc/resample.cu+rowgemm.cuh",
+        replaces="skyrim_tpu/ops/resample.py:111", max_abs_err=err,
+        ms=time_ms(torch, lambda: RS.fused_downsample(x, ln, wb, prep), 20),
+        plain_ms=time_ms(torch, lambda: RS.reference_downsample(RS.pad_even_h(x), ln, wb), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    del x, xp, prep
+    torch.cuda.empty_cache()
+
+    # K4
+    xu = pixels(8, 96, 180, N).to(bf16)[:, :91]
+    wb, ln = (randn(N, 4 * C, scale=N**-0.5), randn(4 * C, scale=0.1)), (1 + randn(C, scale=0.1), randn(C, scale=0.3))
+    prep = RS.prepare_upsample(wb, ln)
+    out = RS.fused_upsample(xu, wb, ln, prep)
+    torch.cuda.synchronize()
+    ref = RS.reference_upsample(xu, wb, ln)
+    err = compare(torch, out, ref, "K4 fused_upsample")
+    del out
+
+    def expand(m):  # (Z, H, W, 4 Co) -> (Z, 2H, 2W, Co), group 2i + j to pixel (2h + i, 2w + j)
+        return m.reshape(8, 91, 180, 2, 2, C).permute(0, 1, 3, 2, 4, 5).reshape(8, 182, 360, C)
+
+    refused("K4: beta dropped", RS.reference_upsample(xu, wb, (ln[0], torch.zeros_like(ln[1]))), ref)
+    refused("K4: parity (i, j) swapped", ref.reshape(8, 91, 2, 180, 2, C).transpose(2, 4).reshape(ref.shape), ref)
+    m = expand(xu @ wb[0].to(bf16) + wb[1].to(bf16)).float().reshape(-1, C)
+    refused("K4: each row's statistics from the next row", layernorm(m, ln, stats(m, 1)).to(bf16).reshape(ref.shape), ref)
+    del m, ref
+    # the rounding point
+    b64 = 64 + 0.5 * torch.randint(-4, 5, (4 * C,), device=dev, generator=g).float()
+    w16 = wb[0].to(bf16).float()
+    y = expand(xu.float() @ w16 + b64).reshape(-1, C)
+    single = layernorm(y.to(bf16).float(), ln, stats(y.to(bf16).float()))
+    unrounded = layernorm(y, ln, stats(y))
+    del y
+    out = RS.fused_upsample(xu, (wb[0], b64), ln, RS.prepare_upsample((wb[0], b64), ln)).float().reshape(-1, C)
+    torch.cuda.synchronize()
+    limit = TOL_STD * float(single.std())
+
+    def rms(a):
+        return float(((a - single) ** 2).mean().sqrt()) / limit
+
+    rounding = {"kernel": rms(out), "fault": rms(unrounded.to(bf16).float())}
+    faults["K4: the group's LayerNorm before the bf16 rounding (rms, group mean 64)"] = {"rms": rounding["fault"]}
+    log(f"K4 rounding point, group mean 64: rms err/limit kernel {rounding['kernel']:.4g}, "
+        f"LayerNorm before the rounding {rounding['fault']:.4g}")
+    check(rounding["kernel"] <= 1, f"K4 at a group mean of 64: rms err {rounding['kernel']:.4g}x its limit")
+    check(rounding["fault"] > 1, "K4's rounding check passed the LayerNorm run before the bf16 rounding")
+    del out, single, unrounded
+    b_ms, b_by = bound(2 * M * N * 4 * C, xu.numel() * 2 + M * 4 * C * 2 + N * 4 * C * 2)
+    rows.append(dict(
+        name="K4 fused_upsample (8, 91, 180, 384) in (8, 96, 180, 384) -> (8, 182, 360, 192)", shape=None,
+        route="cuda", source="skyrim_tpu_torch/csrc/resample.cu+rowgemm.cuh",
+        replaces="skyrim_tpu/ops/resample.py:220", max_abs_err=err,
+        ms=time_ms(torch, lambda: RS.fused_upsample(xu, wb, ln, prep), 20),
+        plain_ms=time_ms(torch, lambda: RS.reference_upsample(xu, wb, ln), 5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+    del xu, prep
+    torch.cuda.empty_cache()
+    # the products alone by torch.matmul, on operands of the same shapes
+    yard = {}
+    for name, K, Nn in (("K3 product (131040, 768) @ (768, 384)", 4 * C, N), ("K4 product (131040, 384) @ (384, 768)", N, 4 * C)):
+        a, w = randn(M, K).to(bf16), randn(K, Nn, scale=K**-0.5).to(bf16)
+        yard[f"{name} torch.matmul ms"] = time_ms(torch, lambda: torch.matmul(a, w), 20)
+        del a, w
+    log(f"K3/K4 yardsticks: {yard}; K4 rounding point: {rounding}")
+    torch.cuda.empty_cache()
+    return rows, faults, dict(yardsticks=yard, k4_rounding_rms_over_limit=rounding)
 
 
 def graphcast_kernel_checks(torch, g) -> tuple[list[dict], dict]:
@@ -634,8 +750,8 @@ def g2m_parts(torch, args, plan, n_edges) -> dict:
     return parts
 
 
-# The row GEMM's shapes on the main paths: name, M, K, N, epilogue (what K1,
-# K3, K4 give ops.gemm.gemm; "ln", "ln_gelu": ops.gemm.ln_gemm, the
+# The row GEMM's shapes on the main paths: name, M, K, N, epilogue (what K1
+# gives ops.gemm.gemm; "ln", "ln_gelu": ops.gemm.ln_gemm, the
 # LayerNorm in the prologue, bias or GELU; "mlp": ops.fused_mlp.mlp_gemm, bias
 # only), and the kernel (with its by-shape key) whose launches it shares.
 S1, S2 = (8, 186, 360, 192), (8, 96, 180, 384)
@@ -648,8 +764,6 @@ GEMM_ROWS = (
     ("Pangu stage 2/3 proj + residual", 138240, 384, 384, "residual", ("K1", S2)),
     ("Pangu stage 2/3 LN2 + fc1 + GELU", 138240, 384, 1536, "ln_gelu", ("K1", S2)),
     ("Pangu stage 2/3 fc2 + residual", 138240, 1536, 384, "residual", ("K1", S2)),
-    ("K3 Dense", 131040, 768, 384, "bias", ("K3", None)),
-    ("K4 Dense", 131040, 384, 768, "bias", ("K4", None)),
     ("K7's second product", 322 * 1024, 512, 512, "mlp", ("K7", None)),
     ("K6 grid_update, one product", 721 * 1440, 512, 512, "mlp", ("K6", (721 * 1440, 512, 0, 512))),
 )
@@ -1044,7 +1158,7 @@ MODEL_OF = {"K1": "pangu", "K2": "pangu", "K3": "pangu", "K4": "pangu",
             "K5": "ops", "K10": "ops", "K11": "ops", "K12": "ops", "K13": "ops", "K14": "ops"}
 
 
-OP_KERNELS = ("gemm", "ln_gemm", "layernorm")  # launches inside K1, K3, K4 (ops.gemm, K1's LayerNorm rows)
+OP_KERNELS = ("gemm", "ln_gemm", "layernorm")  # launches inside K1 (ops.gemm, K1's LayerNorm rows)
 
 
 def reset_counts() -> None:
@@ -1088,10 +1202,11 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     counts = dict.fromkeys((*MODEL_OF, *OP_KERNELS), 0)
     by_shape = {k: {} for k in (*BY_SHAPE, *ROW_KERNELS)}
     if model.name == "pangu":
-        # the row GEMM through ops.gemm: K1's proj and fc2, K3's and K4's
-        # Dense; K1's LN1 + qkv and LN2 + fc1 each one ln_gemm launch (both
-        # widths take that path), no LayerNorm rows launch
-        counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps, gemm=(16 * 2 + 2) * n_steps,
+        # the row GEMM through ops.gemm: K1's proj and fc2; K1's LN1 + qkv
+        # and LN2 + fc1 each one ln_gemm launch (both widths take that
+        # path), no LayerNorm rows launch; K3 and K4 one launch each of
+        # their own kernel
+        counts.update(K1=16 * n_steps, K2=16 * n_steps, K3=n_steps, K4=n_steps, gemm=16 * 2 * n_steps,
                       ln_gemm=16 * 2 * n_steps)
         # per forward: 4 blocks (and rolls) at stage 1/4, 12 at stage 2/3
         for k in ("K1", "K2"):
@@ -1196,8 +1311,9 @@ def main_path(torch, model_name: str, g) -> dict:
 
 
 def profile_step(torch, model, params, state) -> dict:
-    """Device time by kernel over one step, and the device's idle share of
-    the step's host wall time (torch.profiler, CUPTI)."""
+    """Device time by kernel over one step (every kernel logged, the eight
+    longest returned), and the device's idle share of the step's host wall
+    time (torch.profiler, CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1214,9 +1330,10 @@ def profile_step(torch, model, params, state) -> dict:
     if busy_ms == 0:
         log("profile: the profiler saw no device time (not measured)")
         return {"wall_ms": wall_ms, "device_busy_ms": None, "idle_share": None, "top": []}
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    for name, ms in top:
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
+    for name, ms in ranked:  # every kernel of the step, so that one gone from it shows
         log(f"profile: {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {name}")
+    top = ranked[:8]
     idle = 1 - busy_ms / wall_ms
     log(f"profile: step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share {idle:.3f}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": idle,
@@ -1299,7 +1416,10 @@ def main() -> int:
         g = torch.Generator(device="cuda").manual_seed(0)
         rows, attn_err = kernel_checks(torch, g)
         log(f"K1 window attention alone, earth bias at {ATTN_BIAS_SCALE}: max_abs_err {attn_err}")
+        rs_rows, rs_faults, resample = resample_checks(torch, g)
+        rows += rs_rows
         gc_rows, faults, k9_parts = graphcast_kernel_checks(torch, g)
+        faults.update(rs_faults)
         gemm_rows, ln_faults = row_gemm_checks(torch, g)
         faults.update(ln_faults)
         msg_rows, k14_fault = message_op_checks(torch, g)
@@ -1344,6 +1464,7 @@ def main() -> int:
         "attention_alone_max_abs_err": attn_err,
         "fault_err_over_limit": faults,
         "k9_parts": k9_parts,
+        "resample": resample,
         "row_gemm": gemm_rows,
         "k14_fault_err_over_limit": k14_fault,
         "module_path_max_abs_err": mp["pangu"]["modules"]["max_abs_err"],

@@ -203,12 +203,3 @@ __device__ __forceinline__ void layernorm_rows_warp(Chunk chunk, const float* __
     out(v, o);
   }
 }
-
-// One row, written as bf16 to `out`.
-template <class Chunk>
-__device__ __forceinline__ void layernorm_row_warp(Chunk chunk, const float* __restrict__ scale,
-                                                   const float* __restrict__ bias,
-                                                   bf16* __restrict__ out, int width, float eps) {
-  layernorm_rows_warp<1>([&](int, int v) { return chunk(v); }, scale, bias, width, eps,
-                         [&](int v, const float* o) { store8(out + v * 8, o); });
-}

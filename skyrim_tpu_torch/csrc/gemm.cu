@@ -1,16 +1,14 @@
 // bf16 GEMM with a fused epilogue: C = epi(A @ B + bias), and the same with
 // a LayerNorm of A's rows in its prologue.
 //
-// The matrix products inside the TPU kernels K1 (skyrim_tpu/ops/fused_block.py
-// _fused_block_kernel: qkv, proj, both MLP layers), K3 (ops/resample.py
-// _down_kernel) and K4 (_up_kernel) run here.
+// The matrix products inside the TPU kernel K1 (skyrim_tpu/ops/fused_block.py
+// _fused_block_kernel: qkv, proj, both MLP layers) run here.
 //
 // skt_gemm_bf16: rowgemm.cuh's rowgemm_tma_kernel: wgmma.mma_async fed by TMA,
 // one persistent block an SM, two consumer warpgroups taking whole tiles in
 // turn (128 x 128, or 64 x 192 for N 192 and 576) and storing their
 // epilogues by TMA; the residual comes by TMA into the staging tile.  K1's
-// proj and fc2 (and, for rows wider than 512, all four of its products), K3's
-// and K4's Dense.
+// proj and fc2 (and, for rows wider than 512, all four of its products).
 //
 // skt_ln_gemm_bf16: rowgemm.cuh's ln_gemm_kernel: epi(bf16(LN(x)) @ B +
 // bias) for rows of K <= 512, K1's LN1 + qkv and LN2 + fc1 + GELU, each one

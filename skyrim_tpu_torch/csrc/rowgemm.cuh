@@ -1,5 +1,6 @@
 // Row-GEMM building blocks: the tiled GEMM of every port kernel that
-// multiplies (Pangu's K1, K3, K4 through gemm.cu; GraphCast's K6 and K7;
+// multiplies (Pangu's K1 through gemm.cu, its TMA and wgmma pieces in K3's
+// and K4's resample.cu; GraphCast's K6 and K7;
 // K12-K14 in graph_finish.cu), K8's and K9's row kernel with its LayerNorm
 // inside (rows_ln_kernel), K1's GEMM with the LayerNorm in its prologue
 // (ln_gemm_kernel), and the row kernels the GraphCast kernels share.
@@ -453,14 +454,14 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// A tensor map over a row-major bf16 matrix (rows x cols, row stride ld
-// elements) with boxes of box_rows x 64 columns in the 128-byte swizzle: what
-// a box writes is what gemm_mainloop's loaders write, rows of 128 bytes with
-// chunk c of row r at c ^ (r % 8).  Rows and columns beyond the matrix read as
-// 0.  Returns a cudaError_t: cudaErrorNotSupported where CUDA offers no
-// encoder, cudaErrorInvalidValue where the encoder refuses the operands.
-inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                            uint64_t ld, uint32_t box_rows) {
+// A tiled bf16 tensor map of rank 1-5 in the 128-byte swizzle: dims[0]
+// contiguous, strides in bytes for dims 1 .. rank - 1, boxes of box[i]
+// elements (box[0] * 2 <= 128 bytes).  Elements beyond a dimension read as 0
+// and are not written.  Returns a cudaError_t: cudaErrorNotSupported where
+// CUDA offers no encoder, cudaErrorInvalidValue where the encoder refuses the
+// operands.
+inline int make_tensor_map_nd(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                              const uint64_t* strides, const uint32_t* box) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                              const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
                              CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
@@ -475,13 +476,28 @@ inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, ui
       return static_cast<int>(cudaErrorNotSupported);
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {ld * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, box_rows}, step[2] = {1, 1};
+  if (rank < 1 || rank > 5) return static_cast<int>(cudaErrorInvalidValue);
+  cuuint64_t d[5], st[4];
+  cuuint32_t bx[5], step[5] = {1, 1, 1, 1, 1};
+  for (int i = 0; i < rank; ++i) d[i] = dims[i], bx[i] = box[i];
+  for (int i = 0; i + 1 < rank; ++i) st[i] = strides[i];
   const CUresult res =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-             step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, st, bx, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return static_cast<int>(res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue);
+}
+
+// A tensor map over a row-major bf16 matrix (rows x cols, row stride ld
+// elements) with boxes of box_rows x 64 columns in the 128-byte swizzle: what
+// a box writes is what gemm_mainloop's loaders write, rows of 128 bytes with
+// chunk c of row r at c ^ (r % 8).  Rows and columns beyond the matrix read as
+// 0.
+inline int make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                            uint64_t ld, uint32_t box_rows) {
+  const uint64_t dims[2] = {cols, rows}, strides[1] = {ld * sizeof(bf16)};
+  const uint32_t box[2] = {64, box_rows};
+  return make_tensor_map_nd(map, base, 2, dims, strides, box);
 }
 
 // A consumer's staged epilogue tile (BM rows, boxes of 64 columns in the

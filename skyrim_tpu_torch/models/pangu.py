@@ -43,7 +43,7 @@ from skyrim_tpu_torch.models.base import (
 from skyrim_tpu_torch.ops import windows as W
 from skyrim_tpu_torch.ops.flash_window_attention import fused_window_attention_4d
 from skyrim_tpu_torch.ops.fused_block import fused_swin_block
-from skyrim_tpu_torch.ops.resample import fused_downsample, fused_upsample
+from skyrim_tpu_torch.ops.resample import fused_downsample, fused_upsample, prepare_downsample, prepare_upsample
 from skyrim_tpu_torch.ops.roll import shift_roll
 from skyrim_tpu_torch.utils.device import resolve_device
 
@@ -191,10 +191,13 @@ class DownSample(nn.Module):
         self.LayerNorm_0 = LayerNorm(4 * dim)
         self.Dense_0 = Dense(4 * dim, dim_out)
 
-    def forward(self, x):
-        if x.shape[1] % 2:
-            x = F.pad(x, (0, 0, 0, 0, 0, 1))
-        return fused_downsample(x.contiguous(), self.LayerNorm_0.sb(), self.Dense_0.wb())
+    def forward(self, x, prepared=None):
+        """x may be the stage's cropped view with an odd H: K3 reads it in
+        place, the missing row as zeros.  ``prepared``: ``prepare()``."""
+        return fused_downsample(x, self.LayerNorm_0.sb(), self.Dense_0.wb(), prepared)
+
+    def prepare(self):
+        return prepare_downsample(self.LayerNorm_0.sb(), self.Dense_0.wb())
 
 
 class UpSample(nn.Module):
@@ -205,8 +208,13 @@ class UpSample(nn.Module):
         self.Dense_0 = Dense(dim, 4 * dim_out)
         self.LayerNorm_0 = LayerNorm(dim_out)
 
-    def forward(self, x, out_h: int):
-        return fused_upsample(x.contiguous(), self.Dense_0.wb(), self.LayerNorm_0.sb())[:, :out_h]
+    def forward(self, x, out_h: int, prepared=None):
+        """x may be the stage's cropped view: K4 reads it in place.
+        ``prepared``: ``prepare()``."""
+        return fused_upsample(x, self.Dense_0.wb(), self.LayerNorm_0.sb(), prepared)[:, :out_h]
+
+    def prepare(self):
+        return prepare_upsample(self.Dense_0.wb(), self.LayerNorm_0.sb())
 
 
 class PanguNet(nn.Module):
@@ -249,7 +257,9 @@ class PanguNet(nn.Module):
     @torch.no_grad()
     def grand_weights(self) -> dict:
         """Expand the conv-shaped patch params into the grand embed/recover
-        GEMM weights, cast to bf16 (whatever the compute dtype)."""
+        GEMM weights, cast to bf16 (whatever the compute dtype), and add
+        the operands K3 and K4 take (``"down"``, ``"up"``: the DownSample
+        and UpSample modules' ``prepare()``)."""
         cfg = self.cfg
         pz, ph, pw = cfg.patch
         C = cfg.embed_dim
@@ -299,6 +309,8 @@ class PanguNet(nn.Module):
             "bias_g": bias_g.to(dt),
             "Wr": Wr.reshape(Zt * 2 * C, ph * pw * Cout).to(dt),
             "bias_out": bias_out.to(dt),
+            "down": self.DownSample_0.prepare(),
+            "up": self.UpSample_0.prepare(),
         }
 
     def _stage(self, x, s, valid):
@@ -330,10 +342,10 @@ class PanguNet(nn.Module):
         valid_half = (Zt, -(-Ht // 2), Wt // 2)
         x = self._stage(x, 0, valid_full)
         skip = x
-        x = self.DownSample_0(x)
+        x = self.DownSample_0(x, gw.get("down"))
         x = self._stage(x, 1, valid_half)
         x = self._stage(x, 2, valid_half)
-        x = self.UpSample_0(x, Ht)
+        x = self.UpSample_0(x, Ht, gw.get("up"))
         x = self._stage(x, 3, valid_full)
         x = torch.cat([x, skip], dim=-1)  # (Zt, Ht, Wt, 2C)
 

@@ -1,7 +1,7 @@
 """Hand-written bf16 GEMMs with fused epilogues (csrc/gemm.cu).
 
-The matrix products inside K1 (ops/fused_block.py), K3 and K4
-(ops/resample.py) run through ``gemm``: ``epilogue(a @ w + b)`` with
+The matrix products inside K1 (ops/fused_block.py) run through
+``gemm``: ``epilogue(a @ w + b)`` with
 ``a`` (M, K) bf16, ``w`` the Dense kernel (K, N) bf16 in flax layout,
 ``b`` (N,) f32 and f32 accumulation.  Epilogues: none, GELU (tanh
 approximation, on the bf16-rounded value) or a residual add (after the

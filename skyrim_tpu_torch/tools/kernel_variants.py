@@ -2,7 +2,8 @@
 
     python -m skyrim_tpu_torch.tools.kernel_variants KIND [VARIANT ...]
 
-KIND is ``attention``, ``gemm``, ``round``, ``g2m``, ``m2g``, ``mlp`` or ``lngemm``.  A VARIANT is a directory: an
+KIND is ``attention``, ``gemm``, ``round``, ``g2m``, ``m2g``, ``mlp``, ``lngemm``,
+``resample`` or ``ptxas``.  A VARIANT is a directory: an
 edited copy of ``skyrim_tpu_torch/csrc`` (``""`` for the package's own, which
 is also what is timed when no variant is given).  The sources carry no
 build-time switches: an experiment is a copy with the change made in it.
@@ -21,9 +22,8 @@ variants.
   (329,728 x 512) @ (512 x 512), and on one product of K6's grid update,
   (1,038,240 x 512) @ (512 x 512), with the bias epilogue; ``skt_gemm_bf16``
   on Pangu's eight block products (qkv, proj + residual, fc1 + GELU, fc2 +
-  residual at stage 1, M 535,680, C 192, and stage 2, M 138,240, C 384) and
-  on K3's and K4's Dense (M 131,040, 768 -> 384 and 384 -> 768), each with
-  the epilogue K1, K3 or K4 gives it.  Each with its TFLOP/s, and
+  residual at stage 1, M 535,680, C 192, and stage 2, M 138,240, C 384), each
+  with the epilogue K1 gives it.  Each with its TFLOP/s, and
   ``torch.matmul`` in bf16 on the same operands timed beside it once (a
   yardstick; the port never calls it).  Then, for a variant that exports
   ``skt_rowgemm_host_ns``, the host's share of one launch over 1,000 calls
@@ -63,6 +63,24 @@ variants.
   timed beside them (a yardstick).  The layouts are ``rowgemm.cuh``'s
   ``lng::TALL_BM``, ``TALL_BN`` (rows of K <= 256), ``BM``, ``BN`` and ``NC``:
   edit them in a copy.
+- ``resample``: ``resample.cu`` and ``gemm.cu``; K3 and K4 at Pangu's full
+  width on their main-path inputs: K3 on the (8, 181, 360, 192) view of the
+  stage-1 buffer (8, 186, 360, 192) to (8, 91, 180, 384), K4 on the
+  (8, 91, 180, 384) view of the stage-2 buffer (8, 96, 180, 384) to
+  (8, 182, 360, 192); each one ``skt_downsample_bf16`` / ``skt_upsample_bf16``
+  launch where the variant exports them, else the chains they replace:
+  K3 ``skt_merge_layernorm_bf16`` on the padded contiguous copy (8, 182, 360,
+  192) into the merged (131,040, 768) matrix, then ``skt_gemm_bf16``, alone
+  and with ``DownSample``'s ``F.pad`` copy before it; K4 ``skt_gemm_bf16``
+  on a contiguous copy of its view into (131,040, 768), then
+  ``skt_expand_layernorm_bf16``.  Each output held against the plain
+  version (``ops/resample.py``) at the kernels' tolerance; ``torch.matmul``
+  of the two products alone, (131,040 x 768) @ (768 x 384) and (131,040 x
+  384) @ (384 x 768), timed beside them (a yardstick).
+- ``ptxas``: no timing; every library of ``_build.LIBS`` from the first and
+  the second directory given, compiled with ``-Xptxas -v``: each kernel whose
+  register, stack or spill report differs between the two, then the count of
+  those that are identical (needs nvcc only).
 
 Prints one line per report, per (round, variant, case); needs a CUDA device
 and nvcc.
@@ -71,6 +89,7 @@ and nvcc.
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 import tempfile
@@ -80,10 +99,10 @@ ROUNDS, LAUNCHES = 4, 20
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp"),
            "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp"), "mlp": ("fused_mlp",),
-           "lngemm": ("gemm", "fused_block")}  # fmt: skip
+           "lngemm": ("gemm", "fused_block"), "resample": ("resample", "gemm")}  # fmt: skip
 REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
             "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",), "mlp": ("rowgemm",),
-            "lngemm": ("EpiGemm",)}  # fmt: skip
+            "lngemm": ("EpiGemm",), "resample": ("resample",)}  # fmt: skip
 
 
 def _bind(lib, name, argtypes):
@@ -130,8 +149,6 @@ GEMM_SHAPES = (
     ("Pangu s2 proj + res", 138240, 384, 384, 2),
     ("Pangu s2 fc1 + GELU", 138240, 384, 1536, 1),
     ("Pangu s2 fc2 + res", 138240, 1536, 384, 2),
-    ("K3 Dense", 131040, 768, 384, 0),
-    ("K4 Dense", 131040, 384, 768, 0),
 )
 _operands: dict = {}  # one set of operands a shape, shared by the variants
 
@@ -225,6 +242,78 @@ def lngemm_cases(torch, libs, _src):
     return cases
 
 
+def _resample_operands(torch):
+    """K3's and K4's main-path inputs (views of the stage buffers), their
+    parameters and outputs, made once and shared by the variants."""
+    if "resample" not in _operands:
+        from skyrim_tpu_torch.ops import resample as RS
+
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def randn(*shape, s=1.0):
+            return torch.randn(*shape, device=dev, generator=g) * s
+
+        C, N = 192, 384
+        x = randn(8, 186, 360, C).to(torch.bfloat16)[:, :181]
+        ln, wb = (1 + randn(4 * C, s=0.1), randn(4 * C, s=0.3)), (randn(4 * C, N, s=(4 * C) ** -0.5), randn(N, s=0.1))
+        xu = randn(8, 96, 180, N).to(torch.bfloat16)[:, :91]
+        wbu, lnu = (randn(N, 4 * C, s=N**-0.5), randn(4 * C, s=0.1)), (1 + randn(C, s=0.1), randn(C, s=0.3))
+        _operands["resample"] = dict(
+            x=x, ln=ln, wb=wb, down=RS.prepare_downsample(ln, wb), xu=xu, wbu=wbu, lnu=lnu,
+            up=RS.prepare_upsample(wbu, lnu), w_bf16=wb[0].to(torch.bfloat16),
+            out3=torch.empty(8, 91, 180, N, device=dev, dtype=torch.bfloat16),
+            out4=torch.empty(8, 182, 360, C, device=dev, dtype=torch.bfloat16),
+            merged=torch.empty(131040, 4 * C, device=dev, dtype=torch.bfloat16),
+            ref3=RS.reference_downsample(RS.pad_even_h(x), ln, wb), ref4=RS.reference_upsample(xu, wbu, lnu),
+        )
+    return _operands["resample"]
+
+
+def resample_cases(torch, libs, _src):
+    from torch.nn.functional import pad
+
+    lib = libs["resample"]
+    o = _resample_operands(torch)
+    x, xu, out3, out4 = o["x"], o["xu"], o["out3"], o["out4"]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = [t.data_ptr() for t in (*o["down"], *o["up"])]
+    cases = {}
+    if hasattr(lib, "skt_downsample_bf16"):
+        down = _bind(lib, "skt_downsample_bf16", [P, L, L, L] + [I] * 4 + [P] * 4 + [I, F, P])
+        up = _bind(lib, "skt_upsample_bf16", [P, L, L, L] + [I] * 4 + [P] * 5 + [I, F, P])
+        cases["K3 one launch"] = (lambda: down(x.data_ptr(), *x.stride()[:3], 8, 181, 360, 192, *ptr[:3], out3.data_ptr(),
+                                               384, 1e-6, stream), 2 * 131040 * 768 * 384)  # fmt: skip
+        cases["K4 one launch"] = (lambda: up(xu.data_ptr(), *xu.stride()[:3], 8, 91, 180, 384, *ptr[3:], out4.data_ptr(),
+                                             192, 1e-6, stream), 2 * 131040 * 384 * 768)  # fmt: skip
+    else:
+        merge = _bind(lib, "skt_merge_layernorm_bf16", [P] * 4 + [I] * 4 + [F, P])
+        expand = _bind(lib, "skt_expand_layernorm_bf16", [P] * 4 + [I] * 4 + [F, P])
+        gemm = _bind(libs["gemm"], "skt_gemm_bf16", [P] * 5 + [I] * 4 + [P])
+        xp, xc, merged = pad(x, (0, 0, 0, 0, 0, 1)), xu.contiguous(), o["merged"]
+        s3, b3, b = (t.data_ptr() for t in (*o["ln"], o["wb"][1]))
+        w3 = o["w_bf16"].data_ptr()
+
+        def k3(xp=xp):
+            return (merge(xp.data_ptr(), s3, b3, merged.data_ptr(), 8, 182, 360, 192, 1e-6, stream)
+                    or gemm(merged.data_ptr(), w3, b, None, out3.data_ptr(), 131040, 384, 768, 0, stream))
+
+        cases["K3 chain"] = (k3, 2 * 131040 * 768 * 384)
+        cases["K3 chain + pad copy"] = (lambda: k3(pad(x, (0, 0, 0, 0, 0, 1))), 2 * 131040 * 768 * 384)
+        cases["K4 chain"] = (lambda: gemm(xc.data_ptr(), *ptr[3:5], None, merged.data_ptr(), 131040, 768, 384, 0, stream)
+                             or expand(merged.data_ptr(), *ptr[5:], out4.data_ptr(), 8, 91, 180, 192, 1e-6, stream),
+                             2 * 131040 * 384 * 768)  # fmt: skip
+    for case, (call, _) in cases.items():  # held against the plain version
+        out, ref = (out3, o["ref3"]) if case.startswith("K3") else (out4, o["ref4"])
+        out.zero_()
+        call()
+        torch.cuda.synchronize()
+        ref = ref.float()
+        ratio = float(((out.float() - ref).abs() / (2e-2 * ref.std() + 2 * 2.0**-8 * ref.abs().max())).max())
+        print(f"{case}: max |kernel - plain| / limit = {ratio:.4g}{'  FAILS' if ratio > 1 else ''}")
+    return cases
+
+
 def _ln_params(torch, K):
     g = torch.Generator(device="cuda").manual_seed(K)
     return 1 + 0.1 * torch.randn(K, device="cuda", generator=g), 0.1 * torch.randn(K, device="cuda", generator=g)
@@ -240,7 +329,8 @@ def _h_buffer(torch, M, K):
 def yardsticks(torch, kind):
     """torch.matmul in bf16 on each gemm or lngemm case's operands (timed,
     never used)."""
-    shapes = {"gemm": GEMM_SHAPES, "lngemm": LNGEMM_SHAPES}.get(kind, ())
+    shapes = {"gemm": GEMM_SHAPES, "lngemm": LNGEMM_SHAPES,
+              "resample": (("K3 product", 131040, 768, 384, 0), ("K4 product", 131040, 384, 768, 0))}.get(kind, ())
     out = {}
     for name, M, K, N, _ in shapes:
         a, w = _gemm_operands(torch, M, K, N)[:2]
@@ -480,13 +570,52 @@ def mlp_yardsticks(torch, libs):
 
 
 CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases, "m2g": m2g_cases,
-         "mlp": mlp_cases, "lngemm": lngemm_cases}  # fmt: skip
+         "mlp": mlp_cases, "lngemm": lngemm_cases, "resample": resample_cases}  # fmt: skip
+
+
+def ptxas_reports(srcs: list[Path]) -> int:
+    """Compare ptxas's report of every kernel of the libraries built from two
+    csrc directories; prints the kernels that differ and the count of the
+    identical ones."""
+    from skyrim_tpu_torch.ops import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(n, name, subprocess.Popen(
+            [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-I", str(src), "-o", f"{tmp}/{n}-{name}.so",
+             str(src / f"{name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for n, src in enumerate(srcs) for name in _build.LIBS]  # fmt: skip
+        reports: dict = {}
+        for n, name, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                print(f"{srcs[n]}: nvcc {name}.cu failed\n{log}", file=sys.stderr)
+                return 1
+            kernel = None
+            for line in log.splitlines():
+                m = re.search(r"Compiling entry function '(\S+)'", line)
+                if m:  # the anonymous namespace's hash differs between two copies of a file
+                    kernel = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m.group(1))
+                elif kernel and ("registers" in line or "stack frame" in line):
+                    reports.setdefault((n, name), {}).setdefault(kernel, []).append(line.split("info    :")[-1].strip())
+    same = 0
+    for name in _build.LIBS:
+        a, b = reports.get((0, name), {}), reports.get((1, name), {})
+        for kernel in sorted(set(a) | set(b)):
+            if a.get(kernel) == b.get(kernel):
+                same += 1
+            else:
+                print(f"{name}: {kernel[:120]}\n  {srcs[0]}: {a.get(kernel)}\n  {srcs[1]}: {b.get(kernel)}")
+    print(f"ptxas reports: {same} kernels identical")
+    return 0
 
 
 def main(argv: list[str]) -> int:
-    import torch
-
     from skyrim_tpu_torch.ops import _build
+
+    if argv[:1] == ["ptxas"] and len(argv) == 3:
+        return ptxas_reports([Path(a) if a else _build.CSRC for a in argv[1:]])
+
+    import torch
 
     if not argv or argv[0] not in CASES:
         print(__doc__, file=sys.stderr)

@@ -298,24 +298,85 @@ def test_roll_kernel_exact(cuda, shifts):
     assert torch.equal(out, RL.plain_roll3d(x, shifts))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("C,Co", [(16, 32), (192, 384)])
-def test_resample_kernels_match_plain(cuda, C, Co):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    x = torch.randn(3, 14, 24, C, device=cuda, generator=g).to(torch.bfloat16)
-    ln = (1 + 0.1 * torch.randn(4 * C, device=cuda, generator=g), 0.1 * torch.randn(4 * C, device=cuda, generator=g))
-    wb = (torch.randn(4 * C, Co, device=cuda, generator=g) * (4 * C) ** -0.5, 0.1 * torch.randn(Co, device=cuda, generator=g))
-    out = RS.fused_downsample(x, ln, wb)
-    torch.cuda.synchronize()
-    assert_bf16_close(out, RS.reference_downsample(x, ln, wb))
+# (Z, H, W, C, N, pad): K3 takes x (Z, H, W, C), a view of a buffer of H + pad
+# rows, to N; K4 takes an input of K3's output shape (Z, ceil(H / 2), W / 2,
+# N), a view the same way, back to C.  Tiles are pixels along a line:
+# W / 2 = 181 gives tiles of 61, 61 and 59, W / 2 = 66 two of 33.
+RESAMPLE_CASES = [
+    (3, 14, 24, 16, 32, 0),  # the small configuration's widths, one tile a line
+    (8, 13, 24, 16, 32, 5),  # its stage shapes: 13 token rows in a buffer of 18
+    (3, 14, 24, 192, 384, 0),  # Pangu's widths
+    (2, 13, 362, 192, 384, 5),  # odd H in a window-padded buffer, W / 2 = 181
+    (1, 8, 132, 192, 384, 4),  # W / 2 = 66
+]
 
-    xu = torch.randn(3, 7, 12, Co, device=cuda, generator=g).to(torch.bfloat16)
-    wbu = (torch.randn(Co, 4 * C, device=cuda, generator=g) * Co**-0.5, 0.1 * torch.randn(4 * C, device=cuda, generator=g))
-    lnu = (1 + 0.1 * torch.randn(C, device=cuda, generator=g), 0.1 * torch.randn(C, device=cuda, generator=g))
-    out = RS.fused_upsample(xu, wbu, lnu)
+
+def _resample_inputs(Z, H, W, C, N, pad, offset, dev):
+    """K3's and K4's inputs as views of buffers with `pad` rows more, offset
+    so that a merged row's |mean| is about `offset` times its std, and
+    their parameters (beta drawn at 0.3)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * s
+
+    H2, W2 = -(-H // 2), W // 2
+    x = (randn(Z, H + pad, W, C) + offset).to(torch.bfloat16)[:, :H]
+    ln, wb = (1 + randn(4 * C, s=0.1), randn(4 * C, s=0.3)), (randn(4 * C, N, s=(4 * C) ** -0.5), randn(N, s=0.1))
+    xu = (randn(Z, H2 + pad, W2, N) + offset).to(torch.bfloat16)[:, :H2]
+    wbu, lnu = (randn(N, 4 * C, s=N**-0.5), randn(4 * C, s=0.1)), (1 + randn(C, s=0.1), randn(C, s=0.3))
+    return (x, ln, wb), (xu, wbu, lnu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Z,H,W,C,N,pad", RESAMPLE_CASES)
+@pytest.mark.parametrize("offset", [0.0, 4.0], ids=["centred", "mean 4 std"])
+def test_resample_kernels_match_plain(cuda, Z, H, W, C, N, pad, offset):
+    """K3 (odd H from the buffer's rows as zeros) and K4, each one launch on
+    a strided view, against their plain versions."""
+    (x, ln, wb), (xu, wbu, lnu) = _resample_inputs(Z, H, W, C, N, pad, offset, cuda)
+    before = RS.fused_downsample.launches
+    out = RS.fused_downsample(x, ln, wb, RS.prepare_downsample(ln, wb))
     torch.cuda.synchronize()
+    assert RS.fused_downsample.launches == before + 1
+    assert_bf16_close(out, RS.reference_downsample(RS.pad_even_h(x), ln, wb))
+    before = RS.fused_upsample.launches
+    out = RS.fused_upsample(xu, wbu, lnu, RS.prepare_upsample(wbu, lnu))
+    torch.cuda.synchronize()
+    assert RS.fused_upsample.launches == before + 1
     assert_bf16_close(out, RS.reference_upsample(xu, wbu, lnu))
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Z,H,W,C,N,pad", RESAMPLE_CASES[2:4])
+def test_resample_kernels_write_only_their_rows(cuda, Z, H, W, C, N, pad):
+    """skt_downsample_bf16 (stores from registers) and skt_upsample_bf16
+    (TMA stores) through the library into outputs with 64 rows of a
+    sentinel before and after: the guard rows keep their bits, and every
+    output row is written, equal to the wrapper's output."""
+    from skyrim_tpu_torch.ops import _build
+    from skyrim_tpu_torch.ops.resample import _EPS, _lib
+
+    (x, ln, wb), (xu, wbu, lnu) = _resample_inputs(Z, H, W, C, N, pad, 0.0, cuda)
+    lib, stream = _lib(), torch.cuda.current_stream().cuda_stream
+    sentinel = 0x7FA5  # a bf16 NaN pattern no kernel writes
+    H2, W2 = -(-H // 2), W // 2
+    for name, rows, width, launch, ref in (
+        ("skt_downsample_bf16", Z * H2 * W2, N,
+         lambda out, p=RS.prepare_downsample(ln, wb): lib.skt_downsample_bf16(
+             x.data_ptr(), *x.stride()[:3], Z, H, W, C, *(t.data_ptr() for t in p), out, N, _EPS, stream),
+         lambda: RS.fused_downsample(x, ln, wb)),
+        ("skt_upsample_bf16", Z * 4 * H2 * W2, C,
+         lambda out, p=RS.prepare_upsample(wbu, lnu): lib.skt_upsample_bf16(
+             xu.data_ptr(), *xu.stride()[:3], Z, H2, W2, N, *(t.data_ptr() for t in p), out, C, _EPS, stream),
+         lambda: RS.fused_upsample(xu, wbu, lnu)),
+    ):  # fmt: skip
+        buf = torch.full((rows + 128, width), sentinel, device=cuda, dtype=torch.int16)
+        _build.check(lib, launch(buf[64:].data_ptr()), name)
+        torch.cuda.synchronize()
+        assert bool((buf[:64] == sentinel).all()) and bool((buf[64 + rows:] == sentinel).all()), name
+        assert not bool((buf[64:64 + rows] == sentinel).any()), name
+        assert torch.equal(buf[64:64 + rows].view(torch.bfloat16).reshape(-1), ref().reshape(-1)), name
 
 
 @pytest.mark.gpu
