@@ -157,48 +157,36 @@ __device__ __forceinline__ void quad_transpose(const float (&x)[4][2], float (&v
   }
 }
 
-// One warp layer-normalizes NSUM rows of `width` bf16 values each (width %
-// 8 == 0) and hands the v-th group of 8 outputs to out(v, o), o[u] =
-// sum_k bf16(LN(row k))[8v + u] in f32.  `chunk(k, v)` points at the v-th
-// group of 8 values of row k, so callers gather rows by index math.  Flax
-// numerics: f32 statistics, fast variance E[x^2] - E[x]^2 clipped at 0, f32
-// affine.  The LayerNorm of every port kernel.  NSUM is a template argument:
-// with a run-time count, Pangu's LayerNorm ran 19 % slower on an H100.
-template <int NSUM, class Chunk, class Out>
+// One warp layer-normalizes a row of `width` bf16 values (width % 8 == 0)
+// and hands the v-th group of 8 outputs to out(v, o), o[u] = bf16(LN(row)[8v
+// + u]) held in f32.  `chunk(v)` points at the v-th group of 8 values.  Flax numerics:
+// f32 statistics, fast variance E[x^2] - E[x]^2 clipped at 0, f32 affine.
+template <class Chunk, class Out>
 __device__ __forceinline__ void layernorm_rows_warp(Chunk chunk, const float* __restrict__ scale,
                                                     const float* __restrict__ bias, int width,
                                                     float eps, Out out) {
   const int lane = threadIdx.x & 31;
   const int nv = width / 8;
-  float mu[NSUM], inv[NSUM];
-#pragma unroll
-  for (int k = 0; k < NSUM; ++k) {
-    float s = 0.f, s2 = 0.f;
-    for (int v = lane; v < nv; v += 32) {
-      float f[8];
-      load8(chunk(k, v), f);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        s += f[u];
-        s2 += f[u] * f[u];
-      }
-    }
-    s = warp_sum(s);
-    s2 = warp_sum(s2);
-    mu[k] = s / width;
-    inv[k] = rsqrtf(fmaxf(s2 / width - mu[k] * mu[k], 0.f) + eps);
-  }
+  float s = 0.f, s2 = 0.f;
   for (int v = lane; v < nv; v += 32) {
-    float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float f[8];
+    load8(chunk(v), f);
 #pragma unroll
-    for (int k = 0; k < NSUM; ++k) {
-      float f[8];
-      load8(chunk(k, v), f);
+    for (int u = 0; u < 8; ++u) {
+      s += f[u];
+      s2 += f[u] * f[u];
+    }
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mu = s / width, inv = rsqrtf(fmaxf(s2 / width - mu * mu, 0.f) + eps);
+  for (int v = lane; v < nv; v += 32) {
+    float o[8];
+    load8(chunk(v), o);
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int c = v * 8 + u;
-        o[u] += bf16_round((f[u] - mu[k]) * inv[k] * scale[c] + bias[c]);
-      }
+    for (int u = 0; u < 8; ++u) {
+      const int c = v * 8 + u;
+      o[u] = bf16_round((o[u] - mu) * inv * scale[c] + bias[c]);
     }
     out(v, o);
   }

@@ -17,7 +17,7 @@
 
 extern "C" int skt_layernorm_bf16(const void* x, const void* scale, const void* bias, void* out,
                                   int rows, int C, float eps, void* stream) {
-  return rowgemm::launch_ln_rows(x, scale, bias, nullptr, out, rows, C, 1, eps, stream);
+  return rowgemm::launch_ln_rows(x, scale, bias, nullptr, out, rows, C, eps, stream);
 }
 
 // bias (n_types, heads, wlen, wlen) f32, n_types 1 or nz * nh; mask (nz, nh,

@@ -74,8 +74,8 @@ extern "C" int skt_mlp_finish(const void* h, const void* W, const void* b, const
 }
 
 extern "C" int skt_ln_rows(const void* y, const void* scale, const void* bias, const void* res,
-                           void* out, int rows, int C, int nsum, float eps, void* stream) {
-  return rowgemm::launch_ln_rows(y, scale, bias, res, out, rows, C, nsum, eps, stream);
+                           void* out, int rows, int C, float eps, void* stream) {
+  return rowgemm::launch_ln_rows(y, scale, bias, res, out, rows, C, eps, stream);
 }
 
 extern "C" int skt_segment_sum(const void* x, const void* local, void* out, int G, int R, int S,

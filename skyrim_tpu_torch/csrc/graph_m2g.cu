@@ -64,7 +64,7 @@ struct M2GPoints {
     for (int k = 0; k < 3; ++k) r.u[k] = *reinterpret_cast<const uint4*>(u + k * L);
     r.a = *reinterpret_cast<const uint4*>(ad + (size_t)p * L + kk);
   }
-  __device__ __forceinline__ void make(const Raw& r, int kk, int L, bf16* const (&rows)[3]) const {
+  __device__ __forceinline__ void make(const Raw& r, int kk, int L, bf16* const* rows) const {
     float a8[8], c8[8];
     if (r.ok) {
       load8(reinterpret_cast<const bf16*>(&r.a), a8);

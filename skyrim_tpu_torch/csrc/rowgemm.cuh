@@ -1,8 +1,8 @@
 // Row-GEMM building blocks: the tiled GEMM of every port kernel that
 // multiplies (Pangu's K1 through gemm.cu, its TMA and wgmma pieces in K3's
-// and K4's resample.cu; GraphCast's K6 and K7;
-// K12-K14 in graph_finish.cu), K8's and K9's row kernel with its LayerNorm
-// inside (rows_ln_kernel), K1's GEMM with the LayerNorm in its prologue
+// and K4's resample.cu; GraphCast's K6 and K7; K12 in graph_finish.cu), the
+// row kernel with its LayerNorm inside (rows_ln_kernel: K6's finish, K8, K9,
+// K13, K14's messages), K1's GEMM with the LayerNorm in its prologue
 // (ln_gemm_kernel), and the row kernels the GraphCast kernels share.
 //
 // The four GraphCast TPU kernels (skyrim_tpu/ops/fused_mlp.py fused_mlp and
@@ -38,11 +38,10 @@
 //                   TMA, so that one's epilogue runs under the other's
 //                   products.  launch_rowgemm takes it wherever the operands
 //                   allow.
-//   ln_rows_kernel  one warp per output row: out = bf16([res +] sum_k
-//                   bf16(LN(y[row * nsum + k]))), sum in f32, nsum 1 to 4,
-//                   through common.cuh's layernorm_rows_warp; also K1's
-//                   LayerNorms on its chain for rows wider than 512
-//                   (fused_block.cu, nsum 1).
+//   ln_rows_kernel  one warp per row: out = bf16([res +] bf16(LN(y[row]))),
+//                   through common.cuh's layernorm_rows_warp (K7, K12, and
+//                   K1's LayerNorms on its chain for rows wider than 512,
+//                   fused_block.cu).
 //   segsum_kernel   out[g, s, :] = sum of the rows r of group g with
 //                   local[g, r] == s, in f32, then bf16; local values outside
 //                   [0, S) are skipped.  One block per (group, 128 columns),
@@ -54,14 +53,15 @@
 //                   owner, so the result is the same bits on every run, and
 //                   for ids in sorted order the f32 sum in row order.
 //   rows_ln_kernel  out = bf16(LN(bf16(prologue @ W + b))) for rows of up to
-//                   512 columns in one launch (K9; K6's finish, plain rows
-//                   by TMA and a residual added), or the f32 sum of three
-//                   consecutive rows' LayerNorms (K8's slots): 64 (or 63)
-//                   rows x all columns a tile, so the LayerNorm and the slot
-//                   sum run in the epilogue; the prologue computed once a row
-//                   by producer warps into a whole-tile A buffer, W by TMA,
-//                   two consumer warpgroups of 256 columns each exchanging
-//                   row sums (see below).
+//                   512 columns in one launch (K9, K14's messages; K6's
+//                   finish, plain rows by TMA and a residual added), or the
+//                   f32 sum of GROUP (2 to 4) consecutive rows' LayerNorms
+//                   (K8's and K13's slots): 64 (or 63) rows x all columns a
+//                   tile, so the LayerNorm and the slot sum run in the
+//                   epilogue; the prologue computed once a row by producer
+//                   warps into a whole-tile A buffer, W by TMA, two consumer
+//                   warpgroups of 256 columns each exchanging row sums (see
+//                   below).
 //   ln_gemm_kernel  out = epi(bf16(LN(x)) @ W + b) for rows of up to 512
 //                   columns (K1's LN1 + qkv and LN2 + fc1): a row block of x
 //                   by TMA, normalised once in place in shared memory by
@@ -836,19 +836,17 @@ int launch_rowgemm(const ALoad& aload, const void* W, const Epi& epi, int M, int
             ring_kernel_attribute<64, ALoad, Epi>());
 }
 
-// out[row] = bf16([res[row] +] sum_{k < NSUM} bf16(LN(y[row * NSUM + k]))),
-// one warp per output row, C % 8 == 0; out may be y when NSUM == 1.
-template <int NSUM>
+// out[row] = bf16([res[row] +] bf16(LN(y[row]))), one warp per row, C % 8
+// == 0; out may be y.
 __global__ void ln_rows_kernel(const bf16* y, const float* __restrict__ scale,
                                const float* __restrict__ bias, const bf16* __restrict__ res,
                                bf16* out, int rows, int C, float eps) {
   const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const bf16* yr = y + (size_t)row * NSUM * C;
+  const bf16* yr = y + (size_t)row * C;
   const bf16* rr = res ? res + (size_t)row * C : nullptr;
   bf16* orow = out + (size_t)row * C;
-  layernorm_rows_warp<NSUM>([&](int k, int v) { return yr + (size_t)k * C + v * 8; }, scale, bias,
-                            C, eps, [&](int v, float* o) {
+  layernorm_rows_warp([&](int v) { return yr + v * 8; }, scale, bias, C, eps, [&](int v, float* o) {
                         if (rr) {
                           float r8[8];
                           load8(rr + v * 8, r8);
@@ -860,20 +858,11 @@ __global__ void ln_rows_kernel(const bf16* y, const float* __restrict__ scale,
 }
 
 inline int launch_ln_rows(const void* y, const void* scale, const void* bias, const void* res,
-                          void* out, int rows, int C, int nsum, float eps, void* stream) {
+                          void* out, int rows, int C, float eps, void* stream) {
   const int warps = 8;
-  const dim3 grid((rows + warps - 1) / warps), block(warps * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16 *yb = static_cast<const bf16*>(y), *rb = static_cast<const bf16*>(res);
-  const float *sf = static_cast<const float*>(scale), *bf = static_cast<const float*>(bias);
-  bf16* ob = static_cast<bf16*>(out);
-  switch (nsum) {  // 1: every LayerNorm but K13's; 3: its triangle slots
-    case 1: ln_rows_kernel<1><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
-    case 2: ln_rows_kernel<2><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
-    case 3: ln_rows_kernel<3><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
-    case 4: ln_rows_kernel<4><<<grid, block, 0, st>>>(yb, sf, bf, rb, ob, rows, C, eps); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  ln_rows_kernel<<<(rows + warps - 1) / warps, warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(y), static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const bf16*>(res), static_cast<bf16*>(out), rows, C, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -957,14 +946,15 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 //
 // out[o] = bf16(sum_{k < GROUP} bf16(LN(bf16(A[GROUP o + k] @ W + b)))), the
 // sum in f32 in slot order, for M rows of L <= 512 columns, A[q] computed by
-// a prologue functor, in one launch.  GROUP 1 (K9): out[q] is row q's
-// message, 64-row tiles.  GROUP 3 (K8): a tile is 21 output points = 63
-// rows, so every point's three slot rows lie in one tile (row 63 of the
-// 64-row wgmma tile is padding: set to 0 once, computed row by row and never
-// stored).  The block's
-// tile is all 512 columns, so that every row it writes is complete in the
-// block and the LayerNorm (and the slot sum) runs in the epilogue.  One
-// persistent block an SM walks the tiles blockIdx.x, + gridDim.x, ...
+// a prologue functor, in one launch.  GROUP 1 (K9, K14, K13 at deg 1): out[q]
+// is row q's message, 64-row tiles.  GROUP 2 to 4 (K13 at deg 2 to 4; K8 at
+// 3): a tile is ROWS<GROUP> / GROUP = 32, 21 or 16 output points = 64, 63 or
+// 64 rows, so every point's GROUP slot rows lie in one tile (GROUP 3: row 63
+// of the 64-row wgmma tile is padding, set to 0 once, computed row by row and
+// never stored).  The block's tile is all 512 columns, so that every row it
+// writes is complete in the block and the LayerNorm (and the slot sum) runs
+// in the epilogue.  One persistent block an SM walks the tiles blockIdx.x, +
+// gridDim.x, ...
 //
 // - Prologue warps (warps 0-2 of the third warpgroup, setmaxnreg 72):
 //   compute a tile's whole A block once, 64 rows x 512 K bf16 (64 KB, eight
@@ -975,19 +965,21 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 //   GROUP 1 with TmaRows (K6's finish: A is plain rows, nothing computed):
 //   one thread brings the tile's 64 rows by TMA, boxes of 64 columns in the
 //   128-byte swizzle straight into the A slices, completing on a_full.
-//   GROUP 1, a row at a time (Pro::index / copy / load / make): warp w takes
+//   Rows (GROUP 1, Pro::index / copy / load / make; K9): warp w takes
 //   the rows w, w + 3, ..., a lane two 16-byte chunks of each.  The first
 //   source of every chunk comes by cp.async straight to the chunk's place in
 //   the buffer (a whole tile's worth in flight at once, without registers),
 //   the others by loads into registers two rows at a time; the prologue is
 //   then computed in place.
-//   GROUP 3, a point at a time (Pro::index / load / make): the tile's first
-//   source rows are contiguous (Pro::rows_by_tma(), rows 63t .. 63t + 62),
-//   so one thread brings them by TMA, boxes of 64 columns x 63 rows in the
+//   Points (GROUP > 1, or a Pro with POINTS; Pro::index / load / make; K8,
+//   K13, K14): the tile's first source rows are contiguous
+//   (Pro::rows_by_tma(), rows TR t .. TR t + TR - 1 for TR = ROWS<GROUP>),
+//   so one thread brings them by TMA, boxes of 64 columns x TR rows in the
 //   128-byte swizzle straight into the A slices (x_full), while warp w
-//   loads the points w, w + 3, ... < PRO_POINTS: a lane the other sources of
-//   two chunks of all three of a point's rows into registers, then the three
-//   rows computed in place.  The consumers compute the tile's other points
+//   loads the points w, w + 3, ... < PRODUCER_POINTS<GROUP>: a lane the other
+//   sources of two chunks of all GROUP of a point's rows into registers
+//   (Pro::IN_FLIGHT points at once, 1 unless it says), then its rows
+//   computed in place.  The consumers compute the tile's other points
 //   (share() below) and arrive on a_full too.
 // - W thread (lane 0 of warp 3): TMA loads of W into a ring of W_STAGES
 //   slices of 32 K x 512 columns (w_full / w_empty), the same walk for every
@@ -1000,18 +992,19 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 //   barrier 5, then Epi::norm with f32 statistics (fast variance clipped at
 //   0); the bf16 values go into the A buffer just multiplied (both consumers
 //   are past their products at barrier 5), in boxes of 64 columns in the
-//   128-byte swizzle.  GROUP 3: under the consumer's named barrier 6 + c,
-//   each point's three staged rows are read and summed in f32, then (after
-//   a second barrier) the 21 bf16 sums written in place as rows 0 .. 20.
+//   128-byte swizzle.  GROUP > 1: under the consumer's named barrier 6 + c,
+//   each point's GROUP staged rows are read and summed in f32, then (after
+//   a second barrier) the bf16 sums written in place as rows 0 .. TR / GROUP
+//   - 1.
 //   Epi::RESIDUAL (GROUP 1): once both consumers are past barrier 5 (the A
 //   buffer read), one thread of each brings the residual's boxes of its
 //   columns by TMA into the staging places (res_full[c]), and each output
 //   pair is added to the residual pair it overwrites.
 //   One thread of each consumer stores its four boxes by TMA (rows past the
 //   output clipped), waits until the store has read them and arrives on the
-//   buffer's a_empty barrier: the producer may refill it.  GROUP 3: then
-//   every consumer thread computes its part of points PRO_POINTS .. 20 of
-//   the next tile's prologue (its accumulators are dead, it would otherwise
+//   buffer's a_empty barrier: the producer may refill it.  Points: then
+//   every consumer thread computes its part of points PRO_POINTS .. TR /
+//   GROUP - 1 of the next tile's prologue (its accumulators are dead, it would otherwise
 //   wait on a_full), all its loads in flight at once, and arrives on
 //   a_full.
 //
@@ -1034,6 +1027,8 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 // tiles over the grid rows, nothing to compute): 1.59 ms, 2.28 ms with the
 // residual, whose TMA load in the epilogue nothing hides (kernel_variants
 // mlp); with the residual's pairs or chunks in registers it took 2.8-4.0 ms.
+// K13 (49,440 tiles of 21 points at deg 3) 8.7 ms and K14's messages (25,728
+// tiles of 64 rows) 3.7 ms, also held by their prologues (graph_finish.cu).
 namespace rowln {
 constexpr int BM = 64, WIDTH = 512, BKW = 32;  // wgmma tile rows, the widest L, W slice depth
 constexpr int A_BYTES = BM * WIDTH * 2;        // a whole tile's A block
@@ -1043,9 +1038,31 @@ constexpr int THREADS = 384, PRO_WARPS = 3, PRO_THREADS = PRO_WARPS * 32;
 constexpr int STATS_BYTES = 2 * BM * 8;        // (consumer, row) -> (sum, sum of squares)
 constexpr size_t SMEM = 1024 + 2 * (size_t)A_BYTES + W_STAGES * (size_t)W_BYTES + STATS_BYTES + 128;
 static_assert(SMEM <= 232448, "fits a block");
-// rows a tile computes and stores: whole groups of GROUP rows (64 or 63)
+// rows a tile computes and stores: whole groups of GROUP rows (64, 64, 63, 64)
 template <int GROUP>
 constexpr int ROWS = BM - BM % GROUP;
+// points: the producer warps compute points 0 .. PRO_POINTS - 1 of a tile
+// (a multiple of PRO_WARPS points), the consumers the others.  K8 at GROUP 3:
+// 12 of 21 points (9 gave 9.4, 15 gave 9.5 ms against 8.5; K13 at deg 3 9.1
+// and 9.8 against 8.7).  K14 at GROUP 1: 54 of 64 rows 3.7 ms (36: 4.7, 48:
+// 4.4, 51: 4.4, 57: 4.3, 60: 4.0, 63: 4.6; tools/kernel_variants.py messages).
+// GROUP 2 and 4: 36 rows, not tuned.
+template <int GROUP>
+constexpr int PRODUCER_POINTS = GROUP == 1 ? 54 : GROUP == 2 ? 18 : GROUP == 3 ? 12 : 9;
+// what a Pro says of its schedule, beside its functions.  POINTS: its rows
+// come a point at a time, the first source by TMA (every GROUP > 1 does, a
+// GROUP 1 Pro when it says so).  IN_FLIGHT: the points whose loads a producer
+// lane keeps in flight at once on that path, 1 unless it says.
+template <class P, class = void>
+struct says_points : std::false_type {};
+template <class P>
+struct says_points<P, std::void_t<decltype(P::POINTS)>> : std::bool_constant<P::POINTS> {};
+template <int GROUP, class Pro>
+constexpr bool BY_POINTS = GROUP > 1 || says_points<Pro>::value;
+template <class P, class = void>
+struct in_flight : std::integral_constant<int, 1> {};
+template <class P>
+struct in_flight<P, std::void_t<decltype(P::IN_FLIGHT)>> : std::integral_constant<int, P::IN_FLIGHT> {};
 }  // namespace rowln
 
 // out = bf16(LN(bf16(acc + b))), flax numerics.
@@ -1088,20 +1105,21 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
                    __grid_constant__ const CUtensorMap mapOut,
                    __grid_constant__ const CUtensorMap mapRes, Epi epi, int M, int L, int tiles) {
   using namespace rowln;
-  static_assert(GROUP == 1 || GROUP == 3, "K9's rows or K8's points");
+  static_assert(GROUP >= 1 && GROUP <= 4, "one to four slot rows a point");
   constexpr bool A_BY_TMA = std::is_same<Pro, TmaRows>::value;  // K6's finish: plain rows, nothing computed
+  constexpr bool PTS = BY_POINTS<GROUP, Pro>;
   static_assert((!A_BY_TMA && !Epi::RESIDUAL) || GROUP == 1, "plain rows and the residual are GROUP 1's");
-  constexpr int TR = ROWS<GROUP>, OUT_ROWS = TR / GROUP;  // 64 / 64 or 63 / 21
-  // GROUP 3: the producer warps compute points 0 .. PRO_POINTS - 1 of a tile
-  // (four each), the consumers the other nine (share() below)
-  constexpr int PRO_POINTS = 12;
+  static_assert(!(A_BY_TMA && PTS), "plain rows compute nothing");
+  constexpr int TR = ROWS<GROUP>, OUT_ROWS = TR / GROUP;  // 64 / 64, 64 / 32, 63 / 21 or 64 / 16
+  constexpr int PRO_POINTS = PRODUCER_POINTS<GROUP>;
+  static_assert(PRO_POINTS % PRO_WARPS == 0 && PRO_POINTS < OUT_ROWS, "the producers' points divide among them");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* abuf = align1024(smem_raw);  // two A buffers, then the W ring
   unsigned char* wring = abuf + 2 * A_BYTES;
   float2* stats = reinterpret_cast<float2*>(wring + W_STAGES * W_BYTES);
   const unsigned w_full0 = smem_addr(stats + 2 * BM), w_empty0 = w_full0 + 8 * W_STAGES;
   const unsigned a_full0 = w_empty0 + 8 * W_STAGES, a_empty0 = a_full0 + 16;
-  const unsigned x_full0 = a_empty0 + 16;  // GROUP 3: the TMA-brought rows of buffer b landed
+  const unsigned x_full0 = a_empty0 + 16;  // points: the TMA-brought rows of buffer b landed
   const unsigned res_full0 = x_full0 + 16;  // Epi::RESIDUAL: consumer c's residual boxes landed
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
@@ -1110,8 +1128,8 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
       mbar_init(w_empty0 + 8 * s, 8);  // every consumer warp
     }
     for (int b = 0; b < 2; ++b) {
-      // GROUP 3: the consumers too; plain rows: the TMA thread's one arrival with the bytes
-      mbar_init(a_full0 + 8 * b, A_BY_TMA ? 1 : GROUP == 1 ? PRO_THREADS : PRO_THREADS + 256);
+      // points: the consumers too; plain rows: the TMA thread's one arrival with the bytes
+      mbar_init(a_full0 + 8 * b, A_BY_TMA ? 1 : PTS ? PRO_THREADS + 256 : PRO_THREADS);
       mbar_init(a_empty0 + 8 * b, 2);  // one thread of each consumer
       mbar_init(x_full0 + 8 * b, 1);
       if constexpr (Epi::RESIDUAL) mbar_init(res_full0 + 8 * b, 1);  // per consumer
@@ -1164,7 +1182,7 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
         for (int s = 0; s < slices; ++s)
           tma_load_2d(smem_addr(abuf + b * A_BYTES) + s * (BM * 128), &mapA, a_full, 64 * s, tile * BM);
       }
-    } else if constexpr (GROUP == 1) {  // warp w computes rows w, w + 3, ... of each tile
+    } else if constexpr (!PTS) {  // warp w computes rows w, w + 3, ... of each tile
       constexpr int PER = (BM + PRO_WARPS - 1) / PRO_WARPS;  // 22
       for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
         const int b = p & 1, m0 = tile * BM;
@@ -1205,9 +1223,10 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
         fence_async_shared();
         mbar_arrive(a_full0 + 8 * b);
       }
-    } else {  // warp w computes points w, w + 3, ... < PRO_POINTS (rows 3 pt .. 3 pt + 2) of each tile
+    } else {  // warp w computes points w, w + 3, ... < PRO_POINTS (rows GROUP pt ..) of each tile
       constexpr int PER = PRO_POINTS / PRO_WARPS;
-      static_assert(PRO_POINTS % PRO_WARPS == 0, "the points divide among the warps");
+      constexpr int STEP = in_flight<Pro>::value;  // points whose loads are in flight at once
+      static_assert(PER % STEP == 0, "a warp's points divide into steps");
       const int slices = (L + 63) / 64;  // A slices that hold columns < L
       for (int tile = blockIdx.x, p = 0; tile < tiles; tile += gridDim.x, ++p) {
         const int b = p & 1, o0 = tile * OUT_ROWS;
@@ -1221,17 +1240,26 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
           for (int s = 0; s < slices; ++s) tma_load_2d(smem_addr(a) + s * (BM * 128), &mapA, x_full, 64 * s, tile * TR);
         }
 #pragma unroll 1
-        for (int i = 0; i < PER; ++i) {
-          const int pt = warp + PRO_WARPS * i, hd = __shfl_sync(0xffffffffu, handle, i);
-          typename Pro::Raw raw[2];
+        for (int i = 0; i < PER; i += STEP) {
+          typename Pro::Raw raw[STEP][2];
 #pragma unroll
-          for (int c = 0; c < 2; ++c) pro.load(hd, o0 + pt, (lane + 32 * c) * 8, L, raw[c]);
+          for (int h = 0; h < STEP; ++h) {
+            const int pt = warp + PRO_WARPS * (i + h), hd = __shfl_sync(0xffffffffu, handle, i + h);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) pro.load(hd, o0 + pt, (lane + 32 * c) * 8, L, raw[h][c]);
+          }
           if (i == 0) mbar_wait(x_full, (p >> 1) & 1);
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int kc = lane + 32 * c;
-            bf16* const rows[3] = {chunk(a, 3 * pt, kc), chunk(a, 3 * pt + 1, kc), chunk(a, 3 * pt + 2, kc)};
-            pro.make(raw[c], kc * 8, L, rows);
+          for (int h = 0; h < STEP; ++h) {
+            const int pt = warp + PRO_WARPS * (i + h);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int kc = lane + 32 * c;
+              bf16* rows[GROUP];
+#pragma unroll
+              for (int k = 0; k < GROUP; ++k) rows[k] = chunk(a, GROUP * pt + k, kc);
+              pro.make(raw[h][c], kc * 8, L, rows);
+            }
           }
         }
         fence_async_shared();
@@ -1244,14 +1272,14 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
   constexpr unsigned B_N_STRIDE = (BKW / 8) * 1024, B_K_STRIDE = 1024;
   const int c = wg, w = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const bool elected = (tid & 127) == 0;
-  // GROUP 3: this thread's share of the prologue of the tile at position p
+  // points: this thread's share of the prologue of the tile at position p
   // of the walk (buffer p & 1), points PRO_POINTS .. OUT_ROWS - 1, a task one
-  // (point, 16-byte chunk of its three rows), all its loads in flight at once
+  // (point, 16-byte chunk of its GROUP rows), all its loads in flight at once
   // once the tile's TMA-brought rows have landed; then it arrives on a_full
   // as the producer warps do.  Run between a tile's epilogue and the next
   // tile's products, when the accumulators are dead.
   const auto share = [&](int tile, int p) {
-    if constexpr (GROUP > 1) {
+    if constexpr (PTS) {
       constexpr int TASKS = (OUT_ROWS - PRO_POINTS) * 64, PER = (TASKS + 255) / 256;
       const int b = p & 1, o0 = tile * OUT_ROWS;
       unsigned char* a = abuf + b * A_BYTES;
@@ -1275,7 +1303,9 @@ __global__ void __launch_bounds__(rowln::THREADS, 1)
         const auto chunk = [&](int r) {
           return reinterpret_cast<bf16*>(a + (kc >> 3) * (BM * 128) + r * 128 + (((kc & 7) ^ (r & 7)) << 4));
         };
-        bf16* const rows[3] = {chunk(3 * pt), chunk(3 * pt + 1), chunk(3 * pt + 2)};
+        bf16* rows[GROUP];
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) rows[k] = chunk(GROUP * pt + k);
         pro.make(raw[n], kc * 8, L, rows);
       }
       fence_async_shared();
@@ -1434,7 +1464,7 @@ static int rows_ln_attribute() {
 
 // Launches rows_ln_kernel over M rows of L columns (L % 8 == 0, L <= 512,
 // M % GROUP == 0; W (L, L) row-major, out (M / GROUP, L), both 16-byte
-// aligned).  GROUP 3 and TmaRows: Pro::rows_by_tma() is an (M, L) row-major
+// aligned).  Points and TmaRows: Pro::rows_by_tma() is an (M, L) row-major
 // bf16 matrix, 16-byte aligned, the first source of every A row (TmaRows:
 // the only one).  EpiLNRes: its residual (M, L), 16-byte aligned.
 template <int GROUP, class Pro, class Epi>
@@ -1451,7 +1481,7 @@ int launch_rows_ln(const Pro& pro, const void* W, const Epi& epi, void* out, int
     if (!aligned(epi.res)) return static_cast<int>(cudaErrorInvalidValue);
     if (int err = make_tensor_map(&mapRes, epi.res, M, L, L, TR)) return err;
   }
-  if constexpr (GROUP > 1 || std::is_same<Pro, TmaRows>::value) {
+  if constexpr (rowln::BY_POINTS<GROUP, Pro> || std::is_same<Pro, TmaRows>::value) {
     if (!aligned(pro.rows_by_tma())) return static_cast<int>(cudaErrorInvalidValue);
     if (int err = make_tensor_map(&mapA, pro.rows_by_tma(), M, L, L, TR)) return err;
   }

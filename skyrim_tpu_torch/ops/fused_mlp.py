@@ -1,5 +1,5 @@
-"""Row MLP (K6), the finish alone (K12) and the row kernels that K7 and
-K13-K14 share.
+"""Row MLP (K6), the finish alone (K12) and the row kernels that K7, K12 and
+K14 share.
 
 K6 replaces ``skyrim_tpu/ops/fused_mlp.py`` ``fused_mlp`` (Pallas body
 ``_mlp_kernel``): ``[residual +] LN?(Dense₂(swish(Dense₁(x ‖ x2))))`` over
@@ -41,8 +41,9 @@ On a CPU tensor ``fused_mlp`` runs ``reference_mlp`` and ``fused_finish``
 ``<wrapper>.launches`` counts wrapper calls that launched,
 ``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout),
 ``mlp_finish.launches_by_shape`` the whole-row finish's by (rows, L,
-residual), and ``ln_rows.launches_by_nsum`` the LayerNorm rows kernel's
-launches by the number of rows it sums.
+residual), ``ln_rows.launches_by_shape`` the LayerNorm rows kernel's by
+(rows, C), and ``finish_gemm.launches`` and ``segment_sum.launches`` those
+kernels' launches.
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ def reference_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=F
 def _lib():
     lib = _build.load("fused_mlp")
     lib.skt_mlp_gemm.argtypes = [_P, _L, _L, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.skt_ln_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    lib.skt_ln_rows.argtypes = [_P, _P, _P, _P, _P, _I, _I, _F, _P]
     lib.skt_segment_sum.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     lib.skt_mlp_finish.argtypes = [_P] * 7 + [_I, _I, _F, _P]
     for fn in (lib.skt_mlp_gemm, lib.skt_mlp_finish, lib.skt_ln_rows, lib.skt_segment_sum):
@@ -102,9 +103,8 @@ def _lib():
 
 def _finish_lib():
     lib = _build.load("graph_finish")
-    lib.skt_finish_gemm.argtypes = [_P] * 6 + [_I] * 3 + [_P]
-    lib.skt_fixed_degree_gemm.argtypes = [_P] * 7 + [_I] * 3 + [_P]
-    lib.skt_finish_gemm.restype = lib.skt_fixed_degree_gemm.restype = _I
+    lib.skt_finish_gemm.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.skt_finish_gemm.restype = _I
     return lib
 
 
@@ -223,14 +223,11 @@ def mlp_finish(h, wb, ln, residual=None):
 mlp_finish.launches_by_shape = {}  # (rows, L, residual) -> launches
 
 
-def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
-    """``bf16([residual +] Σ_{k<nsum} bf16(LN(y[r·nsum + k])))`` per output row r.
-    ``out`` may be ``y`` itself when nsum == 1."""
-    R, C = y.shape[0] // nsum, y.shape[1]
-    if C % 8 or nsum not in (1, 2, 3, 4) or y.shape[0] % nsum:
-        raise ValueError(
-            f"ln_rows takes C % 8 == 0, nsum 1 to 4 and rows divisible by nsum, got {tuple(y.shape)}, nsum {nsum}"
-        )
+def ln_rows(y, ln, *, residual=None, out=None):
+    """``bf16([residual +] bf16(LN(y)))`` per row; ``out`` may be ``y`` itself."""
+    R, C = y.shape
+    if C % 8:
+        raise ValueError(f"ln_rows takes C % 8 == 0, got {tuple(y.shape)}")
     require(y, y.shape, "ln_rows y")
     if residual is not None:
         require(residual, (R, C), "ln_rows residual")
@@ -240,57 +237,67 @@ def ln_rows(y, ln, *, residual=None, nsum=1, out=None):
     lib = _lib()
     err = lib.skt_ln_rows(
         y.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        residual.data_ptr() if residual is not None else None, out.data_ptr(), R, C, nsum, _EPS, _stream(y),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(), R, C, _EPS, _stream(y),
     )
     _build.check(lib, err, "ln_rows")
-    ln_rows.launches_by_nsum[nsum] = ln_rows.launches_by_nsum.get(nsum, 0) + 1
+    ln_rows.launches_by_shape[(R, C)] = ln_rows.launches_by_shape.get((R, C), 0) + 1
     return out
 
 
-ln_rows.launches_by_nsum = {}  # nsum -> launches
+ln_rows.launches_by_shape = {}  # (rows, C) -> launches
+
+
+def check_segment_sum(S, R, C, what="segment_sum"):
+    """Raise ValueError unless ``segment_sum`` takes S ids over groups of R
+    rows of C columns: a block keeps its group's S x 128 f32 sums and R ids in
+    shared memory, S·512 + R·4 bytes within a block's 227 KB, and C is even."""
+    if S * 512 + R * 4 > _build.MAX_SMEM or C % 2:
+        raise ValueError(
+            f"{what}: S {S}, R {R} need {S * 512 + R * 4} bytes of shared memory (at most {_build.MAX_SMEM}) and C {C} must be even"
+        )
 
 
 def segment_sum(x, local, S):
     """(G·R, C) rows and (G, R) int32 ids → (G, S, C): per group, the f32 sum
     of the rows with each id in [0, S), as bf16; ids in any order (runs of
     equal ids are summed in registers first, so sorted ids are fastest), the
-    same bits on every call.  A block keeps its group's S x 128 f32 sums and
-    R ids in shared memory: S·512 + R·4 bytes must fit a block's 227 KB."""
+    same bits on every call; within ``check_segment_sum``'s limits."""
     G, R = local.shape
     C = x.shape[1]
-    if S * 512 + R * 4 > _build.MAX_SMEM or C % 2:
-        raise ValueError(
-            f"segment_sum: S {S}, R {R} need {S * 512 + R * 4} bytes of shared memory (at most {_build.MAX_SMEM}) and C {C} must be even"
-        )
+    check_segment_sum(S, R, C)
     require(x, (G * R, C), "segment_sum x")
     require(local, (G, R), "segment_sum local", torch.int32)
     out = torch.empty((G, S, C), dtype=torch.bfloat16, device=x.device)
     lib = _lib()
     err = lib.skt_segment_sum(x.data_ptr(), local.data_ptr(), out.data_ptr(), G, R, S, C, _stream(x))
     _build.check(lib, err, "segment_sum")
+    segment_sum.launches += 1
     return out
 
 
-def finish_gemm(x, add, b0, wb):
+segment_sum.launches = 0
+
+
+def finish_gemm(x, b0, wb):
     """One launch of the row GEMM with the finish prologue:
-    ``bf16(bf16(swish(x [+ add] + b0)) @ W + b)`` for (M, L) rows → (M, Cout)."""
+    ``bf16(bf16(swish(x + b0)) @ W + b)`` for (M, L) rows → (M, Cout)."""
     M, L = x.shape
     Cout = wb[0].shape[1]
     if L % 8 or tuple(wb[0].shape) != (L, Cout):
         raise ValueError(f"finish takes L % 8 == 0 and a ({L}, Cout) kernel, got L {L}, kernel {tuple(wb[0].shape)}")
     require(x, (M, L), "finish x")
-    if add is not None:
-        require(add, (M, L), "finish bias rows")
-    require_rows16("finish", x, add)
+    require_rows16("finish", x)
     b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
     y = torch.empty((M, Cout), dtype=torch.bfloat16, device=x.device)
     lib = _finish_lib()
-    err = lib.skt_finish_gemm(
-        x.data_ptr(), add.data_ptr() if add is not None else None, b0.data_ptr(), w.data_ptr(),
-        b.data_ptr(), y.data_ptr(), M, L, Cout, _stream(x),
-    )
+    err = lib.skt_finish_gemm(x.data_ptr(), b0.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), M, L, Cout,
+                              _stream(x))
     _build.check(lib, err, "finish_gemm")
+    finish_gemm.launches += 1
     return y
+
+
+finish_gemm.launches = 0
 
 
 def fused_finish(x, b0, wb, ln):
@@ -300,7 +307,7 @@ def fused_finish(x, b0, wb, ln):
         return reference_finish(x, b0, wb, ln, x.dtype)
     if x.ndim != 2 or wb[0].shape[1] % 8:
         raise ValueError(f"fused_finish takes (N, L) rows and Cout % 8 == 0, got {tuple(x.shape)} -> {wb[0].shape[1]}")
-    y = finish_gemm(x, None, b0, wb)
+    y = finish_gemm(x, b0, wb)
     out = ln_rows(y, ln, out=y)
     fused_finish.launches += 1
     return out

@@ -28,14 +28,23 @@ predecessors K13-K14.
 
 - K13 ``fused_fixed_degree_messages`` replaces ``fused_fixed_degree_messages``
   (body ``_m2g_kernel``): K8 on flat wide rows, without the tile lookup; any
-  ``deg`` from 1 to 4.  csrc/graph_finish.cu + csrc/fused_mlp.cu.
+  ``deg`` from 1 to 4, one launch of ``rows_ln_kernel<deg>`` (tiles of
+  ``rows_ln_tile(deg)`` points: the bias rows by TMA, each point's wide
+  slices and dst row loaded and its ``deg`` rows computed in place, the
+  Dense by ``wgmma``, the LayerNorm and the slot sum in the epilogue).  No
+  (N·deg, L) intermediate is written.  csrc/graph_finish.cu.
 - K14 ``fused_block_messages`` replaces ``fused_block_messages`` (body
   ``_g2m_kernel``): grid→mesh messages over block-plan rows, finish(src +
   bias) then the sum of each block's rows into its SB segments; ``local``
-  need not be sorted, ``local == SB`` marks padding.  A block's SB·512 + M·4
-  bytes of sums and ids must fit 227 KB of shared memory (the full-width
-  plan, M 8192 and SB 328, takes 200,704).  csrc/graph_finish.cu +
-  csrc/fused_mlp.cu.
+  need not be sorted, ``local == SB`` marks padding.  Two launches:
+  ``block_messages`` (the (B·M, L) messages in row order, one launch of
+  ``rows_ln_kernel<1>``), then the segmented sum (csrc/fused_mlp.cu), whose
+  block keeps SB·512 + M·4 bytes of sums and ids in shared memory, at most
+  227 KB (the full-width plan, M 8192 and SB 328, takes 200,704).
+  csrc/graph_finish.cu + csrc/fused_mlp.cu.
+
+``rows_ln_kernel`` holds whole rows of up to 512 columns a block, so K8,
+K9, K13 and K14 refuse L > 512 on a CUDA tensor.
 
 The TPU kernels expand and aggregate with one-hot matmuls on the MXU;
 here an expansion is an indexed load and an aggregation a segmented sum
@@ -45,7 +54,8 @@ and rounded once.  Bounds and designs are in the CUDA sources' headers.
 
 Each wrapper takes its plain PyTorch version (``reference_*``) on a CPU
 tensor and launches the kernels or raises on a CUDA tensor; ``launches``
-counts wrapper calls that launched (K7 also ``launches_by_shape``).
+counts wrapper calls that launched (K7 also ``launches_by_shape``;
+``block_messages.launches`` K14's messages launches).
 """
 
 from __future__ import annotations
@@ -57,9 +67,8 @@ import torch
 from skyrim_tpu_torch.ops import _build
 from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32
 from skyrim_tpu_torch.ops.fused_mlp import (
-    _finish_lib,
     _stream,
-    finish_gemm,
+    check_segment_sum,
     ln_rows,
     mlp_gemm,
     reference_finish,
@@ -313,33 +322,55 @@ def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=No
 fused_g2m_tiled.launches = 0
 
 
+def rows_ln_tile(group):
+    """(rows, points) of one ``rows_ln_kernel<group>`` tile (csrc/rowgemm.cuh
+    ``rowln::ROWS``): whole groups of ``group`` slot rows within the 64-row
+    ``wgmma`` tile, so 64, 32, 21 or 16 points for group 1 to 4."""
+    if group not in (1, 2, 3, 4):
+        raise ValueError(f"rows_ln_kernel takes 1 to 4 slot rows a point, got {group}")
+    rows = 64 - 64 % group
+    return rows, rows // group
+
+
+def _messages_lib():
+    lib = _build.load("graph_finish")
+    lib.skt_fixed_degree_messages.argtypes = [_P] * 9 + [_I] * 3 + [_F, _P]
+    lib.skt_block_messages.argtypes = [_P] * 8 + [_I] * 2 + [_F, _P]
+    lib.skt_fixed_degree_messages.restype = lib.skt_block_messages.restype = _I
+    return lib
+
+
 def fused_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
     """Fixed-degree messages per row: Σ_k finish(wide_k + bias_k + ad) (K13).
 
     wide/bias_w: (N, deg·L) source rows and cached bias, slot-major lane
     slices; ad: (N, L) dst-part rows; b0: (L,); wb: ((L, L), (L,)); ln over L;
-    deg 1 to 4.  Returns (N, L)."""
+    deg 1 to 4, L ≤ 512 on a CUDA tensor.  Returns (N, L)."""
     if wide.device.type == "cpu":
         return reference_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg)
     if wide.ndim != 2 or deg not in (1, 2, 3, 4) or wide.shape[1] % (8 * deg) or wide.shape[0] * deg >= 2**31:
         raise ValueError(f"fused_fixed_degree_messages takes (N, deg·L) rows, deg 1 to 4, L % 8 == 0, got {tuple(wide.shape)}, deg {deg}")
     N, KL = wide.shape
     L = KL // deg
+    if L > 512:
+        raise ValueError(f"fused_fixed_degree_messages takes L <= 512 (one block holds whole rows), got {L}")
     require(wide, (N, KL), "fixed-degree wide")
     require(bias_w, (N, KL), "fixed-degree bias")
     require(ad, (N, L), "fixed-degree ad")
     require_rows16("fused_fixed_degree_messages", wide, bias_w, ad)
     if tuple(wb[0].shape) != (L, L):
         raise ValueError(f"fused_fixed_degree_messages: kernel {tuple(wb[0].shape)} for L {L}")
-    y = torch.empty((N * deg, L), dtype=torch.bfloat16, device=wide.device)
+    out = torch.empty((N, L), dtype=torch.bfloat16, device=wide.device)
+    if N == 0:
+        return out
     b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
-    lib = _finish_lib()
-    err = lib.skt_fixed_degree_gemm(
+    scale, shift = _f32(ln[0]), _f32(ln[1])
+    lib = _messages_lib()
+    err = lib.skt_fixed_degree_messages(
         wide.data_ptr(), bias_w.data_ptr(), ad.data_ptr(), b0.data_ptr(), w.data_ptr(), b.data_ptr(),
-        y.data_ptr(), N, L, deg, _stream(wide),
+        scale.data_ptr(), shift.data_ptr(), out.data_ptr(), N, L, deg, _EPS, _stream(wide),
     )
-    _build.check(lib, err, "fixed_degree_gemm")
-    out = ln_rows(y, ln, nsum=deg)
+    _build.check(lib, err, "fixed_degree_messages")
     fused_fixed_degree_messages.launches += 1
     return out
 
@@ -347,13 +378,42 @@ def fused_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
 fused_fixed_degree_messages.launches = 0
 
 
+def block_messages(src, bias, b0, wb, ln):
+    """K14's messages in one launch: ``LN(bf16(bf16(swish(src + bias + b0)) @
+    W + b))`` over (M, L) rows in order → (M, L); L % 8 == 0, L ≤ 512."""
+    M, L = src.shape
+    if L % 8 or L > 512 or tuple(wb[0].shape) != (L, L):
+        raise ValueError(f"block_messages takes L % 8 == 0, L <= 512 (one block holds whole rows) and an (L, L) "
+                         f"kernel, got L {L}, kernel {tuple(wb[0].shape)}")
+    require(src, (M, L), "block src rows")
+    require(bias, (M, L), "block bias rows")
+    require_rows16("block_messages", src, bias)
+    m = torch.empty((M, L), dtype=torch.bfloat16, device=src.device)
+    if M == 0:
+        return m
+    b0, w, b = _f32(b0), _bf16(wb[0]), _f32(wb[1])  # held until the launch is queued
+    scale, shift = _f32(ln[0]), _f32(ln[1])
+    lib = _messages_lib()
+    err = lib.skt_block_messages(
+        src.data_ptr(), bias.data_ptr(), b0.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), m.data_ptr(), M, L, _EPS, _stream(src),
+    )
+    _build.check(lib, err, "block_messages")
+    block_messages.launches += 1
+    return m
+
+
+block_messages.launches = 0
+
+
 def fused_block_messages(src_rows, bias_b, local, b0, wb, ln, SB):
     """Per block finish(src + bias), then segment aggregation (K14).
 
     src_rows/bias_b: (B, M, L) pre-gathered source rows and cached bias in the
     layout of ``ops.graph.build_block_plan``; local: (B, M) int32 block-local
-    segment ids in any order (== SB ⇒ padding); returns (B, SB, L) block
-    aggregates (unpack with the plan's ``unpack`` outside)."""
+    segment ids in any order (== SB ⇒ padding); L ≤ 512 on a CUDA tensor.
+    Returns (B, SB, L) block aggregates (unpack with the plan's ``unpack``
+    outside)."""
     if src_rows.device.type == "cpu":
         return reference_block_messages(src_rows, bias_b, local, b0, wb, ln, SB)
     if src_rows.ndim != 3:
@@ -362,10 +422,8 @@ def fused_block_messages(src_rows, bias_b, local, b0, wb, ln, SB):
     require(src_rows, (B, M, L), "block src rows")
     require(bias_b, (B, M, L), "block bias rows")
     require(local, (B, M), "block local", torch.int32)
-    if tuple(wb[0].shape) != (L, L):
-        raise ValueError(f"fused_block_messages: kernel {tuple(wb[0].shape)} for L {L}")
-    y = finish_gemm(src_rows.view(B * M, L), bias_b.view(B * M, L), b0, wb)
-    m = ln_rows(y, ln, out=y)
+    check_segment_sum(SB, M, L, "fused_block_messages")  # before the messages launch
+    m = block_messages(src_rows.view(B * M, L), bias_b.view(B * M, L), b0, wb, ln)
     out = segment_sum(m, local, SB)
     fused_block_messages.launches += 1
     return out

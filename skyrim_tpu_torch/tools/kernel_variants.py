@@ -3,7 +3,7 @@
     python -m skyrim_tpu_torch.tools.kernel_variants KIND [VARIANT ...]
 
 KIND is ``attention``, ``gemm``, ``round``, ``g2m``, ``m2g``, ``mlp``, ``lngemm``,
-``resample`` or ``ptxas``.  A VARIANT is a directory: an
+``resample``, ``messages`` or ``ptxas``.  A VARIANT is a directory: an
 edited copy of ``skyrim_tpu_torch/csrc`` (``""`` for the package's own, which
 is also what is timed when no variant is given).  The sources carry no
 build-time switches: an experiment is a copy with the change made in it.
@@ -41,7 +41,7 @@ variants.
   face tiles of the 721 x 1440 tables (uniq (91, 12, 192, 1536), L 512):
   the one launch ``skt_m2g_messages``, or, for a ``csrc`` that exports
   ``skt_m2g_gemm`` instead (the two-launch K8 before it), that GEMM and the
-  LayerNorm rows with nsum 3, alone and together.
+  LayerNorm rows summing three rows, alone and together.
 - ``mlp``: ``fused_mlp.cu``; K6 at its five full-width shapes (the
   feature-major ``embed_grid`` 174 -> 512 -> 512 with LayerNorm, the grid
   update and the decoder's node update, 512 (+ 512) -> 512 -> 512 with
@@ -77,6 +77,18 @@ variants.
   version (``ops/resample.py``) at the kernels' tolerance; ``torch.matmul``
   of the two products alone, (131,040 x 768) @ (768 x 384) and (131,040 x
   384) @ (384 x 768), timed beside them (a yardstick).
+- ``messages``: ``graph_finish.cu`` and ``fused_mlp.cu``; K13 at full width
+  (1,038,240 grid rows, deg 3, L 512) and K14 on the full-width grid->mesh
+  block plan ((201, 8192, 512), SB 328; built on the host first, about 10 s):
+  K13's one ``skt_fixed_degree_messages`` launch (also at deg 1 over the
+  first 1,038,240 rows of the same buffers) and K14's messages
+  (``skt_block_messages``) and segmented sum, alone and together; or, for a
+  ``csrc`` that exports ``skt_fixed_degree_gemm`` instead (the chains before
+  them), K13's GEMM and the LayerNorm rows summing three rows, and K14's
+  finish GEMM with its bias rows, the LayerNorm rows and the segmented sum,
+  alone and together.  K13's output over its first 4,200 points and K14's
+  messages over their first 4,096 rows are held against the plain versions
+  (ops/graph_kernels.py, ops/fused_mlp.py) at the kernels' tolerance.
 - ``ptxas``: no timing; every library of ``_build.LIBS`` from the first and
   the second directory given, compiled with ``-Xptxas -v``: each kernel whose
   register, stack or spill report differs between the two, then the count of
@@ -99,16 +111,33 @@ ROUNDS, LAUNCHES = 4, 20
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "round": ("graph_round", "fused_mlp"),
            "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp"), "mlp": ("fused_mlp",),
-           "lngemm": ("gemm", "fused_block"), "resample": ("resample", "gemm")}  # fmt: skip
+           "lngemm": ("gemm", "fused_block"), "resample": ("resample", "gemm"),
+           "messages": ("graph_finish", "fused_mlp")}  # fmt: skip
 REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
             "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",), "mlp": ("rowgemm",),
-            "lngemm": ("EpiGemm",), "resample": ("resample",)}  # fmt: skip
+            "lngemm": ("EpiGemm",), "resample": ("resample",), "messages": ("graph_finish",)}  # fmt: skip
 
 
 def _bind(lib, name, argtypes):
     fn = getattr(lib, name)
     fn.argtypes, fn.restype = argtypes, I
     return fn
+
+
+def _ln_rows(lib, src):
+    """``skt_ln_rows`` of a variant as ln(y, scale, shift, res, out, rows, C,
+    nsum, eps, stream), for a ``fused_mlp.cu`` with the nsum argument (rows
+    summed a LayerNorm, before K13 took one launch) or without it (nsum 1)."""
+    if "int nsum" in (src / "fused_mlp.cu").read_text():
+        return _bind(lib, "skt_ln_rows", [P, P, P, P, P, I, I, I, F, P])
+    fn = _bind(lib, "skt_ln_rows", [P, P, P, P, P, I, I, F, P])
+
+    def ln(y, scale, shift, res, out, rows, C, nsum, eps, stream):
+        if nsum != 1:
+            raise ValueError(f"this skt_ln_rows takes one row a LayerNorm, not {nsum}")
+        return fn(y, scale, shift, res, out, rows, C, eps, stream)
+
+    return ln
 
 
 def attention_cases(torch, libs, _src):
@@ -359,7 +388,7 @@ def host_costs(torch, label, lib, launches=1000):
           f"cudaFuncSetAttribute {ns[1]:.0f}, whole skt_mlp_gemm launch {ns[2]:.0f}")
 
 
-def round_cases(torch, libs, _src):
+def round_cases(torch, libs, src):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     B, M, Lw, SB = 322, 1024, 512, 176
@@ -376,7 +405,7 @@ def round_cases(torch, libs, _src):
     agg = torch.empty(B, SB, Lw, device=dev, dtype=torch.bfloat16)
     rg = _bind(libs["graph_round"], "skt_round_gemm", [P] * 7 + [I] * 4 + [P])
     mg = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
-    ln = _bind(libs["fused_mlp"], "skt_ln_rows", [P, P, P, P, P, I, I, I, F, P])
+    ln = _ln_rows(libs["fused_mlp"], src)
     ss = _bind(libs["fused_mlp"], "skt_segment_sum", [P, P, P, I, I, I, I, P])
     st = torch.cuda.current_stream().cuda_stream
     p = lambda t: t.data_ptr()  # noqa: E731
@@ -437,7 +466,7 @@ def g2m_cases(torch, libs, _src):
 _M2G_TILES = []
 
 
-def m2g_cases(torch, libs, _src):
+def m2g_cases(torch, libs, src):
     from skyrim_tpu_torch.ops.graph import build_face_tiles, build_graphs
 
     H, W, Lw = 721, 1440, 512
@@ -464,7 +493,7 @@ def m2g_cases(torch, libs, _src):
         return {"K8": (lambda: fn(p(uniq), p(local), p(bias), p(ad), p(b0), p(w), p(b), p(scale), p(shift), p(out),
                                   H, W, Lw, U, 8, 128, TW, 1e-6, st), flops)}  # fmt: skip
     gemm = _bind(lib, "skt_m2g_gemm", [P] * 8 + [I] * 7 + [P])
-    ln = _bind(libs["fused_mlp"], "skt_ln_rows", [P, P, P, P, P, I, I, I, F, P])
+    ln = _ln_rows(libs["fused_mlp"], src)
     y = torch.empty(3 * H * W, Lw, device=dev, dtype=torch.bfloat16)
 
     def first():
@@ -474,6 +503,109 @@ def m2g_cases(torch, libs, _src):
         return ln(p(y), p(scale), p(shift), None, p(out), H * W, Lw, 3, 1e-6, st)
 
     return {"K8": (lambda: first() or norm(), flops), "K8 gemm": (first, flops), "K8 ln_rows": (norm, None)}
+
+
+def _message_operands(torch):
+    """K13's and K14's full-width inputs, made once and shared by the variants."""
+    if "messages" not in _operands:
+        from skyrim_tpu_torch.ops.graph import build_block_plan, build_graphs
+
+        H, W, Lw, deg = 721, 1440, 512, 3
+        N = H * W
+        graphs = build_graphs(H, W, 6)
+        plan = build_block_plan(graphs["g2m_dst"], graphs["n_mesh"], target_rows=8192)
+        B, M = plan["local"].shape
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+
+        _operands["messages"] = dict(
+            N=N, deg=deg, L=Lw, B=B, M=M, SB=plan["SB"], wide=randn(N, deg * Lw, scale=0.3),
+            bias_w=randn(N, deg * Lw, scale=0.3), ad=randn(N, Lw, scale=0.3), src=randn(B * M, Lw),
+            bias=randn(B * M, Lw, scale=0.3), local=torch.from_numpy(plan["local"]).to(dev),
+            w=randn(Lw, Lw, scale=Lw**-0.5), b0=randn(Lw, scale=0.1, dtype=torch.float32),
+            b=randn(Lw, scale=0.1, dtype=torch.float32), scale=1 + randn(Lw, scale=0.1, dtype=torch.float32),
+            shift=randn(Lw, scale=0.1, dtype=torch.float32), out=torch.empty(N, Lw, device=dev, dtype=torch.bfloat16),
+            m=torch.empty(B * M, Lw, device=dev, dtype=torch.bfloat16),
+            agg=torch.empty(B, plan["SB"], Lw, device=dev, dtype=torch.bfloat16),
+        )  # fmt: skip
+    return _operands["messages"]
+
+
+def messages_cases(torch, libs, src):
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+    from skyrim_tpu_torch.ops import graph_kernels as GK
+
+    o = _message_operands(torch)
+    N, deg, Lw, B, M, SB = (o[k] for k in ("N", "deg", "L", "B", "M", "SB"))
+    lib, mlp = libs["graph_finish"], libs["fused_mlp"]
+    st = torch.cuda.current_stream().cuda_stream
+    p = lambda k: o[k].data_ptr()  # noqa: E731
+    seg = _bind(mlp, "skt_segment_sum", [P, P, P, I, I, I, I, P])
+    ln = _ln_rows(mlp, src)
+    f13, f14 = 2 * N * deg * Lw * Lw, 2 * B * M * Lw * Lw
+
+    def sums():
+        return seg(p("m"), p("local"), p("agg"), B, M, SB, Lw, st)
+
+    if hasattr(lib, "skt_fixed_degree_messages"):
+        k13 = _bind(lib, "skt_fixed_degree_messages", [P] * 9 + [I] * 3 + [F, P])
+        k14 = _bind(lib, "skt_block_messages", [P] * 8 + [I] * 2 + [F, P])
+
+        def fixed():
+            return k13(p("wide"), p("bias_w"), p("ad"), p("b0"), p("w"), p("b"), p("scale"), p("shift"), p("out"),
+                       N, Lw, deg, 1e-6, st)  # fmt: skip
+
+        def messages():
+            return k14(p("src"), p("bias"), p("b0"), p("w"), p("b"), p("scale"), p("shift"), p("m"), B * M, Lw, 1e-6, st)
+
+        def fixed1():  # deg 1 on the first N rows of the (3N, L) views
+            return k13(p("wide"), p("bias_w"), p("ad"), p("b0"), p("w"), p("b"), p("scale"), p("shift"), p("out"),
+                       N, Lw, 1, 1e-6, st)  # fmt: skip
+
+        cases = {"K13 one launch": (fixed, f13), "K13 deg 1 one launch": (fixed1, f13 // deg),
+                 "K14 messages": (messages, f14), "K14 segment_sum": (sums, None),
+                 "K14 messages + sum": (lambda: messages() or sums(), f14)}  # fmt: skip
+    else:
+        gemm13 = _bind(lib, "skt_fixed_degree_gemm", [P] * 7 + [I] * 3 + [P])
+        gemm14 = _bind(lib, "skt_finish_gemm", [P] * 6 + [I] * 3 + [P])
+        y = torch.empty(N * deg, Lw, device=o["out"].device, dtype=torch.bfloat16)
+
+        def fixed():
+            return (gemm13(p("wide"), p("bias_w"), p("ad"), p("b0"), p("w"), p("b"), y.data_ptr(), N, Lw, deg, st)
+                    or ln(y.data_ptr(), p("scale"), p("shift"), None, p("out"), N, Lw, deg, 1e-6, st))
+
+        def messages():
+            return (gemm14(p("src"), p("bias"), p("b0"), p("w"), p("b"), p("m"), B * M, Lw, Lw, st)
+                    or ln(p("m"), p("scale"), p("shift"), None, p("m"), B * M, Lw, 1, 1e-6, st))
+
+        def fixed1():
+            return (gemm13(p("wide"), p("bias_w"), p("ad"), p("b0"), p("w"), p("b"), y.data_ptr(), N, Lw, 1, st)
+                    or ln(y.data_ptr(), p("scale"), p("shift"), None, p("out"), N, Lw, 1, 1e-6, st))
+
+        cases = {"K13 chain": (fixed, f13), "K13 deg 1 chain": (fixed1, f13 // deg),
+                 "K14 messages (GEMM + LayerNorm rows)": (messages, f14),
+                 "K14 segment_sum": (sums, None), "K14 chain": (lambda: messages() or sums(), f14)}  # fmt: skip
+    # held against the plain versions on the first points and rows
+    o["out"].zero_()
+    o["m"].zero_()
+    fixed()
+    messages()
+    torch.cuda.synchronize()
+    n13, n14 = 21 * 200, 4096
+    wb, lnp = (o["w"], o["b"]), (o["scale"], o["shift"])
+    for case, out, ref in (
+        ("K13", o["out"][:n13], GK.reference_fixed_degree_messages(o["wide"][:n13], o["bias_w"][:n13], o["ad"][:n13],
+                                                                   o["b0"], wb, lnp, deg)),
+        ("K14 messages", o["m"][:n14], FM.reference_finish(o["src"][:n14].float() + o["bias"][:n14].float(), o["b0"],
+                                                           wb, lnp, torch.bfloat16)),
+    ):  # fmt: skip
+        ref = ref.float()
+        ratio = float(((out.float() - ref).abs() / (2e-2 * ref.std() + 2 * 2.0**-8 * ref.abs().max())).max())
+        print(f"{src}: {case}: max |kernel - plain| / limit = {ratio:.4g}{'  FAILS' if ratio > 1 else ''}")
+    return cases
 
 
 # K6's full-width shapes: name, rows, Cin, Cin2, Cout, residual (None: no
@@ -511,7 +643,7 @@ def _mlp_operands(torch, M, c1, c2, cout, xt):
 def mlp_cases(torch, libs, src):
     lib = libs["fused_mlp"]
     mg = _bind(lib, "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
-    ln = _bind(lib, "skt_ln_rows", [P, P, P, P, P, I, I, I, F, P])
+    ln = _ln_rows(lib, src)
     fin = _bind(lib, "skt_mlp_finish", [P] * 7 + [I] * 2 + [F, P]) if hasattr(lib, "skt_mlp_finish") else None
     fm_tma = "A_FEATURE_MAJOR_TMA" in (src / "fused_mlp.cu").read_text()
     st = torch.cuda.current_stream().cuda_stream
@@ -570,7 +702,7 @@ def mlp_yardsticks(torch, libs):
 
 
 CASES = {"attention": attention_cases, "gemm": gemm_cases, "round": round_cases, "g2m": g2m_cases, "m2g": m2g_cases,
-         "mlp": mlp_cases, "lngemm": lngemm_cases, "resample": resample_cases}  # fmt: skip
+         "mlp": mlp_cases, "lngemm": lngemm_cases, "resample": resample_cases, "messages": messages_cases}  # fmt: skip
 
 
 def ptxas_reports(srcs: list[Path]) -> int:

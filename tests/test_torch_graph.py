@@ -548,13 +548,13 @@ def test_mlp_kernel_matches_plain(cuda, case):
     kw = dict(x2=_t(a["x2"], torch.bfloat16, cuda), residual=_t(a["residual"], torch.bfloat16, cuda),
               x_transposed=xt)
     before = FM.fused_mlp.launches
-    ln_before, fin_before = sum(FM.ln_rows.launches_by_nsum.values()), sum(FM.mlp_finish.launches_by_shape.values())
+    ln_before, fin_before = sum(FM.ln_rows.launches_by_shape.values()), sum(FM.mlp_finish.launches_by_shape.values())
     out = FM.fused_mlp(*args, **kw)
     torch.cuda.synchronize()
     assert FM.fused_mlp.launches == before + 1
     finish = FM.mlp_paths(*GPU_MLP_CASES[case])[1]
     assert sum(FM.mlp_finish.launches_by_shape.values()) - fin_before == (finish == "rows_ln")
-    assert sum(FM.ln_rows.launches_by_nsum.values()) - ln_before == (finish == "gemm_ln_rows")
+    assert sum(FM.ln_rows.launches_by_shape.values()) - ln_before == (finish == "gemm_ln_rows")
     _close_card(out, FM.reference_mlp(*args, **kw))
 
 
@@ -572,10 +572,10 @@ def test_mlp_launches_ln_finish_and_head_chain(cuda):
     kernel; the head (Cout 83, no LayerNorm) still takes the second GEMM."""
     for case, finishes in (("ln_x2_residual_l512", 1), ("head_cout83", 0)):
         args, kw = _mlp_card_args(cuda, case)
-        ln_before, fin_before = dict(FM.ln_rows.launches_by_nsum), dict(FM.mlp_finish.launches_by_shape)
+        ln_before, fin_before = dict(FM.ln_rows.launches_by_shape), dict(FM.mlp_finish.launches_by_shape)
         FM.fused_mlp(*args, **kw)
         torch.cuda.synchronize()
-        assert FM.ln_rows.launches_by_nsum == ln_before
+        assert FM.ln_rows.launches_by_shape == ln_before
         M, L = GPU_MLP_CASES[case][0], GPU_MLP_CASES[case][4]
         key = (M, L, kw["residual"] is not None)
         assert FM.mlp_finish.launches_by_shape.get(key, 0) - fin_before.get(key, 0) == finishes
@@ -796,10 +796,10 @@ def test_m2g_kernel_matches_plain(cuda, shape, L):
     smaller than one tile (3 x 5), face tiles that do not divide the grid,
     and L 16 and 64 (columns and W rows past L read as 0) as well as 512."""
     args = _m2g_card_args(cuda, shape, L)
-    before, ln_before = GK.fused_m2g_tiled.launches, dict(FM.ln_rows.launches_by_nsum)
+    before, ln_before = GK.fused_m2g_tiled.launches, dict(FM.ln_rows.launches_by_shape)
     out = GK.fused_m2g_tiled(*args)
     torch.cuda.synchronize()
-    assert GK.fused_m2g_tiled.launches == before + 1 and FM.ln_rows.launches_by_nsum == ln_before
+    assert GK.fused_m2g_tiled.launches == before + 1 and FM.ln_rows.launches_by_shape == ln_before
     _close_card(out, GK.reference_m2g_tiled(*args))
 
 
@@ -915,22 +915,34 @@ def _g2m_messages_inputs(cuda, L):
     return asrc, bias, rows, b0, wb, ln, gt["D"]
 
 
+def _within_ulps(out, ref, n=2):
+    """Every element of out within n bf16 ulps of ref's value."""
+    ref = ref.float()
+    assert torch.isfinite(out.float()).all()
+    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-100))) - 7)
+    assert ((out.float() - ref).abs() <= n * ulp).all(), float(((out.float() - ref).abs() / ulp).max())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("L", [64, 512])
 def test_g2m_messages_match_gemm_ln_chain(cuda, L):
     """The fused messages kernel against the two-launch chain on the same
-    gathered rows (the finish GEMM, then the LayerNorm rows kernel): the
-    rounding points are the same, only the order of the LayerNorm's sums
-    differs, so within 2 bf16 ulps of the chain's value."""
+    gathered rows (the finish GEMM, rowgemm_kernel with its own swish
+    prologue, then the LayerNorm rows kernel): with one of its two sources
+    given the rows and the other zero ((x + 0) + b0 == x + b0 in f32, each
+    source in turn) the rounding points are the same and only the order of
+    the sums differs, so within 2 bf16 ulps of the chain's value.  With both
+    sources, against K14's messages on the same rows gathered beforehand."""
     asrc, bias, rows, b0, wb, ln, D = _g2m_messages_inputs(cuda, L)
-    m = GK.g2m_messages(asrc, bias, rows, b0, wb, ln, D)
     r = rows.long()
-    y = FM.finish_gemm(asrc.view(-1, L)[r // D].contiguous(), bias.view(-1, L)[r].contiguous(), b0, wb)
-    ref = FM.ln_rows(y, ln, out=y).float()
-    torch.cuda.synchronize()
-    assert torch.isfinite(m.float()).all()
-    ulp = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(2.0**-100))) - 7)
-    assert ((m.float() - ref).abs() <= 2 * ulp).all(), float(((m.float() - ref).abs() / ulp).max())
+    src = asrc.view(-1, L)[r // D].contiguous()
+    y = FM.finish_gemm(src, b0, wb)
+    chain = FM.ln_rows(y, ln, out=y)
+    as_bias = asrc.view(-1, L).repeat_interleave(D, 0).view(bias.shape)  # bias row r = asrc row r // D
+    for a, bb in ((asrc, torch.zeros_like(bias)), (torch.zeros_like(asrc), as_bias)):
+        _within_ulps(GK.g2m_messages(a, bb, rows, b0, wb, ln, D), chain)
+    m = GK.g2m_messages(asrc, bias, rows, b0, wb, ln, D)
+    _within_ulps(m, GK.block_messages(src, bias.view(-1, L)[r].contiguous(), b0, wb, ln))
 
 
 @pytest.mark.gpu

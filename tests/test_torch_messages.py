@@ -17,8 +17,10 @@ and runs the GPU tests of this file alone.
 
 GPU (marker ``gpu``, skipped without a card): each kernel against its plain
 version on the card in bf16 at shapes that take the ragged paths (N not a
-multiple of 128, Cout != L, deg 2 and 3, unsorted and all-padding
-``local``).  Tolerance, as for K6-K9: elementwise |kernel − plain| ≤
+multiple of 128 nor of K13's points a tile, Cout != L, deg 1 to 4, L up to
+512, unsorted, shuffled and all-padding ``local``), its launches counted
+(K13 one, K14 two), its TMA stores into 64 guard rows, and its refusal of
+L > 512.  Tolerance, as for K6-K9: elementwise |kernel − plain| ≤
 2e-2·std(plain) + 2 bf16 ulps of max|plain|.
 """
 
@@ -135,17 +137,20 @@ def test_fused_fixed_degree_messages_matches_jax(case):
 
 # --- K14 ---------------------------------------------------------------------
 
-BLOCK_CASES = ("sorted", "unsorted", "one_block_all_padding", "sb_not_multiple_of_8")
+BLOCK_CASES = ("sorted", "unsorted", "shuffled", "one_block_all_padding", "sb_not_multiple_of_8")
 
 
 def _block_inputs(case, B=4, M=64, SB=16, L=16, seed=12):
-    """As tests/ops/test_fused_mlp.py:101: local ids in [0, SB], SB = padding."""
+    """As tests/ops/test_fused_mlp.py:101: local ids in [0, SB], SB = padding;
+    "shuffled": a sorted plan's ids permuted within each block."""
     rng = np.random.default_rng(seed)
     if case == "sb_not_multiple_of_8":
         SB = 13
     local = rng.integers(0, SB + 1, size=(B, M))
     if case != "unsorted":
         local = np.sort(local, axis=-1)
+    if case == "shuffled":
+        local = np.stack([row[rng.permutation(M)] for row in local])
     if case == "one_block_all_padding":
         local[1] = SB
     assert (local == SB).any()  # padding rows are on the path
@@ -216,21 +221,61 @@ def test_finish_kernel_matches_plain(cuda, case):
     _close_card(out, FM.reference_finish(*args, torch.bfloat16))
 
 
-GPU_FIXED_CASES = {"n1000_l64_deg3": (1000, 64, 3), "n333_l64_deg2": (333, 64, 2), "n129_l128_deg4": (129, 128, 4)}
+GPU_FIXED_CASES = {"n1000_l64_deg3": (1000, 64, 3), "n333_l64_deg2": (333, 64, 2), "n129_l128_deg4": (129, 128, 4),
+                   "n1000_l64_deg1": (1000, 64, 1), "n300_l512_deg3": (300, 512, 3)}
+
+
+def test_rows_ln_tile_by_group():
+    """K13's tile at deg 1 to 4: whole points of deg rows within 64 rows."""
+    assert [GK.rows_ln_tile(g) for g in (1, 2, 3, 4)] == [(64, 64), (64, 32), (63, 21), (64, 16)]
+    with pytest.raises(ValueError, match="1 to 4"):
+        GK.rows_ln_tile(5)
+
+
+def test_gpu_fixed_cases_end_in_partial_tiles():
+    """Every card case of K13 ends in a partial tile and every deg is on the card."""
+    assert {deg for _, _, deg in GPU_FIXED_CASES.values()} == {1, 2, 3, 4}
+    assert all(N % GK.rows_ln_tile(deg)[1] for N, _, deg in GPU_FIXED_CASES.values())
+
+
+def test_check_segment_sum_limits():
+    """The segmented sum's one limit, taken by segment_sum and by K14's
+    wrapper before its messages launch: S·512 + R·4 bytes of shared memory
+    within a block's, and C even."""
+    from skyrim_tpu_torch.ops import _build
+
+    FM.check_segment_sum(328, 8192, 512)  # K14 at GraphCast's full width
+    S = (_build.MAX_SMEM - 4 * 8192) // 512
+    FM.check_segment_sum(S, 8192, 512)
+    with pytest.raises(ValueError, match="fused_block_messages: S .* shared memory"):
+        FM.check_segment_sum(S + 1, 8192, 512, "fused_block_messages")
+    with pytest.raises(ValueError, match="must be even"):
+        FM.check_segment_sum(8, 64, 63)
+
+
+def _message_kernel_launches():
+    """Launches of every kernel K13 and K14 may take, summed."""
+    return (GK.fused_fixed_degree_messages.launches + GK.block_messages.launches + FM.segment_sum.launches
+            + FM.finish_gemm.launches + sum(FM.ln_rows.launches_by_shape.values()))
+
+
+def _fixed_card_args(cuda, N, L, deg, seed=1):
+    rng = np.random.default_rng(seed)
+    bf = torch.bfloat16
+    return (_t(_n(rng, N, deg * L), bf, cuda), _t(_n(rng, N, deg * L, s=0.3), bf, cuda), _t(_n(rng, N, L, s=0.3), bf, cuda),
+            *_t(_finish_params(rng, L), device=cuda), deg)  # fmt: skip
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(GPU_FIXED_CASES))
 def test_fixed_degree_kernel_matches_plain(cuda, case):
     N, L, deg = GPU_FIXED_CASES[case]
-    rng = np.random.default_rng(1)
-    bf = torch.bfloat16
-    args = (_t(_n(rng, N, deg * L), bf, cuda), _t(_n(rng, N, deg * L, s=0.3), bf, cuda), _t(_n(rng, N, L, s=0.3), bf, cuda),
-            *_t(_finish_params(rng, L), device=cuda), deg)  # fmt: skip
-    before = GK.fused_fixed_degree_messages.launches
+    args = _fixed_card_args(cuda, N, L, deg)
+    before, kernels = GK.fused_fixed_degree_messages.launches, _message_kernel_launches()
     out = GK.fused_fixed_degree_messages(*args)
     torch.cuda.synchronize()
     assert GK.fused_fixed_degree_messages.launches == before + 1
+    assert _message_kernel_launches() == kernels + 1  # one launch, no chain
     _close_card(out, GK.reference_fixed_degree_messages(*args))
 
 
@@ -240,13 +285,99 @@ def test_block_kernel_matches_plain(cuda, case):
     a = _block_inputs(case, B=6, M=250, SB=48, L=64)
     bf = torch.bfloat16
     args = (*_t(a[:2], bf, cuda), _t(a[2], device=cuda), *_t(a[3:6], device=cuda), a[6])
-    before = GK.fused_block_messages.launches
+    before, kernels = GK.fused_block_messages.launches, _message_kernel_launches()
+    msgs, sums = GK.block_messages.launches, FM.segment_sum.launches
     out = GK.fused_block_messages(*args)
     torch.cuda.synchronize()
     assert GK.fused_block_messages.launches == before + 1
+    assert (GK.block_messages.launches, FM.segment_sum.launches) == (msgs + 1, sums + 1)
+    assert _message_kernel_launches() == kernels + 2  # the messages, then the sum
     _close_card(out, GK.reference_block_messages(*args))
     if case == "one_block_all_padding":
         assert not out[1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [64, 512])
+def test_messages_match_gemm_ln_chain(cuda, L):
+    """K14's messages and K13 at deg 1 against the two-launch chain on the
+    same rows (the finish GEMM, rowgemm_kernel with its own swish prologue,
+    then the LayerNorm rows kernel): each source of the prologue given the
+    rows in turn and the others zero ((x + 0) + b0 == x + b0 in f32), so the
+    rounding points are the same and only the order of the LayerNorm's sums
+    differs.  Within 2 bf16 ulps of the chain's value plus four f32 roundings
+    (2^-22) of the LayerNorm's last terms |(y - mean)·rstd·scale| + |shift|:
+    where those cancel, the f32 rounding of two LayerNorms can exceed a bf16
+    ulp of the result.  The check's power: the LayerNorm of the product
+    before its bf16 rounding must fail it."""
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    rng = np.random.default_rng(8)
+    M = 1000  # not a multiple of the 64-row tile
+    x = _t(_n(rng, M, L), torch.bfloat16, cuda)
+    b0, (w, b), ln = _t(_finish_params(rng, L), device=cuda)
+    wb = (w * (16 / L) ** 0.5, b)  # unit-variance products at any width
+    scale, shift = (v.double() for v in ln)
+
+    def layernorm(y):  # f64, and its last terms' magnitude
+        mean, var = y.mean(1, keepdim=True), y.var(1, unbiased=False, keepdim=True)
+        t = (y - mean) * torch.rsqrt(var + _EPS) * scale
+        return t + shift, t.abs() + shift.abs()
+
+    y = FM.finish_gemm(x, b0, wb)
+    _, terms = layernorm(y.double())
+    chain = FM.ln_rows(y, ln, out=y).double()
+    tol = 2 * torch.exp2(torch.floor(torch.log2(chain.abs().clamp_min(2.0**-100))) - 7) + 2.0**-22 * terms
+
+    def over(out):
+        return float(((out.double() - chain).abs() / tol).max())
+
+    z = torch.zeros_like(x)
+    outs = [GK.block_messages(x, z, b0, wb, ln), GK.block_messages(z, x, b0, wb, ln)]
+    outs += [GK.fused_fixed_degree_messages(*srcs, b0, wb, ln, 1) for srcs in ((x, z, z), (z, x, z), (z, z, x))]
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.isfinite(out.float()).all()
+        assert over(out) <= 1, over(out)
+    h = x.float() + b0
+    h = (h * torch.sigmoid(h)).to(torch.bfloat16)
+    unrounded, _ = layernorm(h.double() @ wb[0].to(torch.bfloat16).double() + b.double())
+    assert over(unrounded) > 1, over(unrounded)
+
+
+@pytest.mark.gpu
+def test_message_kernels_guard_rows(cuda):
+    """K13's and K14's messages' TMA stores into outputs with 64 sentinel rows
+    past the end (partial last tiles at deg 3 and 1): the guard rows come back
+    unchanged, the rows before them equal the wrappers' outputs."""
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    sentinel, st = 0x7FA5, torch.cuda.current_stream().cuda_stream
+    lib = GK._messages_lib()
+    for N, L, deg in ((1000, 64, 3), (1000, 64, 1)):
+        wide, bias_w, ad, b0, (w, b), (scale, shift), _ = _fixed_card_args(cuda, N, L, deg, seed=3)
+        buf = torch.full((N + 64, L), sentinel, dtype=torch.int16, device=cuda)
+        w16 = w.to(torch.bfloat16)
+        err = lib.skt_fixed_degree_messages(wide.data_ptr(), bias_w.data_ptr(), ad.data_ptr(), b0.data_ptr(),
+                                            w16.data_ptr(), b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                                            buf.data_ptr(), N, L, deg, _EPS, st)  # fmt: skip
+        assert err == 0
+        out = GK.fused_fixed_degree_messages(wide, bias_w, ad, b0, (w, b), (scale, shift), deg)
+        torch.cuda.synchronize()
+        assert (buf[N:] == sentinel).all()
+        assert torch.equal(buf[:N].view(torch.bfloat16), out)
+    a = _block_inputs("sorted", B=6, M=250, SB=48, L=64)
+    src, bias = (_t(x, torch.bfloat16, cuda).view(-1, 64) for x in a[:2])
+    b0, (w, b), (scale, shift) = _t(a[3:6], device=cuda)
+    R, w16 = src.shape[0], w.to(torch.bfloat16)
+    buf = torch.full((R + 64, 64), sentinel, dtype=torch.int16, device=cuda)
+    err = lib.skt_block_messages(src.data_ptr(), bias.data_ptr(), b0.data_ptr(), w16.data_ptr(), b.data_ptr(),
+                                 scale.data_ptr(), shift.data_ptr(), buf.data_ptr(), R, 64, _EPS, st)  # fmt: skip
+    assert err == 0
+    m = GK.block_messages(src, bias, b0, (w, b), (scale, shift))
+    torch.cuda.synchronize()
+    assert (buf[R:] == sentinel).all()
+    assert torch.equal(buf[:R].view(torch.bfloat16), m)
 
 
 @pytest.mark.gpu
@@ -272,3 +403,12 @@ def test_message_wrappers_raise_on_unsupported_cuda_input(cuda):
         GK.fused_block_messages(src.float(), src, torch.zeros(2, 50, device=cuda, dtype=torch.int32), b0, wb, ln, 8)
     with pytest.raises(ValueError, match="shared memory"):
         GK.fused_block_messages(src, src, torch.zeros(2, 50, device=cuda, dtype=torch.int32), b0, wb, ln, 500)
+    # rows wider than one block holds (512 columns)
+    b0w, wbw, lnw = _t(_finish_params(rng, 520), device=cuda)
+    wide = torch.zeros(10, 3 * 520, device=cuda, dtype=torch.bfloat16)
+    adw = torch.zeros(10, 520, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="L <= 512"):
+        GK.fused_fixed_degree_messages(wide, wide, adw, b0w, wbw, lnw, 3)
+    srcw = torch.zeros(2, 50, 520, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="L <= 512"):
+        GK.fused_block_messages(srcw, srcw, torch.zeros(2, 50, device=cuda, dtype=torch.int32), b0w, wbw, lnw, 8)
