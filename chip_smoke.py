@@ -60,7 +60,13 @@ Phases:
      scaled_dot_product_attention (timed only), each row named with the kernel body its shape takes
      (ops/flash_window_attention.py attention_body); K5 and K1 at FuXi's V1
      trunk geometry (window (1, 6, 12), wlen
-     72, hd 64; K1 there on its seven-launch chain, C 1536); K12 over the grid rows and the mesh edges; K13 over the grid
+     72, hd 64; K1 there on its seven-launch chain, C 1536); K12 over the grid
+     rows and the mesh edges, one launch a call (timed over 20 after 5),
+     within 2 ulps of its two-launch chain (the finish GEMM, then the
+     LayerNorm rows; timed beside it), its store into an output with 64
+     guard rows past its rows, and its output under three faults (b0
+     dropped, each row's LayerNorm statistics taken from the next row, the
+     LayerNorm applied before the bf16 rounding of the product); K13 over the grid
      rows, deg 3, one launch a call (timed over 20 after 5, and 20 single
      launches' least, median and most), its store into an output with 64 guard
      rows past N, which must come back bit-identical, and its output under
@@ -74,7 +80,8 @@ Phases:
      must refuse every faulty output.  These ops are entry points of their
      own: each row's launch count is read around one call of the public
      wrapper, the count set to 0 just before;
-  4. the main paths, each after a garbage collection and an emptied cache,
+  4. the main paths, run right after the build and before phase 3, so that
+     phase 3's full-width buffers cannot shift what they measure, each after a garbage collection and an emptied cache,
      with every launch count set to 0 just before and
      read just after: GlobalModel("pangu", ic_source="synthetic") at
      721x1440, a 4-step forecast (16 K1, 16 K2, 1 K3, 1 K4 per forward;
@@ -93,7 +100,16 @@ Phases:
      Then the module path: the full-width net's stage-1 and stage-2
      EarthAttention3D modules (one unshifted, one shifted block each),
      forward(x, mask) against the plain composition, 4 K5 launches and no K1
-     (K5's stage rows report this count, 2 per stage);
+     (K5's stage rows report this count, 2 per stage).  Then the facade:
+     Skyrim("pangu", ic_source="file:<IC>").predict(date, "0000",
+     lead_time=13, save=True) at 721x1440, the IC written by the port, the
+     parameters a seeded init saved as the port's checkpoint and found by
+     weights.load_params: 12 h, 2 steps, 2 files, 2 forwards' launches, the
+     last file equal to the returned prediction and that equal bit for bit
+     to GlobalModel.rollout's last frame, the loaded parameters equal leaf
+     for leaf to the checkpoint's; its wall time split into IC read, NetCDF
+     writes and the other host time on the host clock, beside the two
+     steps' device time by CUDA events;
   5. the small test configurations on the card (kernels) against the CPU
      (plain versions), 4 steps each.
 
@@ -105,8 +121,10 @@ any failure, without a CUDA device, or outside a checkout of the repo.
 from __future__ import annotations
 
 import datetime
+import contextlib
 import gc
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1040,16 +1058,16 @@ def attention_op_checks(torch, g) -> list[dict]:
 
 
 def message_launches(torch, wrapper, args, expect: int, path: str) -> str:
-    """One call of K13 or K14 with the launches of every kernel either may
-    take counted (K13's own, K14's messages, the segmented sum, the finish
-    GEMM and the LayerNorm rows of the chains they replaced): K13 must be one
-    launch and K14 two."""
+    """One call of K12, K13 or K14 with the launches of every kernel any of
+    them may take counted (K12's one launch, K13's own, K14's messages, the
+    segmented sum, the finish GEMM and the LayerNorm rows of the chains):
+    K12 and K13 must be one launch and K14 two."""
     from skyrim_tpu_torch.ops import fused_mlp as FM
     from skyrim_tpu_torch.ops import graph_kernels as GK
 
     def count():
         return (GK.fused_fixed_degree_messages.launches + GK.block_messages.launches + FM.segment_sum.launches
-                + FM.finish_gemm.launches + sum(FM.ln_rows.launches_by_shape.values()))
+                + FM.finish_rows_ln.launches + FM.finish_gemm.launches + sum(FM.ln_rows.launches_by_shape.values()))
 
     before = count()
     wrapper(*args)
@@ -1072,14 +1090,84 @@ def message_guard_rows(torch, lib_fn, n, L, out, what) -> None:
     log(f"{what} stored into {GUARD_ROWS} guard rows past its {n} rows: unchanged; two runs: the same bits")
 
 
+def finish_chain(torch, x, b0, wb, ln):
+    """K12's two-launch chain on the same rows, kernels independent of its
+    one launch: the finish GEMM (rowgemm_kernel, the swish in its A loader),
+    then the LayerNorm rows kernel.  Returns (y, chain): the bf16 product
+    and the chain's output."""
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+
+    y = FM.finish_gemm(x, b0, wb)
+    return y, FM.ln_rows(y, ln, out=torch.empty_like(y))
+
+
+def chain_over(torch, outs, y, chain, ln) -> list[float]:
+    """max |out - chain| / limit for each of outs, the limit 2 bf16 ulps of
+    the chain's value plus four f32 roundings (2^-22) of the LayerNorm's last
+    terms |(y - mean)·rstd·scale| + |shift| (where those cancel, the f32
+    rounding of two LayerNorms can exceed a bf16 ulp of the result), as
+    tests/test_torch_messages.py holds K12-K14 to the chain.  In f64, 2^17
+    rows at a time."""
+    from skyrim_tpu_torch.ops.fused_block import _EPS
+
+    scale, shift = (v.double() for v in ln)
+    worst = [0.0] * len(outs)
+    for r0 in range(0, y.shape[0], 1 << 17):
+        rows = slice(r0, r0 + (1 << 17))
+        yy = y[rows].double()
+        mean, var = yy.mean(1, keepdim=True), yy.var(1, unbiased=False, keepdim=True)
+        terms = ((yy - mean) * torch.rsqrt(var + _EPS) * scale).abs() + shift.abs()
+        c = chain[rows].double()
+        tol = 2 * torch.exp2(torch.floor(torch.log2(c.abs().clamp_min(2.0**-100))) - 7) + 2.0**-22 * terms
+        for i, out in enumerate(outs):
+            worst[i] = max(worst[i], float(((out[rows].double() - c).abs() / tol).max()))
+    return worst
+
+
+def finish_faults(torch, args, y, chain, ref) -> dict:
+    """K12's output under three faults, each refused by its check against the
+    chain (and reported under the plain version's rule): b0 dropped (through
+    the kernel); each row's LayerNorm statistics taken from the next row; the
+    LayerNorm applied to the product before its bf16 rounding."""
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+    from skyrim_tpu_torch.ops.fused_block import _EPS, _layernorm_f32
+
+    x, b0, wb, ln = args
+    bf16 = torch.bfloat16
+
+    def next_row_statistics():
+        yf = y.float()
+        nxt = torch.roll(yf, -1, 0)
+        mean, var = nxt.mean(1, keepdim=True), nxt.var(1, unbiased=False, keepdim=True)
+        return ((yf - mean) * torch.rsqrt(var + _EPS) * ln[0].float() + ln[1].float()).to(bf16)
+
+    def layernorm_before_rounding():
+        h = FM._swish_f32(x.float() + b0.float()).to(bf16)
+        return _layernorm_f32(h.float() @ wb[0].to(bf16).float() + wb[1].float(), *ln).to(bf16)
+
+    out = {}
+    for fault, make in (("K12: b0 dropped", lambda: FM.fused_finish(x, torch.zeros_like(b0), wb, ln)),
+                        ("K12: each row's LayerNorm statistics taken from the next row", next_row_statistics),
+                        ("K12: the LayerNorm applied before the bf16 rounding of y", layernorm_before_rounding)):
+        bad = make()
+        out[fault] = {"chain": chain_over(torch, [bad], y, chain, ln)[0], "max": over_limit(torch, bad, ref, False)}
+        del bad
+        log(f"{fault}: max err/limit {out[fault]['chain']:.4g} under the chain check (2 ulps of the chain), "
+            f"{out[fault]['max']:.4g} under the plain check (2 ulps of max|plain|)")
+        check(out[fault]["chain"] > 1, f"K12's check passed a faulty output: {fault}")
+    return out
+
+
 def message_op_checks(torch, g) -> tuple[list[dict], dict, dict]:
     """Phase 3, the finish and untiled message ops at GraphCast's full width:
     K12 over the grid rows and the mesh edges, K13 over the grid rows (deg 3),
-    K14 on the grid->mesh block plan.  K13 and K14 name their path and
-    launches a call, store into 64 guard rows, and their checks must refuse
-    faulty outputs (K13 three, K14 two).  Returns the rows, how far over its
-    limit each faulty output lies, and the parts: K13's single launches
-    (least, median, most of 20) and K14's two launches timed apart."""
+    K14 on the grid->mesh block plan.  Each names its path and launches a
+    call and stores into 64 guard rows; K12 is also held within 2 ulps of its
+    two-launch chain, timed beside it; the checks must refuse faulty outputs
+    (K12 three, K13 three, K14 two).  Returns the rows, how far over its
+    limit each faulty output lies, and the parts: K12's chain timed at both
+    shapes, K13's single launches (least, median, most of 20) and K14's two
+    launches timed apart."""
     from skyrim_tpu_torch.models.graphcast import GraphCastConfig
     from skyrim_tpu_torch.ops import fused_mlp as FM
     from skyrim_tpu_torch.ops import graph as G
@@ -1107,14 +1195,30 @@ def message_op_checks(torch, g) -> tuple[list[dict], dict, dict]:
         return (b0.float().contiguous(), wb[0].to(bf16).contiguous(), wb[1].float().contiguous(),
                 ln[0].float().contiguous(), ln[1].float().contiguous())
 
-    rows, faults = [], {}
+    rows, faults, parts = [], {}, {}
+    flib = FM._finish_lib()
     for what, n in (("grid rows", N), ("mesh edges", len(graphs["mesh_dst"]))):
         args = (randn(n, L, dtype=bf16), *finish_params())
-        op_row(torch, rows, f"K12 fused_finish {what} ({n}, {L})->{L}", src, "skyrim_tpu/ops/fused_mlp.py:247",
-               FM.fused_finish, args, lambda x, b0, wb, ln: FM.reference_finish(x, b0, wb, ln, bf16),
-               2 * n * L * L, 2 * n * 2 * L + 2 * L * L)
-        del args
+        check(FM.finish_path(L, L) == "rows_ln", f"K12 at ({n}, {L}) -> {L} takes {FM.finish_path(L, L)}")
+        path = message_launches(torch, FM.fused_finish, args, 1, "rows_ln<1>, the swish in place")
+        plain = lambda x, b0, wb, ln: FM.reference_finish(x, b0, wb, ln, bf16)  # noqa: E731
+        out = op_row(torch, rows, f"K12 fused_finish {what} ({n}, {L})->{L} {path}", src,
+                     "skyrim_tpu/ops/fused_mlp.py:247", FM.fused_finish, args, plain,
+                     2 * n * L * L, 2 * n * 2 * L + 2 * L * L, iters=20, warmup=5)
+        y, chain = finish_chain(torch, *args)
+        over = chain_over(torch, [out], y, chain, args[3])[0]
+        log(f"K12 {what}: max |one launch - chain| / limit = {over:.4g} (2 ulps of the chain)")
+        check(over <= 1, f"K12 {what}: one launch {over:.3g}x its limit from the two-launch chain")
+        parts[f"k12_{what.replace(' ', '_')}_chain_ms"] = time_ms(torch, lambda: finish_chain(torch, *args), 20, 5)
+        ops = operands(*args[1:])
+        message_guard_rows(torch, lambda buf: flib.skt_finish_rows_ln(
+            args[0].data_ptr(), *(t.data_ptr() for t in ops), buf.data_ptr(), n, L, _EPS, stream), n, L, out,
+            f"K12 {what}")
+        if what == "grid rows":
+            faults.update(finish_faults(torch, args, y, chain, plain(*args)))
+        del args, out, y, chain, ops
         torch.cuda.empty_cache()
+    log(f"K12's chain at full width: {parts}")
 
     # K13 over the grid rows, deg 3: one launch of rows_ln_kernel<3>
     deg = 3
@@ -1128,7 +1232,7 @@ def message_op_checks(torch, g) -> tuple[list[dict], dict, dict]:
                  iters=20, warmup=5)
     # one launch at a time: the spread of single launches beside the mean of 20
     single = sorted(time_ms(torch, lambda: GK.fused_fixed_degree_messages(*args), 1, 0) for _ in range(20))
-    parts = {"k13_single_launch_ms": {"min": single[0], "median": single[10], "max": single[-1]}}
+    parts["k13_single_launch_ms"] = {"min": single[0], "median": single[10], "max": single[-1]}
     log(f"K13 single launches at full width: {parts['k13_single_launch_ms']}")
     wide, bias_w, ad, b0, wb, ln = args[:6]
     ops = operands(b0, wb, ln)
@@ -1351,6 +1455,20 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     return counts, by_shape
 
 
+@contextlib.contextmanager
+def weights_dir(path):
+    """SKYRIM_WEIGHTS_DIR set to path inside the block, restored after."""
+    before = os.environ.get("SKYRIM_WEIGHTS_DIR")
+    os.environ["SKYRIM_WEIGHTS_DIR"] = str(path)
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("SKYRIM_WEIGHTS_DIR")
+        else:
+            os.environ["SKYRIM_WEIGHTS_DIR"] = before
+
+
 def main_path(torch, model_name: str, g) -> dict:
     """Phase 4: a full-width forecast through GlobalModel, with the launch
     counts of the forecast, then per-step times, a profile and a saved
@@ -1363,10 +1481,11 @@ def main_path(torch, model_name: str, g) -> dict:
     gc.collect()  # the earlier phases' tensors and the objects that held them, gone before the forecast is timed
     torch.cuda.empty_cache()
     reset_counts()
-    t0 = time.perf_counter()
-    gm = GlobalModel(model_name, ic_source="synthetic", seed=0, device="cuda")
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as empty, weights_dir(empty):  # the seed-0 init, whatever HOME holds
+        t0 = time.perf_counter()
+        gm = GlobalModel(model_name, ic_source="synthetic", seed=0, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
     setup_counts = {k: v for k, v in read_counts()[0].items() if v}
     log(f"{model_name}: set-up {setup_s:.1f} s (tables, parameters, cache), launches {setup_counts}")
     if model_name == "graphcast":  # the cache: embed_mesh, embed_mm and the two edge embeddings
@@ -1427,6 +1546,117 @@ def main_path(torch, model_name: str, g) -> dict:
     torch.cuda.empty_cache()
     return dict(counts=counts, by_shape=by_shape, n_steps=n_steps, setup_launches=setup_counts, setup_s=setup_s,
                 forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile, modules=modules)
+
+
+def facade_path(torch) -> dict:
+    """Phase 4, the facade: Skyrim("pangu", ic_source="file:<IC>").predict
+    at full width, the IC the synthetic source's frame written as NetCDF
+    by the port, the parameters a seed-1 init saved as the port's
+    checkpoint and found by weights.load_params (no params given; the
+    facade's own seed is 0, so a fall-back to the init would differ from
+    the checkpoint, which the loaded tree is held equal to leaf for leaf).
+    13 h must floor to 12 h (2 steps, 2 files, 2 forwards' launches), the
+    last file must read back as the returned prediction, and the prediction
+    must equal GlobalModel.rollout's final frame from the same IC and
+    parameters bit for bit (every kernel of Pangu's path gives the same bits
+    on every run, phase 3).  The wall time split on the host clock into IC
+    read (file to device state), NetCDF writes and the rest (the steps'
+    launches and the device-to-host copies), beside the steps' device time
+    by CUDA events around each model.advance."""
+    import numpy as np
+
+    from skyrim_tpu_torch.core import GlobalModel, GlobalPrediction, Skyrim
+    from skyrim_tpu_torch.core import model as core_model
+    from skyrim_tpu_torch.data import get_data_source
+    from skyrim_tpu_torch.io import SaveConfig, write_netcdf
+    from skyrim_tpu_torch.models import MODELS
+    from skyrim_tpu_torch.params import flatten, to_tree
+    from skyrim_tpu_torch.weights import save_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = datetime.datetime(2024, 1, 1, 0)
+    spent = {"ic_read_s": 0.0, "netcdf_write_s": 0.0}
+    events = []
+
+    def timed(fn, key, sync=False):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp, weights_dir(Path(tmp) / "weights"):
+        model = MODELS["pangu"](device="cuda")
+        ic_field = get_data_source(model.in_channel_names, "synthetic", grid=model.grid).fetch(start)
+        ic = Path(tmp) / "ic.nc"
+        write_netcdf(ic_field, ic)
+        tree = to_tree(model.init_params(torch.Generator().manual_seed(1)))
+        save_checkpoint("pangu", tree)
+        saved = flatten(tree)
+        del model
+        sky = Skyrim("pangu", ic_source=f"file:{ic}")
+        loaded = flatten(to_tree(sky.model.params))
+        check(loaded.keys() == saved.keys() and all(np.array_equal(loaded[k], saved[k]) for k in saved),
+              "the facade's parameters are not the checkpoint's")
+        del tree, saved, loaded
+        net = sky.model.model
+        advance = net.advance
+
+        def timed_advance(*a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = advance(*a, **kw)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        init_state, save = GlobalModel._initial_state, core_model.save_forecast
+        GlobalModel._initial_state = timed(init_state, "ic_read_s", sync=True)
+        core_model.save_forecast = timed(save, "netcdf_write_s")
+        net.advance = timed_advance
+        try:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred, paths = sky.predict(start.strftime("%Y%m%d"), "0000", lead_time=13, save=True,
+                                      save_config=SaveConfig(forecast_id="smoke", output_dir=str(Path(tmp) / "out")))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts, by_shape = read_counts()
+        finally:
+            GlobalModel._initial_state, core_model.save_forecast = init_state, save
+            del net.advance
+        expect, expect_shape = expected_launches(sky.model.model, 2)
+        for k, v in expect.items():
+            check(counts[k] == v, f"the facade launched {k} {counts[k]} times, expected {v}")
+        check(by_shape["K1"] == expect_shape["K1"], f"the facade launched K1 by shape {by_shape['K1']}")
+        check(isinstance(pred, GlobalPrediction) and len(paths) == 2 and len(events) == 2,
+              f"predict(lead_time=13) saved {len(paths)} files in {len(events)} steps")
+        # the first file's name embeds the whole ic_source, as in the JAX package
+        check(paths[0].endswith(f"pangu__file:{ic}__20240101_00:00__20240101_06:00.nc")
+              and Path(paths[1]).name == "pangu__file__20240101_06:00__20240101_12:00.nc",
+              f"the facade's files {paths}")
+        data = pred.prediction.data
+        check(data.shape == (1, 69, 721, 1440) and bool(np.isfinite(data).all()), f"prediction {data.shape}")
+        np.testing.assert_array_equal(GlobalPrediction(paths[-1]).prediction.data, data)
+        last, _ = GlobalModel("pangu", ic_source=f"file:{ic}", params=sky.model.params).rollout(start, n_steps=2,
+                                                                                               save=False)
+        diff = float(np.abs(last.data.astype(np.float64) - data).max())
+        check(diff == 0.0, f"the facade's prediction differs from GlobalModel.rollout's by {diff}")
+        del sky, pred, last
+    torch.cuda.empty_cache()
+    steps_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    rest_s = wall_s - spent["ic_read_s"] - spent["netcdf_write_s"]
+    log(f"facade: predict(lead_time=13) -> 2 steps, {[Path(p).name for p in paths]}, equal to GlobalModel.rollout, "
+        f"parameters the checkpoint's; wall {wall_s:.3f} s = IC read {spent['ic_read_s']:.3f} + NetCDF writes "
+        f"{spent['netcdf_write_s']:.3f} + other host {rest_s:.3f} s (host clock); the steps on the device "
+        f"{['%.2f' % t for t in steps_ms]} ms (CUDA events)")
+    return dict(wall_s=wall_s, rest_s=rest_s, steps_device_ms=steps_ms, **spent)
 
 
 def profile_step(torch, model, params, state) -> dict:
@@ -1531,6 +1761,11 @@ def main() -> int:
         build_s = _build.build()
         log(f"build: {len(_build.LIBS)} libraries in {build_s:.1f} s")
 
+        # 4. the main paths, first: what they measure does not depend on what phase 3 allocated and freed
+        mp = {name: main_path(torch, name, torch.Generator(device="cuda").manual_seed(0))
+              for name in ("pangu", "graphcast")}
+        facade = facade_path(torch)
+
         # 3. kernels against their plain versions at full width
         g = torch.Generator(device="cuda").manual_seed(0)
         rows, attn_err = kernel_checks(torch, g)
@@ -1548,8 +1783,6 @@ def main() -> int:
             log(f"kernel {r['name']}: ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
                 f"bound {r['bound_ms']:.4f} ({r['bound_by']}) max_abs_err {r['max_abs_err']:.4g}")
 
-        # 4. the main paths
-        mp = {name: main_path(torch, name, g) for name in ("pangu", "graphcast")}
         for r in rows:
             key, shape = r["name"].split()[0], r.pop("shape")
             if "launches" not in r:  # a forecast's kernel: its launches on that forecast
@@ -1580,6 +1813,7 @@ def main() -> int:
     print(json.dumps({
         "main_path": {name: {k: run[k] for k in ("setup_s", "setup_launches", "forecast_s", "step_ms",
                                                  "peak_gb", "profile")} for name, run in mp.items()},
+        "facade": facade,
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
         "fault_err_over_limit": faults,

@@ -1,10 +1,12 @@
 """GlobalModel — the user-facing model adapter (port of skyrim_tpu/core/model.py).
 
-Builds the model and its IC source, then ``predict_one_step`` /
-``forecast`` / ``rollout`` with per-step persistence; the IC-source
-label switches to "file" after the first step.  The compute runs through
-the rollout engine on the model's device (the card by default): state
-stays there and only per-step outputs stream to the host.
+Builds the model, its parameters (``weights.load_params``: a saved
+checkpoint, a staged torch file, or a seeded random init) and its IC
+source, then ``predict_one_step`` / ``forecast`` / ``rollout`` with
+per-step persistence; the IC-source label switches to "file" after the
+first step.  The compute runs through the rollout engine on the model's
+device (the card by default): state stays there and only per-step
+outputs stream to the host.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ import datetime
 import numpy as np
 import torch
 
+from skyrim_tpu_torch.core.prediction import GlobalPrediction
 from skyrim_tpu_torch.data import get_data_source
 from skyrim_tpu_torch.field import Field
-from skyrim_tpu_torch.io.save import SaveConfig, load_forecast, save_forecast
+from skyrim_tpu_torch.io.save import SaveConfig, save_forecast
 from skyrim_tpu_torch.models import MODELS
 from skyrim_tpu_torch.rollout import (
     initial_condition_from_field,
@@ -24,12 +27,19 @@ from skyrim_tpu_torch.rollout import (
     stream_rollout,
 )
 from skyrim_tpu_torch.utils.logging import logger
+from skyrim_tpu_torch.weights import load_params
+
+
+def adjust_lead_time(lead_time: int, time_step_hours: int = 6) -> int:
+    """Floor to a multiple of the model step."""
+    return (lead_time // time_step_hours) * time_step_hours
 
 
 class GlobalModel:
     """``params``: the port's parameters (``model.init_params`` or
-    ``params.from_jax``); without them a random init is drawn from
-    ``seed`` and logged."""
+    ``params.from_jax``); without them ``weights.load_params`` takes the
+    saved checkpoint, then a staged torch file, then a random init drawn
+    from ``seed`` and logged."""
 
     def __init__(
         self,
@@ -45,16 +55,29 @@ class GlobalModel:
         self.model_name = model_name
         self.ic_source = ic_source
         self.model = MODELS[model_name](**(model_kwargs or {}), device=device)
-        if params is None:
-            logger.warning(
-                "no pretrained weights for %r — using random initialization "
-                "(seed %d; outputs are not meteorologically meaningful)", model_name, seed
-            )
-            params = self.model.init_params(torch.Generator().manual_seed(seed))
-        self.params = params
+        self.params = params if params is not None else load_params(self.model, seed)
         self.data_source = get_data_source(
             self.model.in_channel_names, ic_source, grid=self.model.grid
         )
+
+    def release_model(self):
+        """Drop the parameters and give their device memory back to the
+        card (PyTorch's caching allocator keeps freed blocks otherwise)."""
+        self.params = None
+        if self.model.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    @property
+    def time_step(self) -> datetime.timedelta:
+        return self.model.time_step
+
+    @property
+    def in_channel_names(self) -> list[str]:
+        return self.model.in_channel_names
+
+    @property
+    def out_channel_names(self) -> list[str]:
+        return self.model.out_channel_names
 
     def _initial_state(self, start_time, initial_condition=None):
         if initial_condition is None:
@@ -64,7 +87,7 @@ class GlobalModel:
         elif isinstance(initial_condition, Field):
             ic_field = initial_condition
         elif isinstance(initial_condition, str):
-            ic_field = load_forecast(initial_condition)
+            ic_field = GlobalPrediction(initial_condition).prediction
         else:
             ic_field = None
         if ic_field is not None:

@@ -13,8 +13,15 @@
 //                    local == SB marks a padding row, which never aggregates
 // The TPU kernels hold a row tile and the weight in VMEM and K14 aggregates
 // with a one-hot matmul.  Here:
-//   K12  skt_finish_gemm (rowgemm.cuh's cp.async-ring GEMM, the swish
-//        prologue in its A loader), then fused_mlp.cu's skt_ln_rows
+//   K12  where Cout == L <= 512: skt_finish_rows_ln, one launch of
+//        rowgemm.cuh's rows_ln_kernel<1>: each 64-row tile of x by TMA into
+//        the whole-tile A block, the swish computed once a row in place
+//        (FinishPoints: K14's point path with nothing loaded, the producer
+//        warps taking 54 of the 64 rows), the products by wgmma with W by
+//        TMA, the bias and the LayerNorm in the epilogue; the (N, L) product
+//        never reaches device memory.  Other shapes: skt_finish_gemm
+//        (rowgemm.cuh's cp.async-ring GEMM, the swish prologue in its A
+//        loader), then fused_mlp.cu's skt_ln_rows
 //   K13  skt_fixed_degree_messages: one launch of rowgemm.cuh's
 //        rows_ln_kernel<deg> for deg 1 to 4, K8 without the tile lookup.  The
 //        (N deg, L) view of bias_w is the first source of the A rows (row
@@ -37,7 +44,9 @@
 // K13 over the same rows with deg 3 moves 8.5 GB (2.54 ms, bytes; 1.63 TFLOP);
 // K14 over the grid->mesh block plan moves 3.4 GB (1.0 ms, bytes; 0.85 TFLOP on
 // the real rows).  What limits them (NVIDIA H100 80GB HBM3, 700 W,
-// tools/kernel_variants.py messages): K13 8.7 ms, 4.5 with its prologue left
+// tools/kernel_variants.py messages): K12 1.63 ms (5.27 as the chain), the
+// same with no swish: not its prologue but the rest of rows_ln_kernel's
+// tile, as for K6's finish (rowgemm.cuh); K13 8.7 ms, 4.5 with its prologue left
 // out, 7.4 with its products left out: the prologue's loads and swish; K14's
 // messages 3.7 ms (2.6 without the prologue), its segmented sum 3.3 ms (one
 // block an SM for the 168 KB table of SB 328, two warps with 32 rows' loads
@@ -151,6 +160,42 @@ struct BlockPoints {
   }
 };
 
+// K12: row q < M as a point of GROUP 1, swish(x[q] + b0) computed in place
+// on the x rows TMA brought; nothing else is loaded.  The producer warps take
+// PRODUCER_POINTS<1> (54) of a tile's 64 rows while the consumers multiply
+// the tile before, and the consumers the rest after their epilogue.  Over
+// the 1,038,240 grid rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md, PR 13):
+// 54 producer rows, two a step of a lane's loop, 1.63-1.65 ms; one a step
+// 1.68, three 1.65; 0 producer rows 2.10, 48: 1.79, 60: 1.71 (two a step),
+// 51: 1.65, 57: 1.73, 63: 1.81 (one a step); the consumers applying the
+// swish in place before their first product (TmaRows' load) 1.84; the same
+// loads and stores with no swish 1.63-1.67.
+struct FinishPoints {
+  static constexpr bool POINTS = true;
+  static constexpr int IN_FLIGHT = 2;
+  const bf16* x;    // (M, L), by TMA
+  const float* b0;  // (L,)
+  int M;
+
+  struct Raw {
+    bool ok;
+  };
+  __host__ __device__ const bf16* rows_by_tma() const { return x; }
+  __device__ __forceinline__ int index(int q) const { return q < M ? q : -1; }
+  __device__ __forceinline__ void load(int q, int, int kk, int L, Raw& r) const { r.ok = q >= 0 && kk < L; }
+  __device__ __forceinline__ void make(const Raw& r, int kk, int L, bf16* const* rows) const {
+    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r.ok) {
+      float c8[8];
+      load8(rows[0], f);
+      load8f(b0 + kk, 8, c8);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) f[u] = rowgemm::swish(f[u] + c8[u]);
+    }
+    store8(rows[0], f);
+  }
+};
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 template <int DEG>
@@ -169,6 +214,17 @@ extern "C" int skt_finish_gemm(const void* x, const void* b0, const void* W, con
   rowgemm::EpiStore epi{static_cast<const float*>(b), nullptr, static_cast<bf16*>(out), Cout,
                         rowgemm::ACT_NONE};
   return rowgemm::launch_rowgemm(a, W, epi, M, Cout, L, stream);
+}
+
+// K12 where Cout == L: x (M, L) bf16 rows, 16-byte aligned, L % 8 == 0,
+// L <= 512; W (L, L); out (M, L).  One launch of rows_ln_kernel<1>.
+extern "C" int skt_finish_rows_ln(const void* x, const void* b0, const void* W, const void* b, const void* ln_scale,
+                                  const void* ln_bias, void* out, int M, int L, float eps, void* stream) {
+  if (M <= 0 || !aligned16(x)) return static_cast<int>(cudaErrorInvalidValue);
+  const rowgemm::EpiLN epi{static_cast<const float*>(b), static_cast<const float*>(ln_scale),
+                           static_cast<const float*>(ln_bias), eps};
+  const FinishPoints pro{static_cast<const bf16*>(x), static_cast<const float*>(b0), M};
+  return rowgemm::launch_rows_ln<1>(pro, W, epi, out, M, L, stream);
 }
 
 // K13: wide, bias (N, deg L), ad (N, L) bf16 rows, 16-byte aligned, L % 8 == 0,

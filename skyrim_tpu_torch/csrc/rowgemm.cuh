@@ -1,8 +1,8 @@
 // Row-GEMM building blocks: the tiled GEMM of every port kernel that
 // multiplies (Pangu's K1 through gemm.cu, its TMA and wgmma pieces in K3's
-// and K4's resample.cu; GraphCast's K6 and K7; K12 in graph_finish.cu), the
-// row kernel with its LayerNorm inside (rows_ln_kernel: K6's finish, K8, K9,
-// K13, K14's messages), K1's GEMM with the LayerNorm in its prologue
+// and K4's resample.cu; GraphCast's K6 and K7; K12's chain in
+// graph_finish.cu), the row kernel with its LayerNorm inside
+// (rows_ln_kernel: K6's finish, K8, K9, K12, K13, K14's messages), K1's GEMM with the LayerNorm in its prologue
 // (ln_gemm_kernel), and the row kernels the GraphCast kernels share.
 //
 // The four GraphCast TPU kernels (skyrim_tpu/ops/fused_mlp.py fused_mlp and
@@ -53,8 +53,8 @@
 //                   owner, so the result is the same bits on every run, and
 //                   for ids in sorted order the f32 sum in row order.
 //   rows_ln_kernel  out = bf16(LN(bf16(prologue @ W + b))) for rows of up to
-//                   512 columns in one launch (K9, K14's messages; K6's
-//                   finish, plain rows by TMA and a residual added), or the
+//                   512 columns in one launch (K9, K12, K14's messages;
+//                   K6's finish, plain rows by TMA and a residual added), or the
 //                   f32 sum of GROUP (2 to 4) consecutive rows' LayerNorms
 //                   (K8's and K13's slots): 64 (or 63) rows x all columns a
 //                   tile, so the LayerNorm and the slot sum run in the
@@ -1029,6 +1029,9 @@ inline int launch_segsum(const void* x, const void* local, void* out, int G, int
 // mlp); with the residual's pairs or chunks in registers it took 2.8-4.0 ms.
 // K13 (49,440 tiles of 21 points at deg 3) 8.7 ms and K14's messages (25,728
 // tiles of 64 rows) 3.7 ms, also held by their prologues (graph_finish.cu).
+// K12 over the grid rows (16,223 tiles, the swish in place on rows by TMA)
+// 1.63 ms, the same with no swish: held, as K6's finish, by the rest of the
+// tile (products, W stream, epilogue), not by its prologue.
 namespace rowln {
 constexpr int BM = 64, WIDTH = 512, BKW = 32;  // wgmma tile rows, the widest L, W slice depth
 constexpr int A_BYTES = BM * WIDTH * 2;        // a whole tile's A block

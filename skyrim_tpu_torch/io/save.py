@@ -21,6 +21,9 @@ from skyrim_tpu_torch.utils.logging import logger
 
 _B58_ALPHABET = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
 
+LOCAL_CACHE = os.environ.get(
+    "SKYRIM_CACHE", os.path.join(os.path.expanduser("~"), ".cache", "skyrim_tpu")
+)
 OUTPUT_DIR = os.environ.get("SKYRIM_OUTPUT_DIR", str(Path.cwd() / "outputs"))
 
 

@@ -23,12 +23,15 @@ adds the residual.  Bound on this card: operations (1.09 TFLOP for a
 
 K12 ``fused_finish`` replaces ``fused_finish`` of the same JAX module
 (Pallas body ``_finish_kernel``): ``LN(Dense(swish(x + b0)))`` over rows,
-the second half of a factored edge MLP.  Kernels (csrc/graph_finish.cu):
-the row GEMM with the f32 swish prologue computed in its A loader and the
-bias epilogue, then the LayerNorm rows kernel.  Cout may differ from L;
-both are multiples of 8, N is any.  Bound on this card: bytes (2.13 GB in
-and out over the 1,038,240 grid rows at L 512, 0.63 ms at 3.35 TB/s,
-against 0.54 TFLOP).
+the second half of a factored edge MLP.  Kernels (csrc/graph_finish.cu),
+as ``finish_path`` names them by shape: where Cout == L ≤ 512, one launch
+of the whole-row kernel ``rows_ln_kernel`` (x by TMA, the f32 swish
+computed once a row in place, the Dense, bias and LayerNorm; the product
+never reaches device memory); else the row GEMM with the swish computed in
+its A loader and the bias epilogue, then the LayerNorm rows kernel.  Cout
+may differ from L; both are multiples of 8, N is any.  Bound on this
+card: bytes (2.13 GB in and out over the 1,038,240 grid rows at L 512,
+0.63 ms at 3.35 TB/s, against 0.54 TFLOP).
 
 ``reference_finish`` is its plain version and the shared plain version of
 the per-edge message math of K7-K9, K13 and K14 (JAX
@@ -42,8 +45,9 @@ On a CPU tensor ``fused_mlp`` runs ``reference_mlp`` and ``fused_finish``
 ``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout),
 ``mlp_finish.launches_by_shape`` the whole-row finish's by (rows, L,
 residual), ``ln_rows.launches_by_shape`` the LayerNorm rows kernel's by
-(rows, C), and ``finish_gemm.launches`` and ``segment_sum.launches`` those
-kernels' launches.
+(rows, C), ``fused_finish.launches_by_path`` K12's calls by
+``finish_path``, and ``finish_rows_ln.launches``, ``finish_gemm.launches``
+and ``segment_sum.launches`` those kernels' launches.
 """
 
 from __future__ import annotations
@@ -104,7 +108,8 @@ def _lib():
 def _finish_lib():
     lib = _build.load("graph_finish")
     lib.skt_finish_gemm.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-    lib.skt_finish_gemm.restype = _I
+    lib.skt_finish_rows_ln.argtypes = [_P] * 7 + [_I, _I, _F, _P]
+    lib.skt_finish_gemm.restype = lib.skt_finish_rows_ln.restype = _I
     return lib
 
 
@@ -300,20 +305,65 @@ def finish_gemm(x, b0, wb):
 finish_gemm.launches = 0
 
 
+def finish_rows_ln(x, b0, wb, ln):
+    """One launch of the whole-row kernel with the finish prologue:
+    ``bf16(LN(bf16(bf16(swish(x + b0)) @ W + b)))`` over (M, L) rows, W
+    (L, L), L % 8 == 0, L ≤ 512; x is read by TMA and must start on a
+    16-byte boundary."""
+    M, L = x.shape
+    if L % 8 or L > 512 or tuple(wb[0].shape) != (L, L):
+        raise ValueError(f"finish_rows_ln takes L % 8 == 0, L <= 512 and an (L, L) kernel, got {tuple(x.shape)}, "
+                         f"kernel {tuple(wb[0].shape)}")
+    require(x, (M, L), "finish x")
+    require_rows16("finish_rows_ln", x)
+    out = torch.empty((M, L), dtype=torch.bfloat16, device=x.device)
+    if M == 0:
+        return out
+    b0, w, b, scale, shift = _f32(b0), _bf16(wb[0]), _f32(wb[1]), _f32(ln[0]), _f32(ln[1])  # held until queued
+    lib = _finish_lib()
+    err = lib.skt_finish_rows_ln(x.data_ptr(), b0.data_ptr(), w.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                                 shift.data_ptr(), out.data_ptr(), M, L, _EPS, _stream(x))
+    _build.check(lib, err, "finish_rows_ln")
+    finish_rows_ln.launches += 1
+    return out
+
+
+finish_rows_ln.launches = 0
+
+
+def finish_path(L, Cout):
+    """The launches ``fused_finish`` makes for (N, L) rows to Cout columns:
+    ``"rows_ln"`` (one launch of the whole-row kernel: the swish computed in
+    place on the rows TMA brought, the Dense, its bias and the LayerNorm)
+    where Cout == L, L % 8 == 0 and L ≤ 512 (the kernel's W is (L, L) and a
+    block holds whole rows of up to 512), which is every shape GraphCast
+    has; else ``"gemm_ln_rows"`` (the row GEMM with the swish in its A
+    loader, then the LayerNorm rows kernel in place).  A choice by shape,
+    made before the launches."""
+    return "rows_ln" if Cout == L and L % 8 == 0 and L <= 512 else "gemm_ln_rows"
+
+
 def fused_finish(x, b0, wb, ln):
     """``LN(Dense(swish(x + b0)))`` over rows (K12).  x: (N, L); b0: (L,); wb:
-    ((L, Cout), (Cout,)); ln: (scale, bias) over Cout.  Returns (N, Cout)."""
+    ((L, Cout), (Cout,)); ln: (scale, bias) over Cout.  Returns (N, Cout),
+    in the launches ``finish_path`` names."""
     if x.device.type == "cpu":
         return reference_finish(x, b0, wb, ln, x.dtype)
     if x.ndim != 2 or wb[0].shape[1] % 8:
         raise ValueError(f"fused_finish takes (N, L) rows and Cout % 8 == 0, got {tuple(x.shape)} -> {wb[0].shape[1]}")
-    y = finish_gemm(x, b0, wb)
-    out = ln_rows(y, ln, out=y)
+    path = finish_path(x.shape[1], wb[0].shape[1])
+    if path == "rows_ln":
+        out = finish_rows_ln(x, b0, wb, ln)
+    else:
+        y = finish_gemm(x, b0, wb)
+        out = ln_rows(y, ln, out=y)
     fused_finish.launches += 1
+    fused_finish.launches_by_path[path] = fused_finish.launches_by_path.get(path, 0) + 1
     return out
 
 
 fused_finish.launches = 0
+fused_finish.launches_by_path = {}  # finish_path -> calls
 
 
 def fused_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False):

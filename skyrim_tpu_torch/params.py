@@ -1,4 +1,4 @@
-"""Weight bridge: the JAX package's parameter trees → the port's.
+"""Weight bridge: the JAX package's parameter trees → the port's, and back.
 
 The input is the tree the JAX package's ``init_params`` (or a converted
 checkpoint) produces, as nested dicts of arrays with flax names —
@@ -7,7 +7,8 @@ checkpoint) produces, as nested dicts of arrays with flax names —
 (in, out).  The port's modules carry the same names and layouts, so each
 leaf maps to one parameter.  Every leaf is consumed exactly once; a
 missing, unexpected or misshapen leaf raises.  ``cache`` is skipped: the
-model's ``prepare_params`` rebuilds it.
+model's ``prepare_params`` rebuilds it.  ``to_tree`` is the inverse: the
+port's parameters as that tree with numpy leaves, without ``cache``.
 """
 
 from __future__ import annotations
@@ -28,6 +29,32 @@ def flatten(tree: dict, prefix: str = "") -> dict[str, object]:
         else:
             out[path] = v
     return out
+
+
+def unflatten(leaves: dict) -> dict:
+    """{"a/b/c": leaf} → {"a": {"b": {"c": leaf}}}."""
+    out: dict = {}
+    for path, v in leaves.items():
+        *head, leaf = path.split("/")
+        d = out
+        for k in head:
+            d = d.setdefault(k, {})
+        d[leaf] = v
+    return out
+
+
+def to_tree(params: dict) -> dict:
+    """The flax-layout tree of the port's parameters (numpy leaves, the
+    ``cache`` left out): what ``from_jax`` reads back."""
+
+    def leaves(v, path):
+        if isinstance(v, torch.nn.Module):
+            return {f"{path}/" + n.replace(".", "/"): p.detach().cpu().numpy().copy() for n, p in v.named_parameters()}
+        if isinstance(v, dict):
+            return {k: a for key, w in v.items() for k, a in leaves(w, f"{path}/{key}").items()}
+        return {path: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v).copy()}
+
+    return unflatten({k: a for key, v in params.items() if key != "cache" for k, a in leaves(v, key).items()})
 
 
 def from_jax(tree: dict, model: PanguModel | GraphCastModel) -> dict:

@@ -4,9 +4,12 @@
   leaves the device; returns all outputs stacked on the device.
 - ``stream_rollout``: a host generator for forecast production.  On a
   CUDA device step k's output is copied to pinned host memory on a side
-  stream while step k+1 computes, so the copy never serializes the loop.
+  stream while step k+1 computes, so the copy never serializes the loop;
+  a channel subset and a narrower dtype are applied on the device first,
+  so the copy moves fewer bytes.
 
-Both run on the model's device.
+Both run on the model's device.  ``perturb_initial_condition`` and
+``estimate_pressure_hpa`` are host helpers on numpy ICs.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from skyrim_tpu_torch.field import Field
 from skyrim_tpu_torch.models.base import ModelState, Params, PrognosticModel
+from skyrim_tpu_torch.utils.logging import logger
 
 
 @torch.no_grad()
@@ -40,11 +44,19 @@ def stream_rollout(
     params: Params,
     state: ModelState,
     n_steps: int,
+    transfer_dtype: torch.dtype | None = None,
+    channel_idx: tuple[int, ...] | None = None,
 ) -> Iterator[np.ndarray]:
     """Yield each step's output (C, H, W) as numpy, overlapping the
-    device→host copy of step k with the compute of step k+1."""
+    device→host copy of step k with the compute of step k+1.
+
+    ``channel_idx`` (channel positions) selects the transferred subset
+    and ``transfer_dtype`` (e.g. ``torch.float16``) casts it, both on the
+    device before the copy: the device→host bytes shrink by C_sel/C and
+    by the narrower type, for sinks that keep only those."""
     device = state.x.device
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    idx = None if channel_idx is None else torch.as_tensor(channel_idx, dtype=torch.long, device=device)
     emitted = 0
     pending = None
 
@@ -60,6 +72,10 @@ def stream_rollout(
 
     for _ in range(-(-n_steps // model.frames_out)):
         state, y = model.advance(params, state)
+        if idx is not None:
+            y = y.index_select(1, idx)
+        if transfer_dtype is not None:
+            y = y.to(transfer_dtype)
         if copy_stream is None:
             item = (y, None)
         else:
@@ -111,3 +127,37 @@ def outputs_to_field(
         outputs, times, model.channels, model.grid.lat, model.grid.lon,
         attrs={"model": model.name},
     )
+
+
+def perturb_initial_condition(
+    ic: np.ndarray,
+    model: PrognosticModel,
+    channel: str,
+    lat: float,
+    lon: float,
+    value: float,
+    mode: str = "set",
+) -> np.ndarray:
+    """Point-edit a channel at the nearest grid cell (the "simulate extreme
+    weather" hook).  mode: "set" replaces, "add" offsets, "scale"
+    multiplies."""
+    ic = np.array(ic, copy=True)
+    c = list(model.channels).index(channel)
+    i, j = model.grid.nearest_index(lat, lon)
+    sl = (Ellipsis, c, i, j) if ic.ndim == 4 else (c, i, j)
+    if mode == "set":
+        ic[sl] = value
+    elif mode == "add":
+        ic[sl] = ic[sl] + value
+    elif mode == "scale":
+        ic[sl] = ic[sl] * value
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    logger.debug("perturbed %s at (%.2f, %.2f) mode=%s", channel, lat, lon, mode)
+    return ic
+
+
+def estimate_pressure_hpa(elevation_m: float) -> float:
+    """Barometric pressure at elevation (standard atmosphere)."""
+    p0, t0, lapse, g, M, R = 1013.25, 288.15, 0.0065, 9.80665, 0.0289644, 8.3144598
+    return p0 * (1 - lapse * elevation_m / t0) ** (g * M / (R * lapse))

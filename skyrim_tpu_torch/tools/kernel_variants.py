@@ -86,9 +86,14 @@ variants.
   ``csrc`` that exports ``skt_fixed_degree_gemm`` instead (the chains before
   them), K13's GEMM and the LayerNorm rows summing three rows, and K14's
   finish GEMM with its bias rows, the LayerNorm rows and the segmented sum,
-  alone and together.  K13's output over its first 4,200 points and K14's
-  messages over their first 4,096 rows are held against the plain versions
-  (ops/graph_kernels.py, ops/fused_mlp.py) at the kernels' tolerance.
+  alone and together.  With either, K12 over the grid rows and over the mesh
+  edges (the first 327,660 rows of the same buffers): one
+  ``skt_finish_rows_ln`` launch where the variant exports it, and the chain
+  it replaced (``skt_finish_gemm``, then the LayerNorm rows in place).
+  K13's output over its first 4,200 points, K14's messages over their first
+  4,096 rows and K12's last 4,096 rows of each launch are held against the
+  plain versions (ops/graph_kernels.py, ops/fused_mlp.py) at the kernels'
+  tolerance.
 - ``ptxas``: no timing; every library of ``_build.LIBS`` from the first and
   the second directory given, compiled with ``-Xptxas -v``: each kernel whose
   register, stack or spill report differs between the two, then the count of
@@ -506,7 +511,7 @@ def m2g_cases(torch, libs, src):
 
 
 def _message_operands(torch):
-    """K13's and K14's full-width inputs, made once and shared by the variants."""
+    """K12's, K13's and K14's full-width inputs, made once and shared by the variants."""
     if "messages" not in _operands:
         from skyrim_tpu_torch.ops.graph import build_block_plan, build_graphs
 
@@ -522,7 +527,8 @@ def _message_operands(torch):
             return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
 
         _operands["messages"] = dict(
-            N=N, deg=deg, L=Lw, B=B, M=M, SB=plan["SB"], wide=randn(N, deg * Lw, scale=0.3),
+            N=N, deg=deg, L=Lw, B=B, M=M, SB=plan["SB"], E=len(graphs["mesh_dst"]), x=randn(N, Lw),
+            y=torch.empty(N, Lw, device=dev, dtype=torch.bfloat16), wide=randn(N, deg * Lw, scale=0.3),
             bias_w=randn(N, deg * Lw, scale=0.3), ad=randn(N, Lw, scale=0.3), src=randn(B * M, Lw),
             bias=randn(B * M, Lw, scale=0.3), local=torch.from_numpy(plan["local"]).to(dev),
             w=randn(Lw, Lw, scale=Lw**-0.5), b0=randn(Lw, scale=0.1, dtype=torch.float32),
@@ -568,6 +574,7 @@ def messages_cases(torch, libs, src):
         cases = {"K13 one launch": (fixed, f13), "K13 deg 1 one launch": (fixed1, f13 // deg),
                  "K14 messages": (messages, f14), "K14 segment_sum": (sums, None),
                  "K14 messages + sum": (lambda: messages() or sums(), f14)}  # fmt: skip
+        cases.update(_finish_cases(o, lib, ln, st))
     else:
         gemm13 = _bind(lib, "skt_fixed_degree_gemm", [P] * 7 + [I] * 3 + [P])
         gemm14 = _bind(lib, "skt_finish_gemm", [P] * 6 + [I] * 3 + [P])
@@ -596,15 +603,42 @@ def messages_cases(torch, libs, src):
     torch.cuda.synchronize()
     n13, n14 = 21 * 200, 4096
     wb, lnp = (o["w"], o["b"]), (o["scale"], o["shift"])
-    for case, out, ref in (
+    checks = [
         ("K13", o["out"][:n13], GK.reference_fixed_degree_messages(o["wide"][:n13], o["bias_w"][:n13], o["ad"][:n13],
                                                                    o["b0"], wb, lnp, deg)),
         ("K14 messages", o["m"][:n14], FM.reference_finish(o["src"][:n14].float() + o["bias"][:n14].float(), o["b0"],
                                                            wb, lnp, torch.bfloat16)),
-    ):  # fmt: skip
+    ]  # fmt: skip
+    for case, (call, _) in cases.items():  # K12's last 4,096 rows, each launch on its own
+        if case.startswith("K12"):
+            o["y"].zero_()
+            call()
+            torch.cuda.synchronize()
+            n = o["N"] if "grid" in case else o["E"]
+            checks.append((case, o["y"][n - 4096 : n].clone(), FM.reference_finish(o["x"][n - 4096 : n], o["b0"], wb,
+                                                                                   lnp, torch.bfloat16)))
+    for case, out, ref in checks:
         ref = ref.float()
         ratio = float(((out.float() - ref).abs() / (2e-2 * ref.std() + 2 * 2.0**-8 * ref.abs().max())).max())
         print(f"{src}: {case}: max |kernel - plain| / limit = {ratio:.4g}{'  FAILS' if ratio > 1 else ''}")
+    return cases
+
+
+def _finish_cases(o, lib, ln, st):
+    """K12 over the grid rows and the mesh edges (the first E rows of the same
+    buffers): one launch where the variant exports skt_finish_rows_ln, and
+    the chain (the finish GEMM, then the LayerNorm rows in place)."""
+    p = lambda k: o[k].data_ptr()  # noqa: E731
+    gemm = _bind(lib, "skt_finish_gemm", [P] * 5 + [I] * 3 + [P])
+    one = _bind(lib, "skt_finish_rows_ln", [P] * 7 + [I, I, F, P]) if hasattr(lib, "skt_finish_rows_ln") else None
+    Lw, cases = o["L"], {}
+    for what, n in (("grid rows", o["N"]), ("mesh edges", o["E"])):
+        if one:
+            cases[f"K12 {what} one launch"] = (lambda n=n: one(p("x"), p("b0"), p("w"), p("b"), p("scale"), p("shift"),
+                                                               p("y"), n, Lw, 1e-6, st), 2 * n * Lw * Lw)  # fmt: skip
+        cases[f"K12 {what} chain"] = (lambda n=n: gemm(p("x"), p("b0"), p("w"), p("b"), p("y"), n, Lw, Lw, st)
+                                      or ln(p("y"), p("scale"), p("shift"), None, p("y"), n, Lw, 1, 1e-6, st),
+                                      2 * n * Lw * Lw)  # fmt: skip
     return cases
 
 

@@ -19,8 +19,9 @@ GPU (marker ``gpu``, skipped without a card): each kernel against its plain
 version on the card in bf16 at shapes that take the ragged paths (N not a
 multiple of 128 nor of K13's points a tile, Cout != L, deg 1 to 4, L up to
 512, unsorted, shuffled and all-padding ``local``), its launches counted
-(K13 one, K14 two), its TMA stores into 64 guard rows, and its refusal of
-L > 512.  Tolerance, as for K6-K9: elementwise |kernel − plain| ≤
+(K12 one where Cout == L, else two; K13 one, K14 two), K12, K13 and K14
+within 2 ulps of the two-launch chain, their TMA stores into 64 guard rows,
+and the refusal of L > 512.  Tolerance, as for K6-K9: elementwise |kernel − plain| ≤
 2e-2·std(plain) + 2 bf16 ulps of max|plain|.
 """
 
@@ -205,7 +206,27 @@ def _close_card(out, ref):
     assert ((out - ref).abs() <= tol).all(), (float((out - ref).abs().max()), float(tol))
 
 
-GPU_FINISH_CASES = {"n1000_l64": (1000, 64, 64), "n777_l64_cout40": (777, 64, 40), "n130_l512_cout256": (130, 512, 256)}
+# N, L, Cout: the one-launch path at L 64 and 512 with ragged N (not a
+# multiple of the 64-row tile), the chain where Cout != L
+GPU_FINISH_CASES = {"n1000_l64": (1000, 64, 64), "n777_l64_cout40": (777, 64, 40), "n130_l512_cout256": (130, 512, 256),
+                    "n1000_l512": (1000, 512, 512), "n70_l512": (70, 512, 512)}  # fmt: skip
+FINISH_LAUNCHES = {"rows_ln": 1, "gemm_ln_rows": 2}  # kernel launches a call on each path
+
+
+def _finish_kernel_launches():
+    """Launches of every kernel K12 may take, summed."""
+    return FM.finish_rows_ln.launches + FM.finish_gemm.launches + sum(FM.ln_rows.launches_by_shape.values())
+
+
+def test_finish_path_by_shape():
+    """K12 takes one launch where Cout == L, L % 8 == 0 and L <= 512 (every
+    GraphCast shape), the two-launch chain elsewhere; the card cases hold
+    both paths, the one-launch path at L 512 with a ragged N."""
+    assert FM.finish_path(512, 512) == FM.finish_path(64, 64) == "rows_ln"
+    assert FM.finish_path(512, 256) == FM.finish_path(64, 40) == FM.finish_path(520, 520) == "gemm_ln_rows"
+    paths = {case: FM.finish_path(L, Cout) for case, (_, L, Cout) in GPU_FINISH_CASES.items()}
+    assert set(paths.values()) == set(FINISH_LAUNCHES)
+    assert any(paths[c] == "rows_ln" and L == 512 and N % 64 for c, (N, L, _) in GPU_FINISH_CASES.items())
 
 
 @pytest.mark.gpu
@@ -214,10 +235,13 @@ def test_finish_kernel_matches_plain(cuda, case):
     N, L, Cout = GPU_FINISH_CASES[case]
     rng = np.random.default_rng(0)
     args = (_t(_n(rng, N, L), torch.bfloat16, cuda), *_t(_finish_params(rng, L, Cout), device=cuda))
-    before = FM.fused_finish.launches
+    path = FM.finish_path(L, Cout)
+    before, on_path, kernels = FM.fused_finish.launches, FM.fused_finish.launches_by_path.get(path, 0), _finish_kernel_launches()
     out = FM.fused_finish(*args)
     torch.cuda.synchronize()
     assert FM.fused_finish.launches == before + 1
+    assert FM.fused_finish.launches_by_path[path] == on_path + 1
+    assert _finish_kernel_launches() == kernels + FINISH_LAUNCHES[path]
     _close_card(out, FM.reference_finish(*args, torch.bfloat16))
 
 
@@ -300,10 +324,11 @@ def test_block_kernel_matches_plain(cuda, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("L", [64, 512])
 def test_messages_match_gemm_ln_chain(cuda, L):
-    """K14's messages and K13 at deg 1 against the two-launch chain on the
-    same rows (the finish GEMM, rowgemm_kernel with its own swish prologue,
-    then the LayerNorm rows kernel): each source of the prologue given the
-    rows in turn and the others zero ((x + 0) + b0 == x + b0 in f32), so the
+    """K12's one launch, K14's messages and K13 at deg 1 against the
+    two-launch chain on the same rows (the finish GEMM, rowgemm_kernel with
+    its own swish prologue, then the LayerNorm rows kernel): K12 on the rows
+    themselves, K13 and K14 with each source of the prologue given the rows
+    in turn and the others zero ((x + 0) + b0 == x + b0 in f32), so the
     rounding points are the same and only the order of the LayerNorm's sums
     differs.  Within 2 bf16 ulps of the chain's value plus four f32 roundings
     (2^-22) of the LayerNorm's last terms |(y - mean)·rstd·scale| + |shift|:
@@ -333,7 +358,11 @@ def test_messages_match_gemm_ln_chain(cuda, L):
         return float(((out.double() - chain).abs() / tol).max())
 
     z = torch.zeros_like(x)
-    outs = [GK.block_messages(x, z, b0, wb, ln), GK.block_messages(z, x, b0, wb, ln)]
+    assert FM.finish_path(L, L) == "rows_ln"
+    kernels = _finish_kernel_launches()
+    outs = [FM.fused_finish(x, b0, wb, ln)]
+    assert _finish_kernel_launches() == kernels + 1
+    outs += [GK.block_messages(x, z, b0, wb, ln), GK.block_messages(z, x, b0, wb, ln)]
     outs += [GK.fused_fixed_degree_messages(*srcs, b0, wb, ln, 1) for srcs in ((x, z, z), (z, x, z), (z, z, x))]
     torch.cuda.synchronize()
     for out in outs:
@@ -347,12 +376,27 @@ def test_messages_match_gemm_ln_chain(cuda, L):
 
 @pytest.mark.gpu
 def test_message_kernels_guard_rows(cuda):
-    """K13's and K14's messages' TMA stores into outputs with 64 sentinel rows
-    past the end (partial last tiles at deg 3 and 1): the guard rows come back
-    unchanged, the rows before them equal the wrappers' outputs."""
+    """K12's one launch and K13's and K14's messages' TMA stores into outputs
+    with 64 sentinel rows past the end (partial last tiles; K13 at deg 3 and
+    1): the guard rows come back unchanged, the rows before them equal the
+    wrappers' outputs."""
     from skyrim_tpu_torch.ops.fused_block import _EPS
 
     sentinel, st = 0x7FA5, torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(4)
+    flib = FM._finish_lib()
+    for N, L in ((1000, 64), (70, 512)):
+        x = _t(_n(rng, N, L), torch.bfloat16, cuda)
+        b0, (w, b), (scale, shift) = _t(_finish_params(rng, L), device=cuda)
+        buf = torch.full((N + 64, L), sentinel, dtype=torch.int16, device=cuda)
+        w16 = w.to(torch.bfloat16)
+        err = flib.skt_finish_rows_ln(x.data_ptr(), b0.data_ptr(), w16.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                                      shift.data_ptr(), buf.data_ptr(), N, L, _EPS, st)  # fmt: skip
+        assert err == 0
+        out = FM.fused_finish(x, b0, (w, b), (scale, shift))
+        torch.cuda.synchronize()
+        assert (buf[N:] == sentinel).all()
+        assert torch.equal(buf[:N].view(torch.bfloat16), out)
     lib = GK._messages_lib()
     for N, L, deg in ((1000, 64, 3), (1000, 64, 1)):
         wide, bias_w, ad, b0, (w, b), (scale, shift), _ = _fixed_card_args(cuda, N, L, deg, seed=3)
