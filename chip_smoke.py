@@ -15,7 +15,12 @@ Phases:
      stage 2, shifted, each row named with its path and the launches of one
      call counted (five: LN1 + qkv and LN2 + fc1 each one ln_gemm launch),
      and its window attention alone with a strong earth bias; K2 at both
-     shapes; K3 and K4, each one launch, on the strided views of the stage
+     shapes; FengWu's fuser: K1 at (1, 186, 360, 1152), 18 heads, window
+     (1, 6, 12), one bias table, the shift (0, 3, 6) and the padding rows
+     181-185 in its mask, on the seven-launch chain (C > 512), its
+     attention alone, and K2 at the same shape; each K1 and K2 row names
+     the forecast whose launches it reports; K3 and K4, each one launch, on
+     the strided views of the stage
      buffers the forward hands them (K3's odd H, 181, read in place), each
      check refusing three faulty outputs (beta dropped, parity slabs (i, j)
      swapped, each row's statistics from the next row), K4 also held at
@@ -79,7 +84,11 @@ Phases:
      per block and with each row's bias taken from the next row; the checks
      must refuse every faulty output.  These ops are entry points of their
      own: each row's launch count is read around one call of the public
-     wrapper, the count set to 0 just before;
+     wrapper, the count set to 0 just before.  SFNO's transforms (no kernel
+     of the port) at fcnv2_sm's geometry, with TF32 allowed outside them:
+     the (721, 1440, 256) analysis and the synthesis onto that grid within
+     1e-5 of max|ref| of float64 on the card, the analysis without its
+     precision guard refused, and their times;
   4. the main paths, run right after the build and before phase 3, so that
      phase 3's full-width buffers cannot shift what they measure, each after a garbage collection and an emptied cache,
      with every launch count set to 0 just before and
@@ -94,9 +103,18 @@ Phases:
      one launch of the whole-row kernel, counted by rows, width and
      residual, and the LayerNorm rows kernel runs 16 times, K7's only,
      counted by rows and width; the
-     cache build's launches are counted apart); for each, per-step CUDA-event times, peak memory, one
-     profiled step, and rollout(save=True) for 2 steps into a temporary
-     directory and a reload of the files.  Weights are random, from a seed.
+     cache build's launches are counted apart),
+     then GlobalModel("fourcastnet_v2", ic_source="synthetic"), fcnv2_sm at
+     721x1440, 73 channels, embed 256, 12 blocks, a 4-step forecast that
+     launches no kernel of the port (every count stays 0), then
+     GlobalModel("fengwu", ic_source="synthetic"), 721x1440, 69 channels, 2
+     frames, fuser 1152 with 18 heads, 16 blocks, a 4-step forecast (16 K1
+     on the chain at (1, 186, 360, 1152) and 16 K2 at that shape per
+     forward; inside K1 64 launches of the row GEMM through ops.gemm and 32
+     of the LayerNorm rows, none of ln_gemm); for each, per-step CUDA-event
+     times, peak memory, one profiled step, and rollout(save=True) for 2
+     steps into a temporary directory and a reload of the files.  Weights
+     are random, from a seed.
      Then the module path: the full-width net's stage-1 and stage-2
      EarthAttention3D modules (one unshifted, one shifted block each),
      forward(x, mask) against the plain composition, 4 K5 launches and no K1
@@ -109,9 +127,11 @@ Phases:
      to GlobalModel.rollout's last frame, the loaded parameters equal leaf
      for leaf to the checkpoint's; its wall time split into IC read, NetCDF
      writes and the other host time on the host clock, beside the two
-     steps' device time by CUDA events;
+     steps' device time by CUDA events; the facade lists the four models;
   5. the small test configurations on the card (kernels) against the CPU
-     (plain versions), 4 steps each.
+     (plain versions), 4 steps each: Pangu's and GraphCast's, SFNO's and
+     FengWu's golden ones (FengWu's K1 launched on the card, SFNO launching
+     no kernel of the port).
 
 Prints {"kernels": [...]} on a line of its own, then as the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, on
@@ -243,21 +263,29 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
 
-    window = (2, 6, 12)
-    wlen = 144
     rows = []
     attn_err = {}
-    stages = (("stage 1/4", (8, 186, 360, 192, 6, 181)), ("stage 2/3", (8, 96, 180, 384, 12, 91)))
+    # (label, (Z, H, W, C, heads, valid_h), window, shift, a bias table per
+    # (z, lat) window type): Pangu's two stage widths, and FengWu's fuser
+    # (one table, C 1152: K1's seven-launch chain)
+    geometries = (("stage 1/4", (8, 186, 360, 192, 6, 181), (2, 6, 12), (1, 3, 6), True),
+                  ("stage 2/3", (8, 96, 180, 384, 12, 91), (2, 6, 12), (1, 3, 6), True),
+                  ("FengWu fuser", (1, 186, 360, 1152, 18, 181), (1, 6, 12), (0, 3, 6), False))
 
-    # K1 at both Pangu widths, shifted blocks (mask on every stage)
-    for stage, (Z, H, Wd, C, heads, valid_h) in stages:
-        nz, nh, nw = Z // 2, H // 6, Wd // 12
-        hidden = 4 * C
-        mask = torch.from_numpy(shift_attention_mask((Z, H, Wd), window, (1, 3, 6), (Z, valid_h, Wd))).to(dev)
+    # K1 at each geometry, shifted blocks (mask on every one)
+    for stage, (Z, H, Wd, C, heads, valid_h), window, shift, per_type in geometries:
+        wz, wh, ww = window
+        nz, nh, nw = Z // wz, H // wh, Wd // ww
+        wlen, hidden = wz * wh * ww, 4 * C
+        n_types = nz * nh if per_type else 1
+        mask = torch.from_numpy(shift_attention_mask((Z, H, Wd), window, shift, (Z, valid_h, Wd))).to(dev)
 
-        # the window attention alone, all nz*nh bias types, bias at 0.5
+        def bias_table(scale):
+            return randn(n_types, heads, wlen, wlen, scale=scale) if per_type else randn(heads, wlen, wlen, scale=scale)
+
+        # the window attention alone, every bias type, bias at 0.5
         qkv = randn(Z, H, Wd, 3 * C, dtype=bf16)
-        bias = randn(nz * nh, heads, wlen, wlen, scale=ATTN_BIAS_SCALE)
+        bias = bias_table(ATTN_BIAS_SCALE)
         out = FB.window_attention(qkv, bias, mask, window, heads)
         torch.cuda.synchronize()
         ref = window_reverse(
@@ -273,7 +301,7 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
             x,
             (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
             (randn(C, 3 * C, scale=C**-0.5), randn(3 * C, scale=0.1)),
-            randn(nz * nh, heads, wlen, wlen, scale=0.02),
+            bias_table(0.02),
             mask,
             (randn(C, C, scale=C**-0.5), randn(C, scale=0.1)),
             (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
@@ -302,9 +330,8 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
         del args, x, mask
         torch.cuda.empty_cache()
 
-    # K2 at both Pangu widths (the shifted blocks' frame change)
-    s = (1, 3, 6)
-    for stage, (Z, H, Wd, C, _, _) in stages:
+    # K2 at each geometry (the shifted blocks' frame change)
+    for stage, (Z, H, Wd, C, _, _), _, s, _ in geometries:
         x = randn(Z, H, Wd, C, dtype=bf16)
         err = compare(torch, RL.roll3d(x, s), RL.plain_roll3d(x, s), f"K2 roll3d {stage}", exact=True)
         b_ms, b_by = bound(0, 2 * x.numel() * 2)
@@ -314,7 +341,7 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
             ms=time_ms(torch, lambda: RL.roll3d(x, s), 20),
             plain_ms=time_ms(torch, lambda: RL.plain_roll3d(x, s), 20),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(torch, lambda: torch.roll(x, (-1, -3, -6), (0, 1, 2)), 20),
+            library_ms=time_ms(torch, lambda: torch.roll(x, tuple(-v for v in s), (0, 1, 2)), 20),
         ))
         del x
 
@@ -783,7 +810,7 @@ def g2m_parts(torch, args, plan, n_edges) -> dict:
 # gives ops.gemm.gemm; "ln", "ln_gelu": ops.gemm.ln_gemm, the
 # LayerNorm in the prologue, bias or GELU; "mlp": ops.fused_mlp.mlp_gemm, bias
 # only), and the kernel (with its by-shape key) whose launches it shares.
-S1, S2 = (8, 186, 360, 192), (8, 96, 180, 384)
+S1, S2, SF = (8, 186, 360, 192), (8, 96, 180, 384), (1, 186, 360, 1152)
 GEMM_ROWS = (
     ("Pangu stage 1/4 LN1 + qkv", 535680, 192, 576, "ln", ("K1", S1)),
     ("Pangu stage 1/4 proj + residual", 535680, 192, 192, "residual", ("K1", S1)),
@@ -793,6 +820,10 @@ GEMM_ROWS = (
     ("Pangu stage 2/3 proj + residual", 138240, 384, 384, "residual", ("K1", S2)),
     ("Pangu stage 2/3 LN2 + fc1 + GELU", 138240, 384, 1536, "ln_gelu", ("K1", S2)),
     ("Pangu stage 2/3 fc2 + residual", 138240, 1536, 384, "residual", ("K1", S2)),
+    ("FengWu fuser qkv", 66960, 1152, 3456, "bias", ("K1", SF)),
+    ("FengWu fuser proj + residual", 66960, 1152, 1152, "residual", ("K1", SF)),
+    ("FengWu fuser fc1 + GELU", 66960, 1152, 4608, "gelu", ("K1", SF)),
+    ("FengWu fuser fc2 + residual", 66960, 4608, 1152, "residual", ("K1", SF)),
     ("K7's second product", 322 * 1024, 512, 512, "mlp", ("K7", None)),
     ("K6 grid_update, one product", 721 * 1440, 512, 512, "mlp", ("K6", (721 * 1440, 512, 0, 512))),
 )
@@ -1316,12 +1347,58 @@ def message_op_checks(torch, g) -> tuple[list[dict], dict, dict]:
     return rows, faults, parts
 
 
+def sht_checks(torch, g) -> dict:
+    """Phase 3, SFNO's transforms at fcnv2_sm's geometry (no kernel of the
+    port: f32 PyTorch products).  With TF32 allowed for f32 matmuls outside
+    them, the analysis of a (721, 1440, 256) field (block 0's) and the
+    synthesis back onto that grid (block 11's) must stay within 1e-5 of
+    max|ref| of the same products in float64 on the card; the analysis run
+    with the transform's own precision guard taken out must fail that
+    check.  Times of both, and of the pair on the 120x240 Gauss grid (the
+    inner blocks'), by CUDA events."""
+    from skyrim_tpu_torch.ops import sht as S
+
+    dev = torch.device("cuda")
+    x = torch.randn(721, 1440, 256, device=dev, generator=g).to(torch.bfloat16)
+    outer, ref = S.SHT(721, 1440, 120, 121, device=dev), S.SHT(721, 1440, 120, 121, device=dev, dtype=torch.float64)
+    inner = S.SHT(120, 240, 120, 121, grid="legendre-gauss", device=dev)
+
+    def rel_err(out, exact):
+        return float((out.double() - exact).abs().max() / exact.abs().max())
+
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # TF32 allowed outside the transforms
+    guard = S.full_f32
+    try:
+        z = outer.analysis(x)
+        y = outer.synthesis(z)
+        S.full_f32 = contextlib.nullcontext  # the check's power: the analysis without its guard
+        z_tf32 = outer.analysis(x)
+    finally:
+        S.full_f32 = guard
+        torch.set_float32_matmul_precision(before)
+    z64 = ref.analysis(x)
+    out = {"analysis_rel_err": rel_err(z, z64), "synthesis_rel_err": rel_err(y, ref.synthesis(z)),
+           "analysis_without_guard_rel_err": rel_err(z_tf32, z64)}
+    del z64, z_tf32
+    check(out["analysis_rel_err"] <= 1e-5 and out["synthesis_rel_err"] <= 1e-5, f"SFNO's transforms off f64: {out}")
+    check(out["analysis_without_guard_rel_err"] > 1e-5, f"the SHT check passed a TF32 analysis: {out}")
+    h = torch.randn(120, 240, 256, device=dev, generator=g).to(torch.bfloat16)
+    out.update(analysis_721x1440_ms=time_ms(torch, lambda: outer.analysis(x), 5),
+               synthesis_721x1440_ms=time_ms(torch, lambda: outer.synthesis(z), 5),
+               pair_120x240_ms=time_ms(torch, lambda: inner.synthesis(inner.analysis(h)), 10))
+    log(f"SHT at fcnv2_sm's geometry: {out}")
+    del x, y, z, h
+    torch.cuda.empty_cache()
+    return out
+
+
 def module_path(torch, net, g) -> dict:
     """The slice's own path: EarthAttention3D.forward of a full-width net's
     stage-1 and stage-2 modules (an unshifted and a shifted block each) against
     the plain composition, with K5's launches counted and no K1 launch."""
-    from skyrim_tpu_torch.models.pangu import _mask_tensor
     from skyrim_tpu_torch.ops import flash_window_attention as FA
+    from skyrim_tpu_torch.ops.windows import mask_tensor
 
     dev = torch.device("cuda")
     cfg = net.cfg
@@ -1337,7 +1414,7 @@ def module_path(torch, net, g) -> dict:
             blk = getattr(net, name)
             attn = blk.EarthAttention3D_0
             shift = tuple(w // 2 for w in window) if blk.shifted else (0, 0, 0)
-            mask = _mask_tensor(dims, window, shift, (8, valid_h, dims[2]), dev)
+            mask = mask_tensor(dims, window, shift, (8, valid_h, dims[2]), dev)
             out = attn(x, mask)
             torch.cuda.synchronize()
             qkv = x @ attn.qkv.kernel.to(x.dtype) + attn.qkv.bias.to(x.dtype)
@@ -1372,13 +1449,18 @@ def counters():
 
 
 BY_SHAPE = ("K1", "K2", "K6", "K7")  # kernels that run at several shapes on a path
-MODEL_OF = {"K1": "pangu", "K2": "pangu", "K3": "pangu", "K4": "pangu",
-            "K6": "graphcast", "K7": "graphcast", "K8": "graphcast", "K9": "graphcast",
-            # entry points of the op layer and of one module: no forecast launches them
-            "K5": "ops", "K10": "ops", "K11": "ops", "K12": "ops", "K13": "ops", "K14": "ops"}
+FORECASTS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu")  # phase 4's main paths, in order
 
 
-OP_KERNELS = ("gemm", "ln_gemm", "layernorm")  # launches inside K1 (ops.gemm, K1's LayerNorm rows)
+def forecast_launches(mp: dict, key: str, shape) -> tuple[str | None, int]:
+    """The forecast of phase 4 that launched ``key`` (at ``shape`` where it
+    is given for a kernel counted by shape, BY_SHAPE), and its launches
+    there; K1 and K2 run on Pangu's and FengWu's, at their own shapes."""
+    for name, run in mp.items():
+        n = run["by_shape"][key].get(shape, 0) if key in BY_SHAPE and shape is not None else run["counts"][key]
+        if n:
+            return name, n
+    return None, 0
 
 
 def reset_counts() -> None:
@@ -1419,8 +1501,24 @@ def read_counts() -> tuple[dict, dict]:
 def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     """Launches per n_steps forwards of the main path: every kernel of the
     port is listed, so the other model's kernels must stay at 0."""
-    counts = dict.fromkeys((*MODEL_OF, *OP_KERNELS), 0)
+    counts = dict.fromkeys(counters(), 0)
     by_shape = {k: {} for k in (*BY_SHAPE, *ROW_KERNELS)}
+    if model.name == "fourcastnet_v2":  # a PyTorch composition: no kernel of the port
+        return counts, by_shape
+    if model.name == "fengwu":
+        # the fuser's 16 blocks at C 1152 take K1's chain (block_path: C >
+        # 512): LN1, qkv, attention, proj + residual, LN2, fc1 + GELU, fc2 +
+        # residual, so 4 products through ops.gemm and 2 LayerNorm rows
+        # launches a block, none through ln_gemm; 8 shifted blocks, each
+        # between two K2 rolls
+        cfg = model.cfg
+        n_blocks = cfg.depth * n_steps
+        Ht, Wt = cfg.tokens
+        shape = (1, -(-Ht // cfg.window[0]) * cfg.window[0], Wt, cfg.fuser_dim)
+        counts.update(K1=n_blocks, K2=2 * (cfg.depth // 2) * n_steps, gemm=4 * n_blocks, layernorm=2 * n_blocks)
+        by_shape["K1"], by_shape["K2"] = {shape: n_blocks}, {shape: 2 * (cfg.depth // 2) * n_steps}
+        by_shape["K1 path"] = {"chain": n_blocks}
+        return counts, by_shape
     if model.name == "pangu":
         # the row GEMM through ops.gemm: K1's proj and fc2; K1's LN1 + qkv
         # and LN2 + fc1 each one ln_gemm launch (both widths take that
@@ -1599,6 +1697,7 @@ def facade_path(torch) -> dict:
         save_checkpoint("pangu", tree)
         saved = flatten(tree)
         del model
+        check(Skyrim.list_available_models() == list(FORECASTS), f"the facade lists {Skyrim.list_available_models()}")
         sky = Skyrim("pangu", ic_source=f"file:{ic}")
         loaded = flatten(to_tree(sky.model.params))
         check(loaded.keys() == saved.keys() and all(np.array_equal(loaded[k], saved[k]) for k in saved),
@@ -1702,6 +1801,21 @@ def small_config(torch, model_name: str) -> dict:
         cfg = PanguConfig(lat=49, lon=96, embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 2, 2))
         x = np.random.default_rng(0).normal(size=(69, 49, 96)).astype(np.float32)
         make, key, launches = (lambda device: PanguModel("pangu", cfg=cfg, device=device)), "K1", 32
+    elif model_name == "fourcastnet_v2":
+        from skyrim_tpu_torch.models.sfno import FourCastNetV2Model, SFNOConfig
+
+        # tests/test_golden.py:39-40; no kernel of the port on its path
+        cfg = SFNOConfig(lat=49, lon=96, in_channels=5, embed_dim=16, num_layers=2, scale_factor=4)
+        x = np.random.default_rng(0).normal(size=(5, 49, 96)).astype(np.float32)
+        make, key, launches = (lambda device: FourCastNetV2Model(cfg, device=device)), None, 0
+    elif model_name == "fengwu":
+        from skyrim_tpu_torch.models.fengwu import FengWuConfig, FengWuModel
+
+        # tests/test_golden.py:46-49: 2 fuser blocks a step through K1
+        cfg = FengWuConfig(lat=49, lon=96, levels=3, surface_channels=2, level_vars=2, modal_dim=8, fuser_dim=24,
+                           depth=2, num_heads=2)
+        x = np.random.default_rng(0).normal(size=(2, 8, 49, 96)).astype(np.float32)
+        make, key, launches = (lambda device: FengWuModel(cfg, device=device)), "K1", 8
     else:
         from skyrim_tpu_torch.models.graphcast import GraphCastConfig, GraphCastModel
 
@@ -1716,7 +1830,10 @@ def small_config(torch, model_name: str) -> dict:
         reset_counts()
         _, ys = scan_rollout(model, params, model.init_state(params, x, start_time=start), 4)
         outs[device] = ys.float().cpu().numpy()
-        if device == "cuda":
+        if device == "cuda" and key is None:
+            ran = {k: fn.launches for k, fn in counters().items() if fn.launches}
+            check(not ran, f"small {model_name} config launched kernels of the port: {ran}")
+        elif device == "cuda":
             check(counters()[key].launches == launches, f"small {model_name} config did not run {key} on the card")
     worst = 0.0
     for step in range(4):
@@ -1762,8 +1879,7 @@ def main() -> int:
         log(f"build: {len(_build.LIBS)} libraries in {build_s:.1f} s")
 
         # 4. the main paths, first: what they measure does not depend on what phase 3 allocated and freed
-        mp = {name: main_path(torch, name, torch.Generator(device="cuda").manual_seed(0))
-              for name in ("pangu", "graphcast")}
+        mp = {name: main_path(torch, name, torch.Generator(device="cuda").manual_seed(0)) for name in FORECASTS}
         facade = facade_path(torch)
 
         # 3. kernels against their plain versions at full width
@@ -1778,6 +1894,7 @@ def main() -> int:
         faults.update(ln_faults)
         msg_rows, msg_faults, msg_parts = message_op_checks(torch, g)
         faults.update(msg_faults)
+        sht = sht_checks(torch, g)
         rows += gc_rows + attention_op_checks(torch, g) + msg_rows
         for r in rows:
             log(f"kernel {r['name']}: ms {r['ms']:.4f} plain {r['plain_ms']:.4f} "
@@ -1785,22 +1902,20 @@ def main() -> int:
 
         for r in rows:
             key, shape = r["name"].split()[0], r.pop("shape")
-            if "launches" not in r:  # a forecast's kernel: its launches on that forecast
-                run = mp[MODEL_OF[key]]
-                r["launches"] = run["by_shape"][key].get(shape, 0) if key in BY_SHAPE else run["counts"][key]
+            if "launches" not in r:  # a forecast's kernel: its launches on that forecast, named in the row
+                forecast, r["launches"] = forecast_launches(mp, key, shape)
+                r["name"] += f" [launches: the {forecast} forecast]"
             elif shape is not None:  # K5 at a Pangu stage: its launches on the module path
                 r["launches"] = mp["pangu"]["modules"]["by_shape"].get(shape, 0)
             check(r["launches"] > 0, f"{r['name']} was not launched on its path")
         for r in gemm_rows:  # the row GEMM's launches per forward: those of the kernel it runs inside
             if "launch_of" in r:
-                key, shape = r.pop("launch_of")
-                run = mp[MODEL_OF[key]]
-                n = run["by_shape"][key].get(shape, 0) if shape is not None else run["counts"][key]
-                r["launches_per_forward"] = n / run["n_steps"]
+                forecast, n = forecast_launches(mp, *r.pop("launch_of"))
                 check(n > 0, f"{r['name']}: its kernel was not launched on the main path")
+                r["forecast"], r["launches_per_forward"] = forecast, n / mp[forecast]["n_steps"]
 
         # 5. small configurations, card vs CPU
-        small = {name: small_config(torch, name) for name in ("pangu", "graphcast")}
+        small = {name: small_config(torch, name) for name in FORECASTS}
     except Exception as e:  # every failure ends the run without a result
         log(f"chip_smoke: FAILED: {type(e).__name__}: {e}")
         import traceback
@@ -1822,6 +1937,7 @@ def main() -> int:
         "row_gemm": gemm_rows,
         "message_parts": msg_parts,
         "module_path_max_abs_err": mp["pangu"]["modules"]["max_abs_err"],
+        "sht": sht,
         "build_s": build_s,
     }), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)

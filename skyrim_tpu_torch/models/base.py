@@ -126,7 +126,7 @@ class PrognosticModel(abc.ABC):
         return (self.n_history, len(self.channels), *self.grid.shape)
 
     def param_count(self, params: Params) -> int:
-        return _count(params)
+        return _count({k: v for k, v in params.items() if k != "cache"})
 
 
 def _count(params) -> int:
@@ -145,18 +145,23 @@ def _truncated_normal(shape, std, generator):
 
 
 @torch.no_grad()
-def init_flax_params_(net: nn.Module, generator: torch.Generator) -> nn.Module:
+def init_flax_params_(net: nn.Module, generator: torch.Generator, normal: dict[str, float] | None = None) -> nn.Module:
     """flax's initialisers by leaf name: kernels lecun_normal (truncated,
-    fan_in = prod(shape[:-1])), earth_bias truncated_normal(0.02), biases
-    zeros, LayerNorm scales ones.  Draws in sorted flax-path order."""
+    fan_in = prod(shape[:-1])), earth_bias and rel_bias
+    truncated_normal(0.02), the leaves named in ``normal`` normal(std),
+    scales (``scale``, ``*_scale``) ones, the rest (biases, position
+    embeddings) zeros.  Draws in sorted flax-path order."""
+    normal = normal or {}
     for name, p in sorted(net.named_parameters()):
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "kernel":
             fan_in = math.prod(p.shape[:-1])
             p.copy_(_truncated_normal(p.shape, math.sqrt(1.0 / fan_in) / 0.87962566103423978, generator))
-        elif leaf == "earth_bias":
+        elif leaf in ("earth_bias", "rel_bias"):
             p.copy_(_truncated_normal(p.shape, 0.02, generator))
-        elif leaf == "scale":
+        elif leaf in normal:
+            p.copy_(torch.randn(p.shape, generator=generator) * normal[leaf])
+        elif leaf == "scale" or leaf.endswith("_scale"):
             p.fill_(1.0)
         else:
             p.zero_()

@@ -338,11 +338,14 @@ class GraphCastModel(PrognosticModel):
         return torch.cat([xn.reshape(self.n_history * self.cfg.in_channels, -1),
                           forc.reshape(self.N_FORCINGS, -1), static])
 
+    def new_net(self) -> GraphCastNet:
+        return GraphCastNet(self.cfg, self.n_grid_in)
+
     def init_params(self, generator: torch.Generator | None = None):
         """Random parameters drawn on the CPU from ``generator`` (seed 0 by
         default), so a seed gives the same parameters on every device."""
         g = generator if generator is not None else torch.Generator().manual_seed(0)
-        net = init_flax_params_(GraphCastNet(self.cfg, self.n_grid_in), g)
+        net = init_flax_params_(self.new_net(), g)
         params = {
             "net": net.to(self.device).eval().requires_grad_(False),
             "norm": make_norm_params(self.cfg.in_channels, device=self.device),
@@ -358,9 +361,6 @@ class GraphCastModel(PrognosticModel):
         params = dict(params)
         params["cache"] = params["net"].cache_tables(self.tables, self.compute_dtype)
         return params
-
-    def param_count(self, params):
-        return super().param_count({k: v for k, v in params.items() if k != "cache"})
 
     @torch.no_grad()
     def _apply_at(self, params, x, time_days: float):

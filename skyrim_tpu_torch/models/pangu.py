@@ -77,15 +77,21 @@ class PanguConfig:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` parameters: kernel (in, out), bias (out,)."""
+    """flax ``nn.Dense`` parameters: kernel (in, out), bias (out,) unless
+    ``use_bias`` is false."""
 
-    def __init__(self, din: int, dout: int):
+    def __init__(self, din: int, dout: int, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(din, dout))
-        self.bias = nn.Parameter(torch.zeros(dout))
+        self.bias = nn.Parameter(torch.zeros(dout)) if use_bias else None
 
     def wb(self):
         return self.kernel, self.bias
+
+    def forward(self, x):
+        """flax's Dense in x's dtype: ``x @ kernel + bias``."""
+        y = x @ self.kernel.to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -143,17 +149,6 @@ class EarthAttention3D(nn.Module):
         return out.to(dt) @ self.proj.kernel.to(dt) + self.proj.bias.to(dt)
 
 
-_MASKS: dict = {}
-
-
-def _mask_tensor(dims, window, shift, valid, device):
-    key = (dims, tuple(window), shift, valid, str(device))
-    if key not in _MASKS:
-        m = W.shift_attention_mask(dims, tuple(window), shift, valid)
-        _MASKS[key] = None if m is None else torch.from_numpy(m).to(device)
-    return _MASKS[key]
-
-
 class PanguBlock(nn.Module):
     def __init__(self, dim, heads, window, shifted, mlp_ratio, n_type_windows):
         super().__init__()
@@ -170,7 +165,7 @@ class PanguBlock(nn.Module):
     def forward(self, x, valid):  # (Z, H, Wd, C) padded to window multiples
         Z, H, Wd, _ = x.shape
         shift = tuple(w // 2 for w in self.window) if self.shifted else (0, 0, 0)
-        mask = _mask_tensor((Z, H, Wd), self.window, shift, valid, x.device)
+        mask = W.mask_tensor((Z, H, Wd), self.window, shift, valid, x.device)
         attn = self.EarthAttention3D_0
         # the block commutes with the shift roll: roll in, run unshifted
         # with the shift mask, roll back
@@ -407,9 +402,6 @@ class PanguModel(PrognosticModel):
         if "net24" in params:
             params["cache"]["gw24"] = params["net24"].grand_weights()
         return params
-
-    def param_count(self, params):
-        return super().param_count({k: v for k, v in params.items() if k != "cache"})
 
     @torch.no_grad()
     def _forward(self, net: PanguNet, params, x, gw):

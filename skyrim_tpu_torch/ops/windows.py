@@ -120,3 +120,16 @@ def earth_bias_index(window: Window3) -> np.ndarray:
 def earth_bias_table_size(window: Window3) -> int:
     wz, wh, ww = window
     return wz * wz * wh * wh * (2 * ww - 1)
+
+
+_MASKS: dict = {}
+
+
+def mask_tensor(dims, window, shift, valid, device) -> torch.Tensor | None:
+    """``shift_attention_mask`` as a tensor on ``device``, made once per
+    geometry and device."""
+    key = (dims, tuple(window), shift, valid, str(device))
+    if key not in _MASKS:
+        m = shift_attention_mask(dims, tuple(window), shift, valid)
+        _MASKS[key] = None if m is None else torch.from_numpy(m).to(device)
+    return _MASKS[key]

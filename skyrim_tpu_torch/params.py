@@ -3,9 +3,10 @@
 The input is the tree the JAX package's ``init_params`` (or a converted
 checkpoint) produces, as nested dicts of arrays with flax names —
 ``net6/PanguBlock_3/EarthAttention3D_0/qkv/kernel`` for Pangu,
-``net/round_3/MLP_0/Dense_0/kernel`` for GraphCast — and Dense kernels
-(in, out).  The port's modules carry the same names and layouts, so each
-leaf maps to one parameter.  Every leaf is consumed exactly once; a
+``net/round_3/MLP_0/Dense_0/kernel`` for GraphCast,
+``net/block_3/filter/w1`` for SFNO, ``net/fuser_3/qkv/kernel`` for
+FengWu — and Dense kernels (in, out).  The port's modules carry the same
+names and layouts, so each leaf maps to one parameter.  Every leaf is consumed exactly once; a
 missing, unexpected or misshapen leaf raises.  ``cache`` is skipped: the
 model's ``prepare_params`` rebuilds it.  ``to_tree`` is the inverse: the
 port's parameters as that tree with numpy leaves, without ``cache``.
@@ -16,7 +17,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from skyrim_tpu_torch.models.graphcast import GraphCastModel, GraphCastNet
 from skyrim_tpu_torch.models.pangu import PanguModel, PanguNet
 
 
@@ -57,9 +57,10 @@ def to_tree(params: dict) -> dict:
     return unflatten({k: a for key, v in params.items() if key != "cache" for k, a in leaves(v, key).items()})
 
 
-def from_jax(tree: dict, model: PanguModel | GraphCastModel) -> dict:
+def from_jax(tree: dict, model) -> dict:
     """Port parameters for ``model`` from the JAX parameter tree of the same
-    model."""
+    model: Pangu's ``net6``/``net24`` and ``consts``, every other model's
+    ``net`` (its ``new_net()``), and ``norm``."""
     leaves = {k: v for k, v in flatten(tree).items() if not k.startswith("cache/")}
 
     def take(key, shape=None):
@@ -79,13 +80,13 @@ def from_jax(tree: dict, model: PanguModel | GraphCastModel) -> dict:
         return net.to(model.device).eval().requires_grad_(False)
 
     params = {}
-    if isinstance(model, GraphCastModel):
-        params["net"] = load("net", GraphCastNet(model.cfg, model.n_grid_in))
-    else:
+    if isinstance(model, PanguModel):
         for net_name in ("net6", "net24"):
             if any(k.startswith(net_name + "/") for k in leaves):
                 params[net_name] = load(net_name, PanguNet(model.cfg))
         params["consts"] = take("consts").to(model.device)
+    else:
+        params["net"] = load("net", model.new_net())
     params["norm"] = {k: take(f"norm/{k}").to(model.device) for k in ("mean", "std")}
     if leaves:
         raise ValueError(f"unconsumed JAX parameter leaves: {sorted(leaves)[:8]}")

@@ -4,10 +4,10 @@ copy of the torch-state-dict path of skyrim_tpu/weights/convert.py).
 The mapping is explicit per architecture, so a converted tree lines up
 with the tree ``params.from_jax`` reads: Dense kernels (in, out), flax
 convolution layouts, Pangu's earth-bias tables in the
-``ops.windows.earth_bias_index`` bijection.  Pangu and GraphCast are
-ported; ONNX artifacts and the Haiku GraphCast layout raise
-``NotImplementedError`` (ROADMAP.md §1 item 12), other models as the
-JAX package does for a model it has no converter for.
+``ops.windows.earth_bias_index`` bijection.  Pangu, GraphCast, SFNO
+(fcnv2_sm) and FengWu are ported; ONNX artifacts and the Haiku GraphCast
+layout raise ``NotImplementedError`` (ROADMAP.md §1 item 12), other
+models as the JAX package does for a model it has no converter for.
 
 Network egress is unavailable in this build environment, so these run
 only when a user stages files locally; every converter is exercised in
@@ -88,6 +88,31 @@ def _linear_zb(sd: Mapping, p: str) -> dict:
     return _zeros_bias(d, d["kernel"].shape[1])
 
 
+def expand_swin_rel_bias(table: np.ndarray, window: tuple[int, int]) -> np.ndarray:
+    """Standard Swin 2D relative table ((2wh−1)(2ww−1), heads) → the
+    lat-absolute, lon-relative table (wh²(2ww−1), heads) of
+    ``earth_bias_index((1, wh, ww))``."""
+    wh, ww = window
+    hq, hk = np.meshgrid(np.arange(wh), np.arange(wh), indexing="ij")
+    rel_h = (hq - hk + wh - 1).ravel()  # (wh²,) indexed by hq·wh + hk
+    rows = rel_h[:, None] * (2 * ww - 1) + np.arange(2 * ww - 1)[None, :]
+    return table[rows.ravel()]  # (wh²·(2ww−1), heads)
+
+
+def _swin_block(sd: Mapping, p: str, window: tuple[int, int]) -> dict:
+    """One ``SwinBlock2D`` (models/fuxi.py) from torch Swin naming:
+    norm1/norm2, attn.{qkv,proj,relative_position_bias_table}, mlp.{fc1,fc2}."""
+    return {
+        "LayerNorm_0": convert_layernorm(sd, f"{p}.norm1"),
+        "LayerNorm_1": convert_layernorm(sd, f"{p}.norm2"),
+        "qkv": _linear_zb(sd, f"{p}.attn.qkv"),
+        "proj": _linear_zb(sd, f"{p}.attn.proj"),
+        "rel_bias": expand_swin_rel_bias(_t(sd[f"{p}.attn.relative_position_bias_table"]), window),
+        "Dense_0": convert_linear(sd, f"{p}.mlp.fc1"),
+        "Dense_1": convert_linear(sd, f"{p}.mlp.fc2"),
+    }
+
+
 def pangu_bias_permutation(window: tuple[int, int, int]) -> np.ndarray:
     """perm such that ``ours_table = official_table[..., perm]``.
 
@@ -149,17 +174,21 @@ class _TrackedSD(Mapping):
             )
 
 
+def _refuse_onnx(path: Path) -> None:
+    if path.suffix.lower() == ".onnx":
+        raise NotImplementedError(
+            f"{path}: ONNX artifacts are not read by the port yet (weights/onnx_io.py and onnx_rename.py "
+            "wait, ROADMAP.md §1 item 12); stage a torch state dict instead"
+        )
+
+
 def convert_torch_file(model, path: str | Path) -> dict:
     """Convert a torch-loadable state dict staged at ``path`` for ``model``
     (dispatch by model name).  Every key the converter touches is tracked:
     missing keys raise with nearest-name suggestions, unconsumed tensors
     are reported after conversion."""
     path = Path(path)
-    if path.suffix.lower() == ".onnx":
-        raise NotImplementedError(
-            f"{path}: ONNX artifacts are not read by the port yet (weights/onnx_io.py and onnx_rename.py "
-            "wait, ROADMAP.md §1 item 12); stage a torch state dict instead"
-        )
+    _refuse_onnx(path)
     import torch
 
     sd = torch.load(path, map_location="cpu", weights_only=True)
@@ -182,9 +211,10 @@ def _norm_params(n_channels: int, mean=None, std=None) -> dict:
     return {"mean": mean[:, None, None], "std": std[:, None, None]}
 
 
-def _convert_norm_stats(sd: Mapping, n_channels: int) -> dict | None:
+def _convert_norm_stats(sd: Mapping, n_channels: int, prefix: str = "") -> dict | None:
     """Pull per-channel normalization stats if the checkpoint carries them."""
     for mk, sk in (("means", "stds"), ("center", "scale"), ("mean", "std")):
+        mk, sk = prefix + mk, prefix + sk
         if mk in sd and sk in sd:
             mean = _t(sd[mk]).reshape(-1)[:n_channels]
             std = _t(sd[sk]).reshape(-1)[:n_channels]
@@ -311,4 +341,118 @@ def convert_graphcast(model, sd: Mapping) -> dict:
     return {"net": net, "norm": _convert_norm_stats(sd, nc) or _norm_params(nc)}
 
 
-CONVERTERS = {"pangu": convert_pangu, "graphcast": convert_graphcast}
+def _conv1x1_as_dense(sd: Mapping, prefix: str) -> dict:
+    """torch 1×1 Conv2d (O, I, 1, 1) → flax Dense (I, O)."""
+    out = {"kernel": _t(sd[f"{prefix}.weight"])[:, :, 0, 0].T}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _t(sd[f"{prefix}.bias"])
+    return out
+
+
+def convert_sfno(model, sd: Mapping) -> dict:
+    """FourCastNet v2 (fcnv2_sm) state dict in the official sfnonet naming,
+    a DDP ``module.`` prefix allowed: ``pos_embed`` (1, C, H, W);
+    ``encoder.{0,2}``/``decoder.{0,2}`` 1×1 convs; ``blocks.{i}.norm0``,
+    ``norm1`` instance-norm affines; ``blocks.{i}.filter.filter.w.{l}``
+    (C_l, C_{l+1}, 2) and ``.wout`` (hidden, C, 2); ``blocks.{i}.inner_skip``
+    only on the resolution-preserving blocks (a mismatch raises);
+    ``blocks.{i}.mlp.fwd.{0,2}`` → the flax-layout tree."""
+    cfg = model.cfg
+    raw = getattr(sd, "_sd", sd)  # probe the prefix without marking tensors consumed
+    pre = "module." if any(str(k).startswith("module.") for k in raw) else ""
+    net = {
+        "encoder_fc1": _conv1x1_as_dense(sd, f"{pre}encoder.0"),
+        "encoder_fc2": _conv1x1_as_dense(sd, f"{pre}encoder.2"),
+        "decoder_fc1": _conv1x1_as_dense(sd, f"{pre}decoder.0"),
+        "decoder_fc2": _conv1x1_as_dense(sd, f"{pre}decoder.2"),
+    }
+    if cfg.use_pos_embed:
+        net["pos_embed"] = _t(sd[f"{pre}pos_embed"])[0].transpose(1, 2, 0)
+    for i in range(cfg.num_layers):
+        p = f"{pre}blocks.{i}"
+        filt = {f"w{l}": _t(sd[f"{p}.filter.filter.w.{l}"]) for l in range(cfg.spectral_layers)}
+        filt["wout"] = _t(sd[f"{p}.filter.filter.wout"])
+        blk = {
+            "norm0_scale": _t(sd[f"{p}.norm0.weight"]),
+            "norm0_bias": _t(sd[f"{p}.norm0.bias"]),
+            "norm1_scale": _t(sd[f"{p}.norm1.weight"]),
+            "norm1_bias": _t(sd[f"{p}.norm1.bias"]),
+            "filter": filt,
+            "mlp_fc1": _conv1x1_as_dense(sd, f"{p}.mlp.fwd.0"),
+            "mlp_fc2": _conv1x1_as_dense(sd, f"{p}.mlp.fwd.2"),
+        }
+        has_skip = f"{p}.inner_skip.weight" in sd
+        if has_skip != cfg.has_skips(i):
+            raise ValueError(
+                f"fcnv2 block {i}: checkpoint {'has' if has_skip else 'lacks'} inner_skip but the "
+                "architecture expects the opposite — config/checkpoint mismatch"
+            )
+        if has_skip:
+            blk["inner_skip"] = _conv1x1_as_dense(sd, f"{p}.inner_skip")
+        net[f"block_{i}"] = blk
+    nc = cfg.in_channels
+    return {"net": net, "norm": _convert_norm_stats(sd, nc, pre) or _norm_params(nc)}
+
+
+def convert_fengwu(model, sd: Mapping) -> dict:
+    """FengWu state dict (``encoders.{g}`` Conv2d and ``decoders.{g}``
+    ConvTranspose2d per variable group, g = 0 the surface, then one per
+    upper-air variable; ``fuse_in`` Linear; ``fuser.{i}`` Swin blocks, see
+    ``_swin_block``; optional ``means``/``stds``) → the flax-layout tree."""
+    cfg = model.cfg
+    net = {"fuse_in": convert_linear(sd, "fuse_in")}
+    for g in range(1 + cfg.level_vars):
+        net[f"enc_{g}"] = convert_conv2d(sd, f"encoders.{g}")
+        net[f"dec_{g}"] = convert_convtranspose2d(sd, f"decoders.{g}")
+    for i in range(cfg.depth):
+        net[f"fuser_{i}"] = _swin_block(sd, f"fuser.{i}", cfg.window)
+    nc = cfg.in_channels
+    return {"net": net, "norm": _convert_norm_stats(sd, nc) or _norm_params(nc)}
+
+
+def fengwu_config_from_sd(sd: Mapping, lat: int = 721, lon: int = 1440, n_history: int = 2):
+    """FengWuConfig's widths read from a torch-named FengWu state dict's
+    tensor shapes rather than assumed."""
+    from skyrim_tpu_torch.models.fengwu import FengWuConfig
+
+    md, hs, p, _ = np.shape(sd["encoders.0.weight"])  # (md, hist·surface, p, p)
+    D, n_modal = np.shape(sd["fuse_in.weight"])  # (D, groups·md)
+    n_groups = n_modal // md
+    levels = np.shape(sd["encoders.1.weight"])[1] // n_history if n_groups > 1 else 13
+    depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("fuser."))
+    n_rel, heads = np.shape(sd["fuser.0.attn.relative_position_bias_table"])
+    window = next(
+        (w for w in ((6, 12), (4, 8), (8, 16), (2, 4), (3, 6), (7, 14), (2, 2))
+         if earth_bias_table_size((1, *w)) == n_rel),
+        None,
+    )
+    if window is None:
+        raise ValueError(f"cannot infer fuser window from bias table rows {n_rel}")
+    return FengWuConfig(
+        lat=lat, lon=lon, levels=int(levels), surface_channels=int(hs // n_history),
+        level_vars=int(n_groups - 1), modal_dim=int(md), fuser_dim=int(D), depth=int(depth),
+        num_heads=int(heads), window=window, patch=int(p),
+    )
+
+
+def load_fengwu_from_artifact(path: str | Path, lat: int = 721, lon: int = 1440, device="cuda"):
+    """(model, flax-layout tree) for a FengWu state dict staged at ``path``,
+    the configuration read from its tensor shapes.  The released ONNX
+    artifact raises ``NotImplementedError``: the ONNX reader waits
+    (ROADMAP.md §1 item 12)."""
+    import torch
+
+    from skyrim_tpu_torch.models.fengwu import FengWuModel
+
+    path = Path(path)
+    _refuse_onnx(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = FengWuModel(fengwu_config_from_sd(sd, lat=lat, lon=lon), device=device)
+    tracked = _TrackedSD(sd)
+    tree = convert_fengwu(model, tracked)
+    tracked.report(model.name)
+    return model, tree
+
+
+CONVERTERS = {"pangu": convert_pangu, "graphcast": convert_graphcast, "fourcastnet_v2": convert_sfno,
+              "fengwu": convert_fengwu}

@@ -142,7 +142,7 @@ def test_skyrim_invalid_and_several_models():
         Skyrim()
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 7"):
         Skyrim("pangu", "graphcast", ic_source="synthetic")
-    assert Skyrim.list_available_models() == ["pangu", "graphcast"]
+    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu"]
 
 
 def test_skyrim_default_device_raises_without_cuda(monkeypatch, weights_root):
