@@ -18,8 +18,9 @@ Phases:
      shapes; FengWu's fuser: K1 at (1, 186, 360, 1152), 18 heads, window
      (1, 6, 12), one bias table, the shift (0, 3, 6) and the padding rows
      181-185 in its mask, on the seven-launch chain (C > 512), its
-     attention alone, and K2 at the same shape; each K1 and K2 row names
-     the forecast whose launches it reports; K3 and K4, each one launch, on
+     attention alone, and K2 at the same shape; K2 at FuXi's trunk (1, 96,
+     180, 1536), exact against torch.roll; each K1 and K2 row names the
+     forecast whose launches it reports; K3 and K4, each one launch, on
      the strided views of the stage
      buffers the forward hands them (K3's odd H, 181, read in place), each
      check refusing three faulty outputs (beta dropped, parity slabs (i, j)
@@ -65,7 +66,8 @@ Phases:
      scaled_dot_product_attention (timed only), each row named with the kernel body its shape takes
      (ops/flash_window_attention.py attention_body); K5 and K1 at FuXi's V1
      trunk geometry (window (1, 6, 12), wlen
-     72, hd 64; K1 there on its seven-launch chain, C 1536); K12 over the grid
+     72, hd 64; K1 there on its seven-launch chain, C 1536, its row
+     reporting the launches of FuXi V1's forecast); K12 over the grid
      rows and the mesh edges, one launch a call (timed over 20 after 5),
      within 2 ulps of its two-launch chain (the finish GEMM, then the
      LayerNorm rows; timed beside it), its store into an output with 64
@@ -111,7 +113,22 @@ Phases:
      frames, fuser 1152 with 18 heads, 16 blocks, a 4-step forecast (16 K1
      on the chain at (1, 186, 360, 1152) and 16 K2 at that shape per
      forward; inside K1 64 launches of the row GEMM through ops.gemm and 32
-     of the LayerNorm rows, none of ln_gemm); for each, per-step CUDA-event
+     of the LayerNorm rows, none of ln_gemm), then GlobalModel("fuxi",
+     ic_source="synthetic"), the published Swin-V2 cascade at 721x1440, 70
+     channels, 2 frames, 3 stages of 48 blocks at C 1536 (its seed-0
+     parameters drawn on the card and given as params), a 4-step forecast
+     (48 K2 at (1, 96, 180, 1536) a forward and no other kernel), its stage
+     switch (from step 19 two advances take stage 0, then stage 1, each
+     equal bit for bit to _forward of that stage) and its two int8 tiers
+     on stage 0 (at rest and served through torch._int_mm: resident bytes,
+     step ms beside bf16's, peak, the first step within 0.15 mean |diff| /
+     mean |bf16| of bf16, 48 K2 a step; then torch._int_mm, int8_dot and
+     torch.matmul at the trunk's four product shapes, timed only), then
+     FuXi's V1 flavour, one stage (48 K1 on the chain and 48 K2 a forward,
+     inside K1 192 launches of the row GEMM and 96 of the LayerNorm rows),
+     then GlobalModel("fourcastnet", ic_source="synthetic"), AFNO at
+     720x1440, 26 channels, width 768, 12 blocks (no kernel of the port);
+     for each, its set-up seconds, per-step CUDA-event
      times, peak memory, one profiled step, and rollout(save=True) for 2
      steps into a temporary directory and a reload of the files.  Weights
      are random, from a seed.
@@ -127,11 +144,12 @@ Phases:
      to GlobalModel.rollout's last frame, the loaded parameters equal leaf
      for leaf to the checkpoint's; its wall time split into IC read, NetCDF
      writes and the other host time on the host clock, beside the two
-     steps' device time by CUDA events; the facade lists the four models;
+     steps' device time by CUDA events; the facade lists the six models;
   5. the small test configurations on the card (kernels) against the CPU
-     (plain versions), 4 steps each: Pangu's and GraphCast's, SFNO's and
-     FengWu's golden ones (FengWu's K1 launched on the card, SFNO launching
-     no kernel of the port).
+     (plain versions), 4 steps each: Pangu's and GraphCast's, SFNO's,
+     FengWu's, FuXi's (Swin-V2, V1, and Swin-V2 int8-served at min_size
+     256) and AFNO's golden ones (FengWu's and FuXi V1's K1 and FuXi's K2
+     launched on the card, SFNO and AFNO launching no kernel of the port).
 
 Prints {"kernels": [...]} on a line of its own, then as the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, on
@@ -330,8 +348,10 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
         del args, x, mask
         torch.cuda.empty_cache()
 
-    # K2 at each geometry (the shifted blocks' frame change)
-    for stage, (Z, H, Wd, C, _, _), _, s, _ in geometries:
+    # K2 at each geometry (the shifted blocks' frame change), and at FuXi's
+    # trunk (both flavours: 48 a forward)
+    for stage, (Z, H, Wd, C), s in [(g[0], g[1][:4], g[3]) for g in geometries] + [
+            ("FuXi trunk", (1, 96, 180, 1536), (0, 3, 6))]:
         x = randn(Z, H, Wd, C, dtype=bf16)
         err = compare(torch, RL.roll3d(x, s), RL.plain_roll3d(x, s), f"K2 roll3d {stage}", exact=True)
         b_ms, b_by = bound(0, 2 * x.numel() * 2)
@@ -1083,6 +1103,8 @@ def attention_op_checks(torch, g) -> list[dict]:
            FB.fused_swin_block, args, FB.reference_swin_block,
            2 * N * C * (4 * C + 2 * hidden) + 4 * 16 * 15 * heads * wlen * wlen * (C // heads),
            2 * N * C * 2 + 2 * C * (4 * C + 2 * hidden) + 4 * args[3].numel() + 4 * mask.numel(), iters=10)
+    del rows[-1]["launches"]  # a forecast's kernel: its launches on FuXi V1's forecast
+    rows[-1]["shape"] = (Z, H, Wd, C)
     del args, mask, bias
     torch.cuda.empty_cache()
     return rows
@@ -1449,13 +1471,18 @@ def counters():
 
 
 BY_SHAPE = ("K1", "K2", "K6", "K7")  # kernels that run at several shapes on a path
-FORECASTS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu")  # phase 4's main paths, in order
+FORECASTS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet")  # the ported models
+# phase 4's main paths, in order: every model at its published widths, and FuXi's V1 flavour
+MAIN_PATHS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fuxi V1", "fourcastnet")
+# phase 5's small configurations: the CPU tests' ones, FuXi's in both flavours and int8-served
+SMALL_CONFIGS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fuxi V1", "fuxi int8", "fourcastnet")
 
 
 def forecast_launches(mp: dict, key: str, shape) -> tuple[str | None, int]:
     """The forecast of phase 4 that launched ``key`` (at ``shape`` where it
     is given for a kernel counted by shape, BY_SHAPE), and its launches
-    there; K1 and K2 run on Pangu's and FengWu's, at their own shapes."""
+    there; K1 and K2 run on Pangu's, FengWu's and FuXi's, at their own
+    shapes."""
     for name, run in mp.items():
         n = run["by_shape"][key].get(shape, 0) if key in BY_SHAPE and shape is not None else run["counts"][key]
         if n:
@@ -1503,7 +1530,23 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     port is listed, so the other model's kernels must stay at 0."""
     counts = dict.fromkeys(counters(), 0)
     by_shape = {k: {} for k in (*BY_SHAPE, *ROW_KERNELS)}
-    if model.name == "fourcastnet_v2":  # a PyTorch composition: no kernel of the port
+    if model.name in ("fourcastnet_v2", "fourcastnet"):  # PyTorch compositions: no kernel of the port
+        return counts, by_shape
+    if model.name == "fuxi":
+        # both flavours: the trunk's 24 shifted blocks each between two K2
+        # rolls on the (96, 180) token grid; V1's 48 blocks at C 1536 take
+        # K1's chain (4 products through ops.gemm and 2 LayerNorm rows
+        # launches a block); Swin-V2's blocks are a PyTorch composition
+        cfg = model.cfg
+        Ht, Wt = cfg.tokens
+        Hd, wh = (Ht + Ht % 2) // 2, cfg.window[0]
+        shape = (1, -(-Hd // wh) * wh, Wt // 2, cfg.embed_dim)
+        rolls, n_blocks = cfg.depth * n_steps, cfg.depth * n_steps
+        counts.update(K2=rolls)
+        by_shape["K2"] = {shape: rolls}
+        if not cfg.attn_v2:
+            counts.update(K1=n_blocks, gemm=4 * n_blocks, layernorm=2 * n_blocks)
+            by_shape["K1"], by_shape["K1 path"] = {shape: n_blocks}, {"chain": n_blocks}
         return counts, by_shape
     if model.name == "fengwu":
         # the fuser's 16 blocks at C 1152 take K1's chain (block_path: C >
@@ -1567,25 +1610,39 @@ def weights_dir(path):
             os.environ["SKYRIM_WEIGHTS_DIR"] = before
 
 
-def main_path(torch, model_name: str, g) -> dict:
+def fuxi_params(torch, label: str):
+    """FuXi's GlobalModel arguments for phase 4: the published V2 cascade
+    (3 stages) or the V1 flavour (1 stage), its seed-0 parameters drawn on
+    the card (4.1 B draws on the host would take about a minute)."""
+    from skyrim_tpu_torch.models.fuxi import FuXiConfig, FuXiModel
+
+    cfg = FuXiConfig() if label == "fuxi" else FuXiConfig(attn_v2=False, n_stages=1)
+    params = FuXiModel(cfg, device="cuda").init_params(torch.Generator(device="cuda").manual_seed(0))
+    return dict(model_kwargs={"cfg": cfg}, params=params)
+
+
+def main_path(torch, label: str, g) -> dict:
     """Phase 4: a full-width forecast through GlobalModel, with the launch
     counts of the forecast, then per-step times, a profile and a saved
-    rollout."""
+    rollout; for FuXi's cascade also the stage switch and the int8 tiers."""
     import numpy as np
 
     from skyrim_tpu_torch.core import GlobalModel
     from skyrim_tpu_torch.io import SaveConfig, load_forecast
 
+    model_name = label.split()[0]
     gc.collect()  # the earlier phases' tensors and the objects that held them, gone before the forecast is timed
     torch.cuda.empty_cache()
     reset_counts()
     with tempfile.TemporaryDirectory() as empty, weights_dir(empty):  # the seed-0 init, whatever HOME holds
         t0 = time.perf_counter()
-        gm = GlobalModel(model_name, ic_source="synthetic", seed=0, device="cuda")
+        kwargs = fuxi_params(torch, label) if model_name == "fuxi" else {}
+        gm = GlobalModel(model_name, ic_source="synthetic", seed=0, device="cuda", **kwargs)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
+        del kwargs
     setup_counts = {k: v for k, v in read_counts()[0].items() if v}
-    log(f"{model_name}: set-up {setup_s:.1f} s (tables, parameters, cache), launches {setup_counts}")
+    log(f"{label}: set-up {setup_s:.1f} s (tables, parameters, cache), launches {setup_counts}")
     if model_name == "graphcast":  # the cache: embed_mesh, embed_mm and the two edge embeddings
         check(setup_counts == {"K6": 4}, f"graphcast cache build launched {setup_counts}, expected 4 K6")
     start = datetime.datetime(2024, 1, 1, 0)
@@ -1600,14 +1657,9 @@ def main_path(torch, model_name: str, g) -> dict:
     forecast_s = time.perf_counter() - t0
     counts, by_shape = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"{model_name}: forecast of {n_steps} steps in {forecast_s:.2f} s, launches {counts}, "
+    log(f"{label}: forecast of {n_steps} steps in {forecast_s:.2f} s, launches {counts}, "
         f"by shape {by_shape}, peak {peak_gb:.2f} GB allocated")
-    expect, expect_shape = expected_launches(gm.model, n_steps)
-    for k, v in expect.items():
-        check(counts[k] == v, f"{model_name} main path launched {k} {counts[k]} times, expected {v}")
-    for k in (*BY_SHAPE, *ROW_KERNELS):
-        check(by_shape[k] == expect_shape[k],
-              f"{model_name} main path launched {k} by shape {by_shape[k]}, expected {expect_shape[k]}")
+    check_launches(gm.model, n_steps, counts, by_shape, f"{label} main path")
     check(fc.data.shape == (n_steps + 1, *shape), f"forecast shape {fc.data.shape}")
     check(bool(np.isfinite(fc.data).all()), "forecast has non-finite values")
     check(float(np.abs(fc.data[1:] - fc.data[:1]).max()) > 0, "forecast did not change the state")
@@ -1623,7 +1675,7 @@ def main_path(torch, model_name: str, g) -> dict:
         e1.record()
         torch.cuda.synchronize()
         step_ms.append(e0.elapsed_time(e1))
-    log(f"{model_name}: per-step ms {['%.2f' % t for t in step_ms]}")
+    log(f"{label}: per-step ms {['%.2f' % t for t in step_ms]}")
     profile = profile_step(torch, model, params, state)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1638,12 +1690,114 @@ def main_path(torch, model_name: str, g) -> dict:
             diff = float(np.abs(f.data[0] - fc.data[i + 1]).max())
             check(diff <= 1e-3 * float(np.abs(fc.data[i + 1]).max()), f"saved step {i + 1} differs from forecast by {diff}")
         np.testing.assert_array_equal(load_forecast(paths[-1]).data, last.data)
-        log(f"{model_name}: rollout saved {[Path(p).name for p in paths]} and reloaded them")
+        log(f"{label}: rollout saved {[Path(p).name for p in paths]} and reloaded them")
     modules = module_path(torch, params["net6"], g) if model_name == "pangu" else None
+    cascade = int8 = None
+    if label == "fuxi":
+        state, _ = gm._initial_state(start)
+        cascade = fuxi_cascade(torch, model, params, state)
+        int8 = fuxi_int8(torch, model, params, state)
     del gm, model, params, state, fc
     torch.cuda.empty_cache()
     return dict(counts=counts, by_shape=by_shape, n_steps=n_steps, setup_launches=setup_counts, setup_s=setup_s,
-                forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile, modules=modules)
+                forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile, modules=modules,
+                cascade=cascade, int8=int8)
+
+
+def check_launches(model, n_steps: int, counts: dict, by_shape: dict, what: str) -> None:
+    expect, expect_shape = expected_launches(model, n_steps)
+    for k, v in expect.items():
+        check(counts[k] == v, f"{what} launched {k} {counts[k]} times, expected {v}")
+    for k in (*BY_SHAPE, *ROW_KERNELS):
+        check(by_shape[k] == expect_shape[k], f"{what} launched {k} by shape {by_shape[k]}, expected {expect_shape[k]}")
+
+
+def fuxi_cascade(torch, model, params, state) -> dict:
+    """FuXi's stage switch at full width: from the IC's state at step 19, two
+    advances take stage 0 (19 // 20), then stage 1 (20 // 20); each output
+    equals _forward of that stage on the same history bit for bit, and the
+    second differs from stage 0's."""
+    stages = params["stages"]
+    state = state.replace(step=model.cfg.stage_steps - 1)
+    s1, y1 = model.advance(params, state)
+    s2, y2 = model.advance(params, s1)
+    check(s2.step == model.cfg.stage_steps + 1, f"cascade steps {s1.step}, {s2.step}")
+    check(bool(torch.equal(y1[0], model._forward(stages[0], params, state.x))), "step 19 did not take stage 0")
+    check(bool(torch.equal(y2[0], model._forward(stages[1], params, s1.x))), "step 20 did not take stage 1")
+    other = float((y2[0] - model._forward(stages[0], params, s1.x)).abs().max())
+    check(other > 0, "stages 0 and 1 gave the same step 20")
+    log(f"fuxi cascade: step 19 took stage 0, step 20 stage 1 (bit for bit), stage 0 at step 20 differs by "
+        f"max {other:.4g}")
+    return dict(stage1_vs_stage0_max_abs=other)
+
+
+def fuxi_int8(torch, model, params, state) -> dict:
+    """FuXi's two int8 tiers on stage 0 at full width (min_size 65536): the
+    resident bytes (quantize.tree_nbytes), the first step's mean |diff| /
+    mean |bf16| against the bf16 stage (below 0.15, tests/test_quantize.py:102),
+    its launches (48 K2, nothing else), step ms (CUDA events, 3 steps each,
+    bf16 in the same run) and peak; then torch._int_mm beside torch.matmul
+    and quantize.int8_dot at the trunk's four product shapes, timed only."""
+    from skyrim_tpu_torch.quantize import QuantizedTensor, int8_dot, quantize_array, tree_nbytes
+    from skyrim_tpu_torch.models.fuxi import stage_tree
+
+    one = model.trim_stages(params, 1)
+
+    def steps(p):
+        model.advance(p, state)  # warm
+        ms = []
+        for _ in range(3):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            model.advance(p, state)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+        return ms
+
+    _, y0 = model.advance(one, state)
+    out = {"bf16": dict(step_ms=steps(one), nbytes=tree_nbytes(stage_tree(one["stages"][0])))}
+    for tier, serve in (("at rest", False), ("serving", True)):
+        t0 = time.perf_counter()
+        qp = model.quantize_params(one, serve_int8=serve)
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        _, y = model.advance(qp, state)
+        torch.cuda.synchronize()
+        counts, by_shape = read_counts()
+        check_launches(model, 1, counts, by_shape, f"fuxi int8 {tier}")
+        rel = float((y - y0).abs().mean() / y0.abs().mean())
+        check(bool(torch.isfinite(y).all()) and rel < 0.15, f"fuxi int8 {tier}: mean |diff| / mean |bf16| = {rel:.4g}")
+        out[tier] = dict(step_ms=steps(qp), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         nbytes=tree_nbytes(qp["stages"][0]), rel_diff=rel, quantize_s=quantize_s)
+        log(f"fuxi int8 {tier}: {out[tier]}")
+        del qp, y
+    log(f"fuxi bf16 stage: {out['bf16']}")
+
+    # the trunk's products: 240 windows x 72 tokens, timed only; the int8
+    # weight column-major as split_dense_int8 stores it, and row-major
+    g = torch.Generator(device="cuda").manual_seed(1)
+    M, C = 240 * 72, model.cfg.embed_dim
+    prod = {}
+    for name, (K, N) in (("qkv", (C, 3 * C)), ("proj", (C, C)), ("Dense_0", (C, 4 * C)), ("Dense_1", (4 * C, C))):
+        x = torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+        w = (torch.randn(K, N, device="cuda", generator=g) * K**-0.5).to(torch.bfloat16)
+        qw = quantize_array(w)
+        qcol = qw.q.t().contiguous().t()
+        xq = torch.randint(-127, 128, (M, K), device="cuda", generator=g, dtype=torch.int8)
+        qt = QuantizedTensor(qcol, qw.scale, torch.bfloat16)
+        prod[name] = dict(shape=[M, K, N], int_mm_ms=time_ms(torch, lambda: torch._int_mm(xq, qcol), 10),
+                          int_mm_row_major_ms=time_ms(torch, lambda: torch._int_mm(xq, qw.q), 10),
+                          matmul_ms=time_ms(torch, lambda: x @ w, 10), int8_dot_ms=time_ms(torch, lambda: int8_dot(x, qt), 10))
+        log(f"fuxi trunk product {name} {prod[name]}")
+        del x, w, qw, qcol, xq, qt
+    out["products"] = prod
+    torch.cuda.empty_cache()
+    return out
 
 
 def facade_path(torch) -> dict:
@@ -1788,14 +1942,35 @@ def profile_step(torch, model, params, state) -> dict:
             "top": [[n, ms] for n, ms in top]}
 
 
-def small_config(torch, model_name: str) -> dict:
+def small_config(torch, label: str) -> dict:
     """Phase 5: the CPU tests' configuration, card (kernels) vs CPU (plain)."""
     import numpy as np
 
     from skyrim_tpu_torch.rollout import scan_rollout
 
+    model_name = label.split()[0]
     start = datetime.datetime(2024, 5, 1, 9)
-    if model_name == "pangu":
+    quantize = None
+    if model_name == "fuxi":
+        from skyrim_tpu_torch.models.fuxi import FuXiConfig, FuXiModel
+
+        # tests/test_golden.py:43-45, a pair a step: Swin-V2 (2 K2 rolls a
+        # step), V1 (2 K1 a step), and Swin-V2 int8-served with min_size 256
+        # (tests/test_quantize.py:56), its trunk products on torch._int_mm
+        cfg = FuXiConfig(lat=49, lon=96, in_channels=5, embed_dim=16, depth=2, num_heads=2,
+                         attn_v2=label != "fuxi V1")
+        x = np.random.default_rng(0).normal(size=(2, 5, 49, 96)).astype(np.float32)
+        make, key, launches = (lambda device: FuXiModel(cfg, device=device)), ("K1" if label == "fuxi V1" else "K2"), 8
+        if label == "fuxi int8":
+            quantize = dict(min_size=256, serve_int8=True)
+    elif model_name == "fourcastnet":
+        from skyrim_tpu_torch.models.afno import AFNOConfig, FourCastNetModel
+
+        # tests/test_golden.py:40-42; no kernel of the port on its path
+        cfg = AFNOConfig(lat=48, lon=96, in_channels=5, patch=8, embed_dim=16, depth=2, num_blocks=2)
+        x = np.random.default_rng(0).normal(size=(5, 48, 96)).astype(np.float32)
+        make, key, launches = (lambda device: FourCastNetModel(cfg, device=device)), None, 0
+    elif model_name == "pangu":
         from skyrim_tpu_torch.models.pangu import PanguConfig, PanguModel
 
         cfg = PanguConfig(lat=49, lon=96, embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 2, 2))
@@ -1827,25 +2002,27 @@ def small_config(torch, model_name: str) -> dict:
     for device in ("cuda", "cpu"):
         model = make(device)
         params = model.init_params(torch.Generator().manual_seed(0))
+        if quantize:
+            params = model.quantize_params(params, **quantize)
         reset_counts()
         _, ys = scan_rollout(model, params, model.init_state(params, x, start_time=start), 4)
         outs[device] = ys.float().cpu().numpy()
         if device == "cuda" and key is None:
             ran = {k: fn.launches for k, fn in counters().items() if fn.launches}
-            check(not ran, f"small {model_name} config launched kernels of the port: {ran}")
+            check(not ran, f"small {label} config launched kernels of the port: {ran}")
         elif device == "cuda":
-            check(counters()[key].launches == launches, f"small {model_name} config did not run {key} on the card")
+            check(counters()[key].launches == launches, f"small {label} config did not run {key} on the card")
     worst = 0.0
     for step in range(4):
         ref, out = outs["cpu"][step].astype(np.float64), outs["cuda"][step].astype(np.float64)
         tol = GOLDEN * ref.std()
         d = out - ref
         check(abs(out.mean() - ref.mean()) < tol and abs(out.std() - ref.std()) < tol,
-              f"small {model_name} config step {step + 1}: mean/std differ beyond {tol:.3g}")
-        check(float(np.sqrt((d**2).mean())) < tol, f"small {model_name} config step {step + 1}: rms diff over {tol:.3g}")
-        check(float(np.abs(d).max()) < 10 * tol, f"small {model_name} config step {step + 1}: max diff over {10 * tol:.3g}")
+              f"small {label} config step {step + 1}: mean/std differ beyond {tol:.3g}")
+        check(float(np.sqrt((d**2).mean())) < tol, f"small {label} config step {step + 1}: rms diff over {tol:.3g}")
+        check(float(np.abs(d).max()) < 10 * tol, f"small {label} config step {step + 1}: max diff over {10 * tol:.3g}")
         worst = max(worst, float(np.abs(d).max() / ref.std()))
-    log(f"small {model_name} config: card vs CPU over 4 steps, worst max|diff|/std = {worst:.4f}")
+    log(f"small {label} config: card vs CPU over 4 steps, worst max|diff|/std = {worst:.4f}")
     return dict(worst_max_over_std=worst)
 
 
@@ -1879,7 +2056,7 @@ def main() -> int:
         log(f"build: {len(_build.LIBS)} libraries in {build_s:.1f} s")
 
         # 4. the main paths, first: what they measure does not depend on what phase 3 allocated and freed
-        mp = {name: main_path(torch, name, torch.Generator(device="cuda").manual_seed(0)) for name in FORECASTS}
+        mp = {label: main_path(torch, label, torch.Generator(device="cuda").manual_seed(0)) for label in MAIN_PATHS}
         facade = facade_path(torch)
 
         # 3. kernels against their plain versions at full width
@@ -1915,7 +2092,7 @@ def main() -> int:
                 r["forecast"], r["launches_per_forward"] = forecast, n / mp[forecast]["n_steps"]
 
         # 5. small configurations, card vs CPU
-        small = {name: small_config(torch, name) for name in FORECASTS}
+        small = {label: small_config(torch, label) for label in SMALL_CONFIGS}
     except Exception as e:  # every failure ends the run without a result
         log(f"chip_smoke: FAILED: {type(e).__name__}: {e}")
         import traceback
@@ -1937,6 +2114,8 @@ def main() -> int:
         "row_gemm": gemm_rows,
         "message_parts": msg_parts,
         "module_path_max_abs_err": mp["pangu"]["modules"]["max_abs_err"],
+        "fuxi_cascade": mp["fuxi"]["cascade"],
+        "fuxi_int8": mp["fuxi"]["int8"],
         "sht": sht,
         "build_s": build_s,
     }), flush=True)

@@ -5,8 +5,9 @@
 
 ``ModelState`` keeps the input history on the model's device and the
 step counter as a Python int, so step-dependent control flow (Pangu's
-6h/24h choice) needs no device synchronisation.  Parameters stay f32;
-the network runs in ``compute_dtype`` (bf16 by default).
+6h/24h choice) needs no device synchronisation.  Parameters stay f32
+(FuXi's stages bf16, as the JAX package keeps them); the network runs in
+``compute_dtype`` (bf16 by default).
 """
 
 from __future__ import annotations
@@ -134,13 +135,16 @@ def _count(params) -> int:
         return sum(p.numel() for p in params.parameters())
     if isinstance(params, dict):
         return sum(_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(_count(v) for v in params)
     return int(params.numel())
 
 
 def _truncated_normal(shape, std, generator):
-    """N(0, std²) truncated to ±2 std, by inverse CDF (jax's truncated_normal)."""
+    """N(0, std²) truncated to ±2 std, by inverse CDF (jax's truncated_normal),
+    drawn on the generator's device."""
     lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, (1 + math.erf(2 / math.sqrt(2))) / 2
-    t = torch.empty(shape).uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+    t = torch.empty(shape, device=generator.device).uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
     return t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
 
 

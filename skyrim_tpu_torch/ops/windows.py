@@ -122,6 +122,32 @@ def earth_bias_table_size(window: Window3) -> int:
     return wz * wz * wh * wh * (2 * ww - 1)
 
 
+@lru_cache(maxsize=32)
+def swin_rel_index(window2: tuple[int, int]) -> np.ndarray:
+    """Standard Swin 2D relative-position index: (wlen, wlen) rows into the
+    ((2wh−1)(2ww−1),) relative table (the Swin-V2 bias of models/fuxi.py)."""
+    wh, ww = window2
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"), -1).reshape(-1, 2)
+    rel = coords[:, None] - coords[None, :]  # (wlen, wlen, 2)
+    return (rel[..., 0] + wh - 1) * (2 * ww - 1) + (rel[..., 1] + ww - 1)
+
+
+@lru_cache(maxsize=32)
+def swin_v2_log_coords(window2: tuple[int, int]) -> np.ndarray:
+    """Swin-V2 continuous-position-bias MLP input: ((2wh−1)(2ww−1), 2)
+    log-spaced normalised relative coordinates (Liu et al. 2022, eq. 4:
+    sign(Δ)·log2(1 + |8·Δ/(w−1)|)/log2(8))."""
+    wh, ww = window2
+    dh = np.arange(-(wh - 1), wh, dtype=np.float64)
+    dw = np.arange(-(ww - 1), ww, dtype=np.float64)
+    t = np.stack(np.meshgrid(dh, dw, indexing="ij"), -1)
+    t[..., 0] /= max(wh - 1, 1)
+    t[..., 1] /= max(ww - 1, 1)
+    t *= 8.0
+    t = np.sign(t) * np.log2(np.abs(t) + 1.0) / np.log2(8.0)
+    return t.reshape(-1, 2).astype(np.float32)
+
+
 _MASKS: dict = {}
 
 

@@ -5,8 +5,8 @@ The mapping is explicit per architecture, so a converted tree lines up
 with the tree ``params.from_jax`` reads: Dense kernels (in, out), flax
 convolution layouts, Pangu's earth-bias tables in the
 ``ops.windows.earth_bias_index`` bijection.  Pangu, GraphCast, SFNO
-(fcnv2_sm) and FengWu are ported; ONNX artifacts and the Haiku GraphCast
-layout raise ``NotImplementedError`` (ROADMAP.md §1 item 12), other
+(fcnv2_sm), FengWu, FuXi and FourCastNet (AFNO) are ported; ONNX
+artifacts and the Haiku GraphCast layout raise ``NotImplementedError`` (ROADMAP.md §1 item 12), other
 models as the JAX package does for a model it has no converter for.
 
 Network egress is unavailable in this build environment, so these run
@@ -454,5 +454,146 @@ def load_fengwu_from_artifact(path: str | Path, lat: int = 721, lon: int = 1440,
     return model, tree
 
 
+def convert_afno(model, sd: Mapping) -> dict:
+    """FourCastNet AFNO state dict (modulus layout: ``patch_embed.proj``,
+    ``pos_embed`` (1, Ht·Wt, D), ``blocks.{i}.{norm1,norm2,mlp.fc1,mlp.fc2}``,
+    ``blocks.{i}.filter.{w1,b1,w2,b2}`` with the real and imaginary parts
+    stacked first, ``norm``, ``head``) → the flax-layout tree."""
+    cfg = model.cfg
+    nb, bs = cfg.num_blocks, cfg.embed_dim // cfg.num_blocks
+    net = {
+        "patch_embed": convert_conv2d(sd, "patch_embed.proj"),
+        "pos_embed": _t(sd["pos_embed"]).reshape(*cfg.tokens, cfg.embed_dim),
+        "head": convert_linear(sd, "head"),
+        "LayerNorm_0": convert_layernorm(sd, "norm"),
+    }
+    for i in range(cfg.depth):
+        p = f"blocks.{i}"
+        mixer = {}
+        for w, shape in (("w1", (nb, bs, bs)), ("b1", (nb, bs)), ("w2", (nb, bs, bs)), ("b2", (nb, bs))):
+            t = _t(sd[f"{p}.filter.{w}"])
+            mixer[f"{w}_r"], mixer[f"{w}_i"] = t[0].reshape(shape), t[1].reshape(shape)
+        net[f"block_{i}"] = {
+            "LayerNorm_0": convert_layernorm(sd, f"{p}.norm1"),
+            "LayerNorm_1": convert_layernorm(sd, f"{p}.norm2"),
+            "Dense_0": convert_linear(sd, f"{p}.mlp.fc1"),
+            "Dense_1": convert_linear(sd, f"{p}.mlp.fc2"),
+            "AFNOMixer_0": dict(sorted(mixer.items())),
+        }
+    nc = cfg.in_channels
+    return {"net": net, "norm": _convert_norm_stats(sd, nc) or _norm_params(nc)}
+
+
+def _stack(trees: list[dict]) -> dict:
+    """Identical trees stacked leaf by leaf (leading axis the block): the
+    layout of a scanned trunk."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict) else np.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def _swin_v2_block(sd: Mapping, p: str) -> dict:
+    """One Swin-V2 block (models/fuxi.py ``swin_v2_block``) from torch Swin-V2
+    naming: norm1/norm2 (the post-norms), attn.{qkv,proj,logit_scale},
+    attn.cpb_mlp.{0,2} (the continuous-position-bias MLP), mlp.{fc1,fc2}.
+    The qkv bias as one ``attn.qkv.bias``, or split as the official
+    ``q_bias``/``v_bias`` with a zero k bias, or absent (zeros)."""
+    qkv = {"kernel": _t(sd[f"{p}.attn.qkv.weight"]).T}
+    C = qkv["kernel"].shape[0]
+    if f"{p}.attn.qkv.bias" in sd:
+        qkv["bias"] = _t(sd[f"{p}.attn.qkv.bias"])
+    elif f"{p}.attn.q_bias" in sd:
+        qkv["bias"] = np.concatenate(
+            [_t(sd[f"{p}.attn.q_bias"]), np.zeros((C,), np.float32), _t(sd[f"{p}.attn.v_bias"])]
+        )
+    else:
+        qkv["bias"] = np.zeros((3 * C,), np.float32)
+    return {
+        "norm1": convert_layernorm(sd, f"{p}.norm1"),
+        "norm2": convert_layernorm(sd, f"{p}.norm2"),
+        "qkv": qkv,
+        "proj": _linear_zb(sd, f"{p}.attn.proj"),
+        "logit_scale": _t(sd[f"{p}.attn.logit_scale"]).reshape(-1, 1, 1),
+        "cpb_fc1": convert_linear(sd, f"{p}.attn.cpb_mlp.0"),
+        "cpb_fc2": {"kernel": _t(sd[f"{p}.attn.cpb_mlp.2.weight"]).T},
+        "Dense_0": convert_linear(sd, f"{p}.mlp.fc1"),
+        "Dense_1": convert_linear(sd, f"{p}.mlp.fc2"),
+    }
+
+
+def _fuxi_updown(sd: Mapping, p: str, transpose_conv: bool) -> dict:
+    """FuXi's down/up weights in the patch-merge GEMM layout (torch Linear)
+    or as k=2/s=2 convolutions, which are exactly that GEMM: Conv2d (D, Dc,
+    2, 2) → the (4·Dc, D) merge kernel with rows in (ki, kj, c) order,
+    ConvTranspose2d (D, Dc, 2, 2) → the (D, 4·Dc) expand kernel.  Any other
+    kernel (a 3×3 stride-2 convolution is another function) raises."""
+    w = _t(sd[f"{p}.weight"])
+    if w.ndim == 2:
+        return convert_linear(sd, p)
+    if w.ndim != 4 or w.shape[2] != 2 or w.shape[3] != 2:
+        raise ValueError(
+            f"{p}.weight has shape {w.shape}: only k=2/s=2 conv down/up weights map losslessly onto the "
+            "patch-merge GEMM (a 3x3 stride-2 conv is a different function)"
+        )
+    D_, Dc_ = w.shape[0], w.shape[1]
+    if transpose_conv:  # ConvTranspose2d (D, Dc, 2, 2) → (D, 4Dc)
+        kern = w.transpose(0, 2, 3, 1).reshape(D_, 4 * Dc_)
+    else:  # Conv2d (D, Dc, 2, 2) → (4Dc, D)
+        kern = w.transpose(2, 3, 1, 0).reshape(4 * Dc_, D_)
+    out = {"kernel": np.ascontiguousarray(kern)}
+    if f"{p}.bias" in sd:
+        out["bias"] = _t(sd[f"{p}.bias"])
+    return out
+
+
+def convert_fuxi(model, sd: Mapping) -> dict:
+    """FuXi cascade state dict (``stages.{s}.{cube_embed, down_norm, down,
+    blocks.{i}, up, up_norm, fuse, head}``, one stage per short/medium/long
+    regime) → the flax-layout tree.  Blocks convert by the configured
+    flavour (Swin-V2 with ``cfg.attn_v2``, else V1 as ``_swin_block``) and
+    stack pairwise (even blocks → ``pairs/a``, odd → ``pairs/b``), the
+    layout of the scanned trunk.  The stages' f32 leaves become bf16 CPU
+    tensors (bf16 at rest, as ``init_params``; numpy has no bf16), the
+    others stay as they came."""
+    import torch
+
+    cfg = model.cfg
+
+    def block(p):
+        return _swin_v2_block(sd, p) if cfg.attn_v2 else _swin_block(sd, p, cfg.window)
+
+    def bf16(tree):
+        return {k: bf16(v) if isinstance(v, dict)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(torch.bfloat16) if np.asarray(v).dtype == np.float32
+                else np.asarray(v) for k, v in tree.items()}
+
+    def one_stage(pre: str) -> dict:
+        blocks = [block(f"{pre}.blocks.{i}") for i in range(cfg.depth)]
+        return bf16({
+            "cube_embed": convert_conv2d(sd, f"{pre}.cube_embed"),
+            "head": convert_convtranspose2d(sd, f"{pre}.head"),
+            "down_norm": convert_layernorm(sd, f"{pre}.down_norm"),
+            "down": _fuxi_updown(sd, f"{pre}.down", transpose_conv=False),
+            "up": _fuxi_updown(sd, f"{pre}.up", transpose_conv=True),
+            "up_norm": convert_layernorm(sd, f"{pre}.up_norm"),
+            "fuse": convert_linear(sd, f"{pre}.fuse"),
+            "pairs": {"a": _stack(blocks[0::2]), "b": _stack(blocks[1::2])},
+        })
+
+    nc = cfg.in_channels
+    return {
+        "stages": [one_stage(f"stages.{s}") for s in range(cfg.n_stages)],
+        "norm": _convert_norm_stats(sd, nc) or _norm_params(nc),
+    }
+
+
+def convert_fuxi_onnx_cascade(model, paths):
+    """The released FuXi cascade, one traced ONNX file a stage: not read by
+    the port yet."""
+    raise NotImplementedError(
+        "the FuXi ONNX cascade is not read by the port yet (weights/onnx_io.py and onnx_rename.py wait, "
+        "ROADMAP.md §1 item 12); stage a torch state dict instead"
+    )
+
+
 CONVERTERS = {"pangu": convert_pangu, "graphcast": convert_graphcast, "fourcastnet_v2": convert_sfno,
-              "fengwu": convert_fengwu}
+              "fengwu": convert_fengwu, "fuxi": convert_fuxi, "fourcastnet": convert_afno}

@@ -5,10 +5,11 @@ Parameters live under ``SKYRIM_WEIGHTS_DIR`` (default
 ``~/.cache/skyrim_tpu/weights``) in ``<model>/``, the directory where the
 JAX package keeps its orbax step directories (named by digits).  The
 port's checkpoints are files beside them, ``torch_<step>.pt``: the
-flax-layout tree that ``params.from_jax`` reads, its numpy leaves saved
-as tensors with ``torch.save`` under their '/'-joined paths, loaded with
-``weights_only=True``, without ``params["cache"]`` (``prepare_params``
-rebuilds it).  ``load_params`` resolution order, as the JAX package's:
+flax-layout tree that ``params.from_jax`` reads, its leaves saved as
+tensors with ``torch.save`` under their '/'-joined paths (a list's items
+under their index), loaded with ``weights_only=True`` as numpy leaves
+(bf16 ones stay tensors), without ``params["cache"]``
+(``prepare_params`` rebuilds it).  ``load_params`` resolution order, as the JAX package's:
 
 1. the port's newest checkpoint for the model name,
 2. a torch state dict staged at ``<root>/<model>.pt``, converted
@@ -23,11 +24,10 @@ import os
 import re
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from skyrim_tpu_torch.io.save import LOCAL_CACHE
-from skyrim_tpu_torch.params import flatten, from_jax, to_tree, unflatten
+from skyrim_tpu_torch.params import as_tensor, flatten, from_jax, to_tree, unflatten
 from skyrim_tpu_torch.utils.logging import logger
 
 _CHECKPOINT = re.compile(r"torch_(\d+)\.pt")
@@ -41,9 +41,7 @@ def checkpoint_dir(model_name: str) -> Path:
 def save_checkpoint(model_name: str, params: dict, step: int = 0) -> str:
     """Save a flax-layout tree of arrays, or the port's parameters (their
     ``params.to_tree``), as ``torch_<step>.pt``; returns the path."""
-    if any(isinstance(v, torch.nn.Module) for v in params.values()):
-        params = to_tree(params)
-    leaves = {k: torch.from_numpy(np.array(v)) for k, v in flatten(params).items() if not k.startswith("cache/")}
+    leaves = {k: as_tensor(v) for k, v in flatten(to_tree(params)).items()}
     path = checkpoint_dir(model_name) / f"torch_{step}.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(leaves, path)
@@ -60,7 +58,7 @@ def load_checkpoint(model_name: str, step: int | None = None) -> dict:
     step = steps[-1] if step is None else step
     leaves = torch.load(base / f"torch_{step}.pt", map_location="cpu", weights_only=True)
     logger.info("restored %s checkpoint step %d", model_name, step)
-    return unflatten({k: v.numpy() for k, v in leaves.items()})
+    return unflatten({k: v if v.dtype == torch.bfloat16 else v.numpy() for k, v in leaves.items()})
 
 
 def load_params(model, seed: int = 0, allow_init: bool = True) -> dict:

@@ -136,13 +136,13 @@ def test_skyrim_invalid_and_several_models():
     names (an ensemble) raise rather than run one model."""
     with pytest.raises(ValueError, match="invalid model"):
         Skyrim("not_a_model")
-    with pytest.raises(ValueError, match=r"invalid model.*'fuxi'"):
-        Skyrim("fuxi")
+    with pytest.raises(ValueError, match=r"invalid model.*'dlwp'"):
+        Skyrim("dlwp")
     with pytest.raises(ValueError, match="at least one"):
         Skyrim()
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 7"):
         Skyrim("pangu", "graphcast", ic_source="synthetic")
-    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu"]
+    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet"]
 
 
 def test_skyrim_default_device_raises_without_cuda(monkeypatch, weights_root):
@@ -239,9 +239,9 @@ def test_convert_torch_file_dispatch(tmp_path):
         convert.convert_torch_file(model, tmp_path / "pangu.onnx")
 
     class Other:
-        name = "fuxi"
+        name = "dlwp"
 
-    with pytest.raises(NotImplementedError, match="no converter for 'fuxi'"):
+    with pytest.raises(NotImplementedError, match="no converter for 'dlwp'"):
         convert.convert_torch_file(Other(), staged)
 
 

@@ -195,7 +195,7 @@ def test_skyrim_predict_matches_jax(pair, tmp_path, monkeypatch):
         out, ref = load_forecast(p), j_load_forecast(jp)
         assert out.dims == ref.dims and out.attrs == ref.attrs and out.data.shape == (1, 8, 49, 96)
         assert_golden_close(out.data, ref.data)
-    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu"]
+    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet"]
 
 
 # --- the converter -----------------------------------------------------------
