@@ -127,7 +127,11 @@ Phases:
      FuXi's V1 flavour, one stage (48 K1 on the chain and 48 K2 a forward,
      inside K1 192 launches of the row GEMM and 96 of the LayerNorm rows),
      then GlobalModel("fourcastnet", ic_source="synthetic"), AFNO at
-     720x1440, 26 channels, width 768, 12 blocks (no kernel of the port);
+     720x1440, 26 channels, width 768, 12 blocks (no kernel of the port),
+     then GlobalModel("dlwp", ic_source="synthetic"), DLWP at 721x1440, 7
+     channels, 2 frames in and 2 out a call, face 64, features 64-128-256,
+     a 4-step forecast in 2 calls (no kernel of the port: every count 0;
+     its ms a call and a 6-h frame, and every kernel of its profiled call);
      for each, its set-up seconds, per-step CUDA-event
      times, peak memory, one profiled step, and rollout(save=True) for 2
      steps into a temporary directory and a reload of the files.  Weights
@@ -144,14 +148,31 @@ Phases:
      to GlobalModel.rollout's last frame, the loaded parameters equal leaf
      for leaf to the checkpoint's; its wall time split into IC read, NetCDF
      writes and the other host time on the host clock, beside the two
-     steps' device time by CUDA events; the facade lists the six models;
+     steps' device time by CUDA events; the facade lists the seven models.
+     Then the ensembles from one NetCDF IC the port writes (Pangu's and
+     DLWP's 70 channels, DLWP's two history frames), Pangu's parameters a
+     seed-1 init saved as the port's checkpoint: Skyrim("pangu", "dlwp",
+     ic_source="file:<IC>").predict(lead_time=12, save=True) at full width
+     (2 Pangu steps, 1 DLWP call, 5 files; each member's step ms and peak;
+     torch.cuda.memory_allocated() after each member's release within 64
+     MB of its value before it; the mean over the 6 shared channels equal
+     bit for bit to the numpy mean of the members' own GlobalModel.rollout
+     finals; Pangu's launches of 2 steps; the wall time split as the
+     facade's), then ic_ensemble_forecast("pangu", n_members=4, n_steps=2)
+     on the checkpoint's parameters loaded once (the control member equal
+     bit for bit to GlobalModel.forecast, members 1-3 different, 8 steps'
+     launches, ms a member-step);
   5. the small test configurations on the card (kernels) against the CPU
      (plain versions), 4 steps each: Pangu's and GraphCast's, SFNO's,
      FengWu's, FuXi's (Swin-V2, V1, and Swin-V2 int8-served at min_size
-     256) and AFNO's golden ones (FengWu's and FuXi V1's K1 and FuXi's K2
-     launched on the card, SFNO and AFNO launching no kernel of the port).
+     256), AFNO's golden ones and DLWP's (face 16, features (8, 16),
+     73x144) (FengWu's and FuXi V1's K1 and FuXi's K2 launched on the card,
+     SFNO, AFNO and DLWP launching no kernel of the port).
 
-Prints {"kernels": [...]} on a line of its own, then as the last line
+Prints the results on a JSON line (the main paths, the facade, "dlwp",
+"ensemble", "ic_ensemble", the small configurations, ...), then
+
+{"kernels": [...]} on a line of its own, then as the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, on
 any failure, without a CUDA device, or outside a checkout of the repo.
 """
@@ -1471,11 +1492,12 @@ def counters():
 
 
 BY_SHAPE = ("K1", "K2", "K6", "K7")  # kernels that run at several shapes on a path
-FORECASTS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet")  # the ported models
+FORECASTS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet", "dlwp")  # the ported models
 # phase 4's main paths, in order: every model at its published widths, and FuXi's V1 flavour
-MAIN_PATHS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fuxi V1", "fourcastnet")
+MAIN_PATHS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fuxi V1", "fourcastnet", "dlwp")
 # phase 5's small configurations: the CPU tests' ones, FuXi's in both flavours and int8-served
-SMALL_CONFIGS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fuxi V1", "fuxi int8", "fourcastnet")
+SMALL_CONFIGS = ("pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fuxi V1", "fuxi int8", "fourcastnet",
+                 "dlwp")
 
 
 def forecast_launches(mp: dict, key: str, shape) -> tuple[str | None, int]:
@@ -1530,7 +1552,7 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     port is listed, so the other model's kernels must stay at 0."""
     counts = dict.fromkeys(counters(), 0)
     by_shape = {k: {} for k in (*BY_SHAPE, *ROW_KERNELS)}
-    if model.name in ("fourcastnet_v2", "fourcastnet"):  # PyTorch compositions: no kernel of the port
+    if model.name in ("fourcastnet_v2", "fourcastnet", "dlwp"):  # PyTorch compositions: no kernel of the port
         return counts, by_shape
     if model.name == "fuxi":
         # both flavours: the trunk's 24 shifted blocks each between two K2
@@ -1631,6 +1653,7 @@ def main_path(torch, label: str, g) -> dict:
     from skyrim_tpu_torch.io import SaveConfig, load_forecast
 
     model_name = label.split()[0]
+    t_path = time.perf_counter()
     gc.collect()  # the earlier phases' tensors and the objects that held them, gone before the forecast is timed
     torch.cuda.empty_cache()
     reset_counts()
@@ -1675,8 +1698,9 @@ def main_path(torch, label: str, g) -> dict:
         e1.record()
         torch.cuda.synchronize()
         step_ms.append(e0.elapsed_time(e1))
-    log(f"{label}: per-step ms {['%.2f' % t for t in step_ms]}")
-    profile = profile_step(torch, model, params, state)
+    frames = model.frames_out
+    log(f"{label}: per-call ms {['%.2f' % t for t in step_ms]}" + (f", per 6-h frame {['%.2f' % (t / frames) for t in step_ms]}" if frames > 1 else ""))
+    profile = profile_step(torch, model, params, state, keep=None if model_name == "dlwp" else 8)
 
     with tempfile.TemporaryDirectory() as tmp:
         cfg = SaveConfig(forecast_id="smoke", output_dir=tmp)
@@ -1700,8 +1724,8 @@ def main_path(torch, label: str, g) -> dict:
     del gm, model, params, state, fc
     torch.cuda.empty_cache()
     return dict(counts=counts, by_shape=by_shape, n_steps=n_steps, setup_launches=setup_counts, setup_s=setup_s,
-                forecast_s=forecast_s, step_ms=step_ms, peak_gb=peak_gb, profile=profile, modules=modules,
-                cascade=cascade, int8=int8)
+                forecast_s=forecast_s, step_ms=step_ms, frames_out=frames, peak_gb=peak_gb, profile=profile,
+                modules=modules, cascade=cascade, int8=int8, wall_s=time.perf_counter() - t_path)
 
 
 def check_launches(model, n_steps: int, counts: dict, by_shape: dict, what: str) -> None:
@@ -1857,33 +1881,22 @@ def facade_path(torch) -> dict:
         check(loaded.keys() == saved.keys() and all(np.array_equal(loaded[k], saved[k]) for k in saved),
               "the facade's parameters are not the checkpoint's")
         del tree, saved, loaded
-        net = sky.model.model
-        advance = net.advance
-
-        def timed_advance(*a, **kw):
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = advance(*a, **kw)
-            e1.record()
-            events.append((e0, e1))
-            return out
-
         init_state, save = GlobalModel._initial_state, core_model.save_forecast
         GlobalModel._initial_state = timed(init_state, "ic_read_s", sync=True)
         core_model.save_forecast = timed(save, "netcdf_write_s")
-        net.advance = timed_advance
         try:
-            reset_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pred, paths = sky.predict(start.strftime("%Y%m%d"), "0000", lead_time=13, save=True,
-                                      save_config=SaveConfig(forecast_id="smoke", output_dir=str(Path(tmp) / "out")))
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-            counts, by_shape = read_counts()
+            with timed_advances(torch, sky.model.model, events):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred, paths = sky.predict(start.strftime("%Y%m%d"), "0000", lead_time=13, save=True,
+                                          save_config=SaveConfig(forecast_id="smoke",
+                                                                 output_dir=str(Path(tmp) / "out")))
+                torch.cuda.synchronize()
+                wall_s = time.perf_counter() - t0
+                counts, by_shape = read_counts()
         finally:
             GlobalModel._initial_state, core_model.save_forecast = init_state, save
-            del net.advance
         expect, expect_shape = expected_launches(sky.model.model, 2)
         for k, v in expect.items():
             check(counts[k] == v, f"the facade launched {k} {counts[k]} times, expected {v}")
@@ -1912,10 +1925,209 @@ def facade_path(torch) -> dict:
     return dict(wall_s=wall_s, rest_s=rest_s, steps_device_ms=steps_ms, **spent)
 
 
-def profile_step(torch, model, params, state) -> dict:
-    """Device time by kernel over one step (every kernel logged, the eight
-    longest returned), and the device's idle share of the step's host wall
-    time (torch.profiler, CUPTI)."""
+@contextlib.contextmanager
+def timed_advances(torch, owner, events: list):
+    """Inside the block, CUDA events around each ``advance`` of ``owner`` (a
+    model, or a model class for the models a callee builds) go into
+    ``events``.  Restored after: a model's wrapper is deleted, which also
+    breaks the reference cycle it makes with the model."""
+    own, advance = vars(owner).get("advance"), owner.advance
+
+    def timed(*a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = advance(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    owner.advance = timed
+    try:
+        yield
+    finally:
+        if own is None:
+            del owner.advance
+        else:
+            owner.advance = own
+
+
+def ensemble_paths(torch) -> tuple[dict, dict]:
+    """Phase 4, the ensembles at full width from one NetCDF IC the port
+    writes (the synthetic source's union of Pangu's and DLWP's channels, 70,
+    and DLWP's two history frames), Pangu's parameters a seed-1 init drawn
+    on the card and saved as the port's checkpoint, DLWP's the seed-0 init.
+
+    Skyrim("pangu", "dlwp", ic_source="file:<IC>").predict(lead_time=12,
+    save=True): two Pangu steps and one DLWP call, 2 + 2 member files and
+    the mean's; each member's step ms (CUDA events) and peak; after each
+    member's release torch.cuda.memory_allocated() back within 64 MB of its
+    value before the member; the mean over the 6 shared channels equal bit
+    for bit to the numpy mean of the two members' own GlobalModel.rollout
+    finals; Pangu's K1-K4 launches those of 2 steps, every other count 0; the
+    wall time split into IC read, NetCDF writes and other host time.
+
+    Then ic_ensemble_forecast("pangu", n_members=4, n_steps=2) from the same
+    IC on the checkpoint's parameters, loaded once: the control member equal
+    bit for bit to GlobalModel.forecast from that IC, members 1-3 different,
+    8 steps' launches; ms a member-step (CUDA events around each advance)
+    and the wall time a member-step (host clock, the perturbations and the
+    copies to the host included)."""
+    import numpy as np
+
+    from skyrim_tpu_torch.core import GlobalEnsemble, GlobalModel, GlobalPrediction, Skyrim
+    from skyrim_tpu_torch.core import ensemble as core_ensemble
+    from skyrim_tpu_torch.core import model as core_model
+    from skyrim_tpu_torch.core.ic_ensemble import ic_ensemble_forecast
+    from skyrim_tpu_torch.data import get_data_source
+    from skyrim_tpu_torch.io import SaveConfig, write_netcdf
+    from skyrim_tpu_torch.models import MODELS
+    from skyrim_tpu_torch.weights import load_params, save_checkpoint
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    start = datetime.datetime(2024, 1, 1, 0)
+    names = ("pangu", "dlwp")
+    spent = {"ic_read_s": 0.0, "netcdf_write_s": 0.0}
+
+    def timed(fn, key, sync=False):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+
+        return wrapper
+
+    with tempfile.TemporaryDirectory() as tmp, weights_dir(Path(tmp) / "weights"):
+        channels = list(dict.fromkeys(c for n in names for c in MODELS[n].channels))
+        pangu = MODELS["pangu"](device="cuda")
+        ic = Path(tmp) / "ic.nc"
+        write_netcdf(get_data_source(channels, "synthetic", grid=pangu.grid).fetch(start, 2), ic)
+        save_checkpoint("pangu", pangu.init_params(torch.Generator(device="cuda").manual_seed(1)))
+        del pangu
+        gc.collect()
+        torch.cuda.empty_cache()
+        setup_s = time.perf_counter() - t_phase
+
+        members = []
+        run_member = GlobalEnsemble._run_member
+
+        def measured(self, name, fn):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            events = []
+
+            def run(m):
+                with timed_advances(torch, m.model, events):
+                    return fn(m)
+
+            out = run_member(self, name, run)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+            members.append(dict(name=name, steps_ms=[e0.elapsed_time(e1) for e0, e1 in events],
+                                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                                allocated_before_mb=before / 2**20, allocated_after_mb=after / 2**20))
+            log(f"ensemble member {name}: {members[-1]}")
+            check(abs(after - before) <= 64 * 2**20,
+                  f"ensemble member {name}: {after / 2**20:.1f} MB allocated after its release, "
+                  f"{before / 2**20:.1f} MB before it")
+            return out
+
+        init_state, save, ens_save = GlobalModel._initial_state, core_model.save_forecast, core_ensemble.save_forecast
+        GlobalEnsemble._run_member = measured
+        GlobalModel._initial_state = timed(init_state, "ic_read_s", sync=True)
+        core_model.save_forecast = timed(save, "netcdf_write_s")
+        core_ensemble.save_forecast = timed(ens_save, "netcdf_write_s")
+        try:
+            sky = Skyrim(*names, ic_source=f"file:{ic}")
+            check(isinstance(sky.model, GlobalEnsemble), f"Skyrim{names} built {type(sky.model).__name__}")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred, paths = sky.predict(start.strftime("%Y%m%d"), "0000", lead_time=12, save=True,
+                                      save_config=SaveConfig(forecast_id="ens", output_dir=str(Path(tmp) / "out")))
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts, by_shape = read_counts()
+        finally:
+            GlobalEnsemble._run_member = run_member
+            GlobalModel._initial_state, core_model.save_forecast = init_state, save
+            core_ensemble.save_forecast = ens_save
+        expect, _ = expected_launches(MODELS["pangu"](device="cuda"), 2)
+        for k, v in expect.items():
+            check(counts[k] == v, f"the ensemble launched {k} {counts[k]} times, expected {v} (Pangu's 2 steps)")
+        check([m["name"] for m in members] == list(names) and [len(m["steps_ms"]) for m in members] == [2, 1],
+              f"the ensemble ran {[(m['name'], len(m['steps_ms'])) for m in members]}")
+        rel = [str(Path(p).relative_to(Path(tmp) / "out")) for p in paths]
+        check(len(paths) == 5 and [r.split("/")[1] for r in rel] == ["pangu", "pangu", "dlwp", "dlwp", "mean"],
+              f"the ensemble saved {rel}")
+        data = pred.prediction.data
+        common = list(pred.prediction.coords["channel"])
+        check(len(common) == 6 and data.shape == (1, 6, 721, 1440) and bool(np.isfinite(data).all()),
+              f"the ensemble mean has channels {common}, shape {data.shape}")
+        np.testing.assert_array_equal(GlobalPrediction(paths[-1]).prediction.data, data)
+        finals = [GlobalModel(n, ic_source=f"file:{ic}").rollout(start, n_steps=2, save=False)[0] for n in names]
+        expect_mean = np.stack([f.sel(channel=common).data for f in finals]).mean(axis=0)
+        diff = float(np.abs(expect_mean.astype(np.float64) - data).max())
+        check(diff == 0.0, f"the ensemble mean differs from the members' own rollouts' mean by {diff}")
+        rest_s = wall_s - spent["ic_read_s"] - spent["netcdf_write_s"]
+        log(f"ensemble: predict(lead_time=12) -> {rel}, mean over {common} equal to the members' own rollouts; "
+            f"wall {wall_s:.3f} s = IC read {spent['ic_read_s']:.3f} + NetCDF writes {spent['netcdf_write_s']:.3f} + "
+            f"other host {rest_s:.3f} s (host clock)")
+        ensemble = dict(members=members, wall_s=wall_s, rest_s=rest_s, common_channels=common, **spent,
+                        setup_s=setup_s)
+        del sky, pred, finals
+        gc.collect()
+        torch.cuda.empty_cache()
+        ensemble["seconds"] = time.perf_counter() - t_phase
+
+        # the IC ensemble: 4 members in turn against one resident parameter set
+        t_ic = time.perf_counter()
+        model = MODELS["pangu"](device="cuda")
+        params = load_params(model)
+        n_members, n_steps = 4, 2
+        events = []
+        with timed_advances(torch, MODELS["pangu"], events):  # the member model ic_ensemble_forecast builds
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ic_ensemble_forecast("pangu", start, n_steps=n_steps, n_members=n_members,
+                                       ic_source=f"file:{ic}", params=params)
+            torch.cuda.synchronize()
+            ens_wall_s = time.perf_counter() - t0
+            counts, _ = read_counts()
+        expect, _ = expected_launches(model, n_members * n_steps)
+        for k, v in expect.items():
+            check(counts[k] == v, f"the IC ensemble launched {k} {counts[k]} times, expected {v}")
+        check(out.dims == ("number", "time", "channel", "lat", "lon") and out.data.shape == (4, 2, 69, 721, 1440),
+              f"the IC ensemble gave {out.dims} {out.data.shape}")
+        control = GlobalModel("pangu", ic_source=f"file:{ic}", params=params).forecast(start, n_steps=n_steps)
+        check(bool(np.array_equal(out.data[0], control.data[1:])), "the IC ensemble's control differs from "
+              "GlobalModel.forecast from the same IC")
+        spread = [float(np.abs(out.data[m] - out.data[0]).max()) for m in range(1, n_members)]
+        check(all(d > 0 for d in spread), f"IC ensemble members equal to the control: {spread}")
+        member_step_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+        ic_ensemble = dict(member_step_ms=member_step_ms, wall_s=ens_wall_s,
+                           wall_ms_per_member_step=1e3 * ens_wall_s / (n_members * n_steps),
+                           max_abs_from_control=spread)
+        log(f"IC ensemble: 4 members x 2 steps, control equal to GlobalModel.forecast bit for bit, members 1-3 "
+            f"max |diff| from it {spread}; member-step ms {['%.2f' % t for t in member_step_ms]} (CUDA events), "
+            f"wall {ens_wall_s:.3f} s = {ic_ensemble['wall_ms_per_member_step']:.1f} ms a member-step (host clock)")
+        del model, params, out, control
+        gc.collect()
+        torch.cuda.empty_cache()
+        ic_ensemble["seconds"] = time.perf_counter() - t_ic
+    return ensemble, ic_ensemble
+
+
+def profile_step(torch, model, params, state, keep: int | None = 8) -> dict:
+    """Device time by kernel over one step (every kernel logged, the
+    ``keep`` longest returned, all of them for None), and the device's idle
+    share of the step's host wall time (torch.profiler, CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1935,7 +2147,7 @@ def profile_step(torch, model, params, state) -> dict:
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     for name, ms in ranked:  # every kernel of the step, so that one gone from it shows
         log(f"profile: {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {name}")
-    top = ranked[:8]
+    top = ranked[:keep]
     idle = 1 - busy_ms / wall_ms
     log(f"profile: step wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share {idle:.3f}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": idle,
@@ -1970,6 +2182,14 @@ def small_config(torch, label: str) -> dict:
         cfg = AFNOConfig(lat=48, lon=96, in_channels=5, patch=8, embed_dim=16, depth=2, num_blocks=2)
         x = np.random.default_rng(0).normal(size=(5, 48, 96)).astype(np.float32)
         make, key, launches = (lambda device: FourCastNetModel(cfg, device=device)), None, 0
+    elif model_name == "dlwp":
+        from skyrim_tpu_torch.grid import LatLonGrid
+        from skyrim_tpu_torch.models.dlwp import DLWPModel
+
+        # tests/models/test_dlwp.py:9-18: face 16, features (8, 16), 73x144, 2 frames a call; no kernel of the
+        # port on its path
+        x = np.random.default_rng(0).normal(size=(2, 7, 73, 144)).astype(np.float32)
+        make, key, launches = (lambda device: DLWPModel(16, (8, 16), grid=LatLonGrid(73, 144), device=device)), None, 0
     elif model_name == "pangu":
         from skyrim_tpu_torch.models.pangu import PanguConfig, PanguModel
 
@@ -2026,6 +2246,16 @@ def small_config(torch, label: str) -> dict:
     return dict(worst_max_over_std=worst)
 
 
+def dlwp_summary(run: dict) -> dict:
+    """DLWP's main path for the results line: ms a call (12 h) and a 6-h
+    frame, the device's busy time by kernel name and idle share of one call,
+    its peak, and the launches of the port's kernels (all 0)."""
+    return dict(step_ms_per_call=run["step_ms"], step_ms_per_frame=[t / run["frames_out"] for t in run["step_ms"]],
+                busy_ms=run["profile"]["device_busy_ms"], busy_by_kernel=run["profile"]["top"],
+                idle_share=run["profile"]["idle_share"], peak_gb=run["peak_gb"], setup_s=run["setup_s"],
+                port_kernel_launches=sum(run["counts"].values()))
+
+
 def main() -> int:
     try:
         import torch
@@ -2058,6 +2288,7 @@ def main() -> int:
         # 4. the main paths, first: what they measure does not depend on what phase 3 allocated and freed
         mp = {label: main_path(torch, label, torch.Generator(device="cuda").manual_seed(0)) for label in MAIN_PATHS}
         facade = facade_path(torch)
+        ensemble, ic_ensemble = ensemble_paths(torch)
 
         # 3. kernels against their plain versions at full width
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -2092,7 +2323,11 @@ def main() -> int:
                 r["forecast"], r["launches_per_forward"] = forecast, n / mp[forecast]["n_steps"]
 
         # 5. small configurations, card vs CPU
-        small = {label: small_config(torch, label) for label in SMALL_CONFIGS}
+        small = {}
+        for label in SMALL_CONFIGS:
+            t0 = time.perf_counter()
+            small[label] = small_config(torch, label)
+            small[label]["seconds"] = time.perf_counter() - t0
     except Exception as e:  # every failure ends the run without a result
         log(f"chip_smoke: FAILED: {type(e).__name__}: {e}")
         import traceback
@@ -2106,6 +2341,11 @@ def main() -> int:
         "main_path": {name: {k: run[k] for k in ("setup_s", "setup_launches", "forecast_s", "step_ms",
                                                  "peak_gb", "profile")} for name, run in mp.items()},
         "facade": facade,
+        "dlwp": dlwp_summary(mp["dlwp"]),
+        "ensemble": ensemble,
+        "ic_ensemble": ic_ensemble,
+        "added_phases_s": mp["dlwp"]["wall_s"] + ensemble["seconds"] + ic_ensemble["seconds"]
+        + small["dlwp"]["seconds"],
         "small_config": small,
         "attention_alone_max_abs_err": attn_err,
         "fault_err_over_limit": faults,

@@ -7,8 +7,13 @@ kernel written by hand for Hopper (``csrc/``, built at first use by
 tensors take.  Entry points run on the card unless the caller passes
 ``device="cpu"``.  This package imports neither jax nor skyrim_tpu.
 
-Ported so far, end to end: Pangu-Weather (``core.GlobalModel("pangu")``)
-and GraphCast (``core.GlobalModel("graphcast")``).
+Ported end to end: the seven models (``models.MODELS``: Pangu-Weather,
+GraphCast, FourCastNet v2, FengWu, FuXi, FourCastNet v1, DLWP) through
+``core.Skyrim``/``core.GlobalModel``, multi-model ensembles
+(``core.GlobalEnsemble``), initial-condition ensembles
+(``core.ic_ensemble``), and the weight readers (``weights``: the port's
+checkpoints, torch state dicts, ONNX artifacts, GraphCast's Haiku
+parameters).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,121 @@
+"""Initial-condition ensembles (port of skyrim_tpu/core/ic_ensemble.py).
+
+Perturb the analysis, roll every member out, and return the (number,
+time, channel, lat, lon) contract of the ECMWF ENS product, so model
+ensembles and that product are interchangeable downstream.
+
+The members run in turn on one device against one resident parameter
+set, loaded once: the semantics of the JAX package's ``vmap`` over
+members (``skyrim_tpu/parallel/sharding.py`` ``dp_ensemble_rollout``).
+Members spread over several cards wait for the multi-device layer
+(ROADMAP.md §1 item 10), so ``mesh`` must be None.
+"""
+
+from __future__ import annotations
+
+import datetime
+
+import numpy as np
+
+from skyrim_tpu_torch.core.model import GlobalModel
+from skyrim_tpu_torch.field import Field
+from skyrim_tpu_torch.rollout import initial_condition_from_field, rollout_times, scan_rollout
+from skyrim_tpu_torch.utils.logging import logger
+
+
+def perturb_members(
+    x0: np.ndarray,
+    n_members: int,
+    scale: float = 0.01,
+    seed: int = 0,
+) -> np.ndarray:
+    """Member ICs: member 0 is the control; others get Gaussian noise
+    scaled per channel by that channel's spatial std (the natural unit —
+    channels span Pa to kg/kg)."""
+    rng = np.random.default_rng(seed)
+    stds = x0.std(axis=(-2, -1), keepdims=True)
+    members = [x0]
+    for _ in range(n_members - 1):
+        noise = rng.standard_normal(x0.shape).astype(np.float32)
+        members.append(x0 + scale * stds * noise)
+    return np.stack(members)
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "members over a device mesh wait for the multi-device layer (ROADMAP.md §1 item 10); "
+            "pass mesh=None to run them in turn on one device"
+        )
+
+
+def dp_ensemble_rollout(model, mesh, n_steps: int):
+    """``run(params, x0_batch, start_time=None)``: ICs (B, hist, C, H, W) →
+    outputs (B, n_steps, C, H, W) as numpy, the members in turn on the
+    model's device against the one ``params``, each member's frames copied
+    to the host before the next starts."""
+    _refuse_mesh(mesh)
+
+    def run(params, x0_batch, start_time: datetime.datetime | None = None) -> np.ndarray:
+        outs = []
+        for x0 in x0_batch:
+            state = model.init_state(params, x0, start_time=start_time)
+            _, ys = scan_rollout(model, params, state, n_steps)
+            outs.append(ys[:n_steps].cpu().numpy())
+        return np.stack(outs)
+
+    return run
+
+
+def ic_ensemble_forecast(
+    model_name: str,
+    start_time: datetime.datetime,
+    n_steps: int = 4,
+    n_members: int = 4,
+    perturb_scale: float = 0.01,
+    ic_source: str = "gfs",
+    mesh=None,
+    seed: int = 0,
+    model_kwargs: dict | None = None,
+    params=None,
+    device="cuda",
+) -> Field:
+    """Run an IC-perturbation ensemble; returns (number, time, channel,
+    lat, lon).  ``seed`` draws the perturbations; ``params`` the port's
+    parameters (``weights.load_params`` without them); ``device`` the card
+    unless the caller asks for the CPU."""
+    _refuse_mesh(mesh)
+    gm = GlobalModel(model_name, ic_source=ic_source, model_kwargs=model_kwargs, params=params, device=device)
+    model = gm.model
+    ic_field = gm.data_source.fetch(start_time, model.n_history, model.time_step)
+    x0 = initial_condition_from_field(model, ic_field)
+    members = perturb_members(x0, n_members, perturb_scale, seed)
+    logger.info("IC ensemble: %s × %d members in turn on %s", model_name, n_members, model.device)
+    outputs = dp_ensemble_rollout(model, mesh, n_steps)(gm.params, members, start_time)
+
+    times = rollout_times(start_time, model.time_step, n_steps)
+    return Field(
+        outputs,
+        ("number", "time", "channel", "lat", "lon"),
+        coords={
+            "number": np.arange(n_members),
+            "time": np.asarray([np.datetime64(t.isoformat(), "ns") for t in times]),
+            "channel": np.asarray(list(model.channels), dtype=object),
+            "lat": model.grid.lat,
+            "lon": model.grid.lon,
+        },
+        attrs={"model": model_name, "perturb_scale": perturb_scale},
+    )
+
+
+def ensemble_mean(members: Field) -> Field:
+    return members.mean("number")
+
+
+def ensemble_spread(members: Field) -> Field:
+    """Per-point ensemble standard deviation."""
+    ax = members.axis("number")
+    data = members.data.std(axis=ax)
+    dims = tuple(d for d in members.dims if d != "number")
+    coords = {k: v for k, v in members.coords.items() if k != "number"}
+    return Field(data, dims, coords, dict(members.attrs))

@@ -1,15 +1,17 @@
-"""Skyrim facade for one model (port of skyrim_tpu/core/skyrim.py).
+"""Skyrim facade (port of skyrim_tpu/core/skyrim.py).
 
-``Skyrim("pangu")`` builds a ``GlobalModel``; ``predict`` parses
-YYYYMMDD/HHMM, floors the lead time to the model step, and returns a
-GlobalPrediction plus the saved paths.  Several model names (the JAX
-package's ``GlobalEnsemble``) raise until ensembles are ported.
+``Skyrim("pangu")`` builds a ``GlobalModel``; ``Skyrim("pangu", "dlwp")``
+a ``GlobalEnsemble``, the members run in turn and averaged over the
+channels they share.  ``predict`` parses YYYYMMDD/HHMM, floors the lead
+time to the model step, and returns a GlobalPrediction plus the saved
+paths.
 """
 
 from __future__ import annotations
 
 import datetime
 
+from skyrim_tpu_torch.core.ensemble import GlobalEnsemble
 from skyrim_tpu_torch.core.model import GlobalModel, adjust_lead_time
 from skyrim_tpu_torch.core.prediction import GlobalPrediction
 from skyrim_tpu_torch.io.save import SaveConfig
@@ -19,7 +21,9 @@ from skyrim_tpu_torch.utils.logging import logger
 
 class Skyrim:
     """``kwargs`` go to ``GlobalModel`` (``model_kwargs``, ``params``,
-    ``seed``, ``device``: the card unless the caller asks for the CPU)."""
+    ``seed``, ``device``: the card unless the caller asks for the CPU), or
+    for several names to ``GlobalEnsemble`` (there ``params`` a dict keyed
+    by member name)."""
 
     def __init__(self, *model_names: str, ic_source: str = "gfs", **kwargs):
         if not model_names:
@@ -28,10 +32,9 @@ class Skyrim:
         if bad:
             raise ValueError(f"invalid model(s) {bad}; available: {self.list_available_models()}")
         if len(model_names) > 1:
-            raise NotImplementedError(
-                "several models run as an ensemble, which the port has not yet (ROADMAP.md §1 item 7)"
-            )
-        self.model = GlobalModel(model_names[0], ic_source=ic_source, **kwargs)
+            self.model = GlobalEnsemble(list(model_names), ic_source=ic_source, **kwargs)
+        else:
+            self.model = GlobalModel(model_names[0], ic_source=ic_source, **kwargs)
         self.model_names = list(model_names)
         self.ic_source = ic_source
 

@@ -1,13 +1,14 @@
-"""Torch state dict → flax-layout tree, for the ported models (a numpy
-copy of the torch-state-dict path of skyrim_tpu/weights/convert.py).
+"""Checkpoint → flax-layout tree, for every model (a numpy copy of
+skyrim_tpu/weights/convert.py).
 
 The mapping is explicit per architecture, so a converted tree lines up
 with the tree ``params.from_jax`` reads: Dense kernels (in, out), flax
 convolution layouts, Pangu's earth-bias tables in the
-``ops.windows.earth_bias_index`` bijection.  Pangu, GraphCast, SFNO
-(fcnv2_sm), FengWu, FuXi and FourCastNet (AFNO) are ported; ONNX
-artifacts and the Haiku GraphCast layout raise ``NotImplementedError`` (ROADMAP.md §1 item 12), other
-models as the JAX package does for a model it has no converter for.
+``ops.windows.earth_bias_index`` bijection.  The inputs: a torch state
+dict, an ONNX artifact (Pangu, FuXi and FengWu are published so; read by
+weights/onnx_io.py, a traced export's names recovered from its topology
+by weights/onnx_rename.py), and for GraphCast the official Haiku
+parameter dict.
 
 Network egress is unavailable in this build environment, so these run
 only when a user stages files locally; every converter is exercised in
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import difflib
 import itertools
+import re
 from pathlib import Path
 from typing import Mapping
 
@@ -174,26 +176,42 @@ class _TrackedSD(Mapping):
             )
 
 
-def _refuse_onnx(path: Path) -> None:
-    if path.suffix.lower() == ".onnx":
-        raise NotImplementedError(
-            f"{path}: ONNX artifacts are not read by the port yet (weights/onnx_io.py and onnx_rename.py "
-            "wait, ROADMAP.md §1 item 12); stage a torch state dict instead"
-        )
-
-
 def convert_torch_file(model, path: str | Path) -> dict:
-    """Convert a torch-loadable state dict staged at ``path`` for ``model``
-    (dispatch by model name).  Every key the converter touches is tracked:
-    missing keys raise with nearest-name suggestions, unconsumed tensors
-    are reported after conversion."""
+    """Convert a torch-loadable state dict OR an ONNX artifact (``.onnx``,
+    its initializers read straight from the protobuf by weights/onnx_io.py)
+    staged at ``path`` for ``model`` (dispatch by model name).  A traced
+    export's exporter-named initializers are renamed from the graph's
+    topology for FengWu; FuXi's cascade (one file a stage) goes through
+    ``convert_fuxi_onnx_cascade``.  Every key the converter touches is
+    tracked: missing keys raise with nearest-name suggestions, unconsumed
+    tensors are reported after conversion."""
     path = Path(path)
-    _refuse_onnx(path)
-    import torch
+    if path.suffix.lower() == ".onnx":
+        from skyrim_tpu_torch.weights.onnx_io import read_onnx_graph, read_onnx_initializers
+        from skyrim_tpu_torch.weights.onnx_rename import looks_exporter_named, rename_fengwu_graph
 
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if hasattr(sd, "state_dict"):
-        sd = sd.state_dict()
+        sd = read_onnx_initializers(path)
+        if looks_exporter_named(sd):
+            # traced export: recover state-dict names from the topology
+            graph = read_onnx_graph(path)
+            if model.name == "fengwu":
+                sd = rename_fengwu_graph(graph, model.cfg, model.n_history)
+            elif model.name == "fuxi":
+                raise ValueError(
+                    "FuXi ships one traced ONNX per cascade stage (short/medium/long); pass all of them to "
+                    "convert_fuxi_onnx_cascade(model, [paths...]) instead of convert_torch_file with a single file"
+                )
+            else:
+                logger.warning(
+                    "%s: exporter-named ONNX initializers and no rename pass for this family — conversion will "
+                    "likely fail with missing keys", model.name,
+                )
+    else:
+        import torch
+
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if hasattr(sd, "state_dict"):
+            sd = sd.state_dict()
     logger.info("converting %d tensors for %s", len(sd), model.name)
     converter = CONVERTERS.get(model.name)
     if converter is None:
@@ -227,6 +245,22 @@ def sd_get(sd: Mapping, *keys: str):
         if k in sd:
             return sd[k]
     raise KeyError(keys[0])
+
+
+def convert_dlwp(model, sd: Mapping) -> dict:
+    """DLWP cubed-sphere U-Net (modulus-style naming ``blocks.{i}.conv1/2``,
+    ``head``) → the CubeUNet tree."""
+    n_blocks = sum(1 for k in sd if k.startswith("blocks.") and k.endswith(".conv1.weight"))
+    net = {
+        f"CSConvBlock_{i}": {
+            "Conv_0": convert_conv2d(sd, f"blocks.{i}.conv1"),
+            "Conv_1": convert_conv2d(sd, f"blocks.{i}.conv2"),
+        }
+        for i in range(n_blocks)
+    }
+    net["Conv_0"] = convert_conv2d(sd, "head")
+    nc = len(model.channels)
+    return {"net": net, "norm": _convert_norm_stats(sd, nc) or _norm_params(nc)}
 
 
 def convert_pangu(model, sd: Mapping) -> dict:
@@ -299,22 +333,159 @@ def convert_pangu(model, sd: Mapping) -> dict:
     return params
 
 
+def convert_graphcast_haiku(model, hk: Mapping) -> dict:
+    """GraphCast from the OFFICIAL haiku parameter naming → the flax-layout
+    tree.
+
+    The released DeepMind checkpoints are haiku param dicts whose module
+    paths come from ``deep_typed_graph_net._networks_builder``: three GNNs
+    (``grid2mesh_gnn``, ``mesh_gnn``, ``mesh2grid_gnn``), each building
+    MLPs named ``{encoder|processor|decoder}_{edges|nodes}…`` with the
+    edge/node-set name and (for processors) a step index embedded, each
+    MLP exposing ``linear_0``/``linear_1`` (+ ``layer_norm``) leaves
+    with haiku ``w``/``b``/``scale``/``offset`` params — already in
+    (in, out) orientation, so NO transpose (unlike torch).
+
+    Accepted input shapes: the nested haiku dict
+    ``{module_path: {param: array}}`` or its flat npz form
+    ``{f"{module_path}/{param}": array}``.  Module paths are classified
+    STRUCTURALLY (gnn name + role + edges/nodes + set-name + step-index
+    tokens), tolerating separator/suffix drift (``~``,
+    ``~_networks_builder``, ``_mlp``) between exporter versions; every
+    source module must classify and every target slot must fill, or the
+    converter raises listing the leftovers.
+
+    Concat-order assumptions (documented, asserted by shape): edge MLPs
+    take concat([edge, src, dst]); node MLPs take concat([node, agg]) —
+    the order models/graphcast.py factors.
+    """
+    cfg = model.cfg
+
+    # -- normalize to nested {path: {param: arr}} -------------------------
+    nested: dict[str, dict] = {}
+    norm_extra = {}
+    for k, v in hk.items():
+        if isinstance(v, Mapping):
+            nested[k] = dict(v)
+        elif k in ("norm_mean", "norm_std", "mean", "std", "means", "stds"):
+            norm_extra[k] = v
+        else:
+            path, _, param = k.rpartition("/")
+            nested.setdefault(path, {})[param] = v
+
+    # -- classify every module path --------------------------------------
+    def classify(path: str):
+        p = path.lower()
+        if "grid2mesh_gnn" in p:
+            gnn = "g2m"
+        elif "mesh2grid_gnn" in p:
+            gnn = "m2g"
+        elif "mesh_gnn" in p:
+            gnn = "mesh"
+        else:
+            return None
+        role = ("encoder" if "encoder" in p else
+                "decoder" if "decoder" in p else
+                "processor" if "processor" in p else None)
+        kind = "edges" if "edges" in p else "nodes" if "nodes" in p else None
+        # which node set (strip the gnn module token first so the
+        # 'mesh'/'grid' in e.g. 'grid2mesh_gnn' doesn't match)
+        tail = re.sub(r"\w*gnn", "", p)
+        nset = ("grid_nodes" if "grid_nodes" in tail else
+                "mesh_nodes" if "mesh_nodes" in tail else None)
+        layer = None
+        m = re.search(r"linear_(\d+)", p)
+        if m:
+            layer = f"linear_{m.group(1)}"
+        elif "layer_norm" in p or "layernorm" in p:
+            layer = "layer_norm"
+        step = None
+        ms = re.findall(r"_(\d+)(?:_|/|$)", re.sub(r"linear_\d+", "", p))
+        if ms:
+            step = int(ms[0])
+        if role is None or kind is None:
+            return None
+        return gnn, role, kind, nset, step, layer
+
+    def target_for(gnn, role, kind, nset, step):
+        if gnn == "g2m":
+            if role == "encoder" and kind == "nodes":
+                return ("embed_grid",) if nset == "grid_nodes" else ("embed_mesh",)
+            if role == "encoder" and kind == "edges":
+                return ("g2m", "edge_embed")
+            if role == "processor" and kind == "edges":
+                return ("g2m", "message")
+            if role == "processor" and kind == "nodes":
+                return ("g2m", "MLP_0") if nset == "mesh_nodes" else ("grid_update",)
+        if gnn == "mesh":
+            if role == "encoder" and kind == "edges":
+                return ("embed_mm",)
+            if role == "processor" and kind == "edges":
+                return (f"round_{step}", "MLP_0")
+            if role == "processor" and kind == "nodes":
+                return (f"round_{step}", "MLP_1")
+        if gnn == "m2g":
+            if role == "encoder" and kind == "edges":
+                return ("m2g", "edge_embed")
+            if role == "processor" and kind == "edges":
+                return ("m2g", "message")
+            if role == "processor" and kind == "nodes":
+                return ("m2g", "MLP_0")
+            if role == "decoder" and kind == "nodes":
+                return ("head",)
+        return None
+
+    net: dict = {}
+    unmatched = []
+    for path, leaves in nested.items():
+        c = classify(path)
+        if c is None:
+            unmatched.append(path)
+            continue
+        gnn, role, kind, nset, step, layer = c
+        tgt = target_for(gnn, role, kind, nset, step)
+        if tgt is None or layer is None:
+            unmatched.append(path)
+            continue
+        d = net
+        for part in tgt:
+            d = d.setdefault(part, {})
+        if layer == "layer_norm":
+            d["LayerNorm_0"] = {"scale": _t(leaves["scale"]), "bias": _t(leaves["offset"])}
+        else:
+            idx = layer.split("_")[1]
+            d[f"Dense_{idx}"] = {
+                "kernel": _t(leaves["w"]),  # haiku: already (in, out)
+                **({"bias": _t(leaves["b"])} if "b" in leaves else
+                   {"bias": np.zeros((np.asarray(leaves["w"]).shape[1],), np.float32)}),
+            }
+    if unmatched:
+        raise ValueError(f"convert_graphcast_haiku: {len(unmatched)} module paths did not classify: {unmatched[:8]}")
+    expected = (
+        {"embed_grid", "embed_mesh", "embed_mm", "g2m", "m2g", "grid_update", "head"}
+        | {f"round_{i}" for i in range(cfg.processor_rounds)}
+    )
+    missing = expected - set(net)
+    if missing:
+        raise ValueError(f"convert_graphcast_haiku: checkpoint lacks modules for {sorted(missing)}")
+    nc = cfg.in_channels
+    return {"net": net, "norm": _convert_norm_stats({**norm_extra}, nc) or _norm_params(nc)}
+
+
 def convert_graphcast(model, sd: Mapping) -> dict:
-    """GraphCast in the torch-Linear-orientation flat naming
-    ({grid,mesh,mm}_embed, g2m/m2g {edge_embed,message,update},
-    processor.{i}.{edge,node}, grid_update, head — each an MLP with
-    fc1/fc2[/ln]) → the flax-layout tree.  The message MLP's fc1 must be
-    packed over concat([edge, src, dst], axis=-1), the order the model
-    factors.  Official Haiku module paths (nested dicts or keys naming
-    ``gnn``) raise: that converter is not ported yet."""
+    """GraphCast → the flax-layout tree.  Dispatches on the input's shape:
+    official haiku module paths (nested dicts or '/'-joined flat keys — see
+    :func:`convert_graphcast_haiku`) convert directly; otherwise the
+    torch-Linear-orientation flat naming ({grid,mesh,mm}_embed, g2m/m2g
+    {edge_embed,message,update}, processor.{i}.{edge,node}, grid_update,
+    head — each an MLP with fc1/fc2[/ln]) is used.  The message MLP's fc1
+    must be packed over concat([edge, src, dst], axis=-1), the order the
+    model factors."""
     # peek at the underlying mapping so the dispatch probe does not mark
     # tensors consumed (would weaken the unconsumed-tensor report)
     raw = getattr(sd, "_sd", sd)
     if any(isinstance(v, Mapping) or "gnn" in str(k) for k, v in itertools.islice(raw.items(), 50)):
-        raise NotImplementedError(
-            "the Haiku GraphCast layout is not converted by the port yet (ROADMAP.md §1 item 12); "
-            "stage the flat torch naming instead"
-        )
+        return convert_graphcast_haiku(model, sd)
     cfg = model.cfg
 
     def mlp(p: str, final_norm: bool = True) -> dict:
@@ -436,18 +607,34 @@ def fengwu_config_from_sd(sd: Mapping, lat: int = 721, lon: int = 1440, n_histor
 
 
 def load_fengwu_from_artifact(path: str | Path, lat: int = 721, lon: int = 1440, device="cuda"):
-    """(model, flax-layout tree) for a FengWu state dict staged at ``path``,
-    the configuration read from its tensor shapes.  The released ONNX
-    artifact raises ``NotImplementedError``: the ONNX reader waits
-    (ROADMAP.md §1 item 12)."""
-    import torch
-
+    """(model, flax-layout tree) for a FengWu artifact staged at ``path``:
+    the released ONNX (a traced export's names recovered from its
+    topology, its configuration from the graph's shapes) or a torch state
+    dict (its configuration read from its tensor shapes)."""
     from skyrim_tpu_torch.models.fengwu import FengWuModel
 
     path = Path(path)
-    _refuse_onnx(path)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    model = FengWuModel(fengwu_config_from_sd(sd, lat=lat, lon=lon), device=device)
+    if path.suffix.lower() == ".onnx":
+        from skyrim_tpu_torch.weights.onnx_io import read_onnx_graph
+        from skyrim_tpu_torch.weights.onnx_rename import (
+            fengwu_config_from_graph,
+            looks_exporter_named,
+            rename_fengwu_graph,
+        )
+
+        graph = read_onnx_graph(path)
+        if looks_exporter_named(graph["initializers"]):
+            cfg = fengwu_config_from_graph(graph, lat=lat, lon=lon)
+            sd = rename_fengwu_graph(graph, cfg, n_history=2)
+        else:
+            sd = graph["initializers"]
+            cfg = fengwu_config_from_sd(sd, lat=lat, lon=lon)
+    else:
+        import torch
+
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        cfg = fengwu_config_from_sd(sd, lat=lat, lon=lon)
+    model = FengWuModel(cfg, device=device)
     tracked = _TrackedSD(sd)
     tree = convert_fengwu(model, tracked)
     tracked.report(model.name)
@@ -586,14 +773,28 @@ def convert_fuxi(model, sd: Mapping) -> dict:
     }
 
 
-def convert_fuxi_onnx_cascade(model, paths):
-    """The released FuXi cascade, one traced ONNX file a stage: not read by
-    the port yet."""
-    raise NotImplementedError(
-        "the FuXi ONNX cascade is not read by the port yet (weights/onnx_io.py and onnx_rename.py wait, "
-        "ROADMAP.md §1 item 12); stage a torch state dict instead"
-    )
+def convert_fuxi_onnx_cascade(model, paths) -> dict:
+    """The released FuXi cascade: one traced ONNX per stage
+    (short/medium/long).  Each file's exporter-named initializers are
+    renamed to ``stages.{s}.*`` by the topology pass
+    (weights/onnx_rename.py), then the merged dict converts through
+    :func:`convert_fuxi`."""
+    from skyrim_tpu_torch.weights.onnx_io import read_onnx_graph
+    from skyrim_tpu_torch.weights.onnx_rename import rename_fuxi_graph
+
+    paths = list(paths)
+    if len(paths) != model.cfg.n_stages:
+        raise ValueError(
+            f"FuXi cascade needs {model.cfg.n_stages} stage artifacts (short/medium/long), got {len(paths)}"
+        )
+    sd: dict = {}
+    for s, path in enumerate(paths):
+        sd.update(rename_fuxi_graph(read_onnx_graph(path), model.cfg, stage=s, n_history=model.n_history))
+    tracked = _TrackedSD(sd)
+    out = convert_fuxi(model, tracked)
+    tracked.report(model.name)
+    return out
 
 
 CONVERTERS = {"pangu": convert_pangu, "graphcast": convert_graphcast, "fourcastnet_v2": convert_sfno,
-              "fengwu": convert_fengwu, "fuxi": convert_fuxi, "fourcastnet": convert_afno}
+              "fengwu": convert_fengwu, "fuxi": convert_fuxi, "fourcastnet": convert_afno, "dlwp": convert_dlwp}

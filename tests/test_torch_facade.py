@@ -133,16 +133,20 @@ def test_skyrim_lead_time_floor_and_forecast(weights_root):
 
 def test_skyrim_invalid_and_several_models():
     """A name the port lacks raises the JAX facade's ValueError; several
-    names (an ensemble) raise rather than run one model."""
+    names build a GlobalEnsemble of those members (built when it runs)."""
+    from skyrim_tpu_torch.core import GlobalEnsemble
+
     with pytest.raises(ValueError, match="invalid model"):
         Skyrim("not_a_model")
-    with pytest.raises(ValueError, match=r"invalid model.*'dlwp'"):
-        Skyrim("dlwp")
+    with pytest.raises(ValueError, match=r"invalid model.*'gencast'"):
+        Skyrim("gencast")
     with pytest.raises(ValueError, match="at least one"):
         Skyrim()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 7"):
-        Skyrim("pangu", "graphcast", ic_source="synthetic")
-    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet"]
+    sky = Skyrim("pangu", "graphcast", ic_source="synthetic")
+    assert isinstance(sky.model, GlobalEnsemble) and sky.model.model_names == sky.model_names == ["pangu", "graphcast"]
+    assert sky.model.model_name == "ensemble[graphcast,pangu]" and sky.model.time_step == datetime.timedelta(hours=6)
+    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet",
+                                              "dlwp"]
 
 
 def test_skyrim_default_device_raises_without_cuda(monkeypatch, weights_root):
@@ -221,13 +225,17 @@ def test_graphcast_converter_matches_jax():
     _assert_trees_equal(out, jax.tree.map(np.asarray, twc.convert.convert_graphcast(jmodel, sd)))
     params = from_jax(out, model)
     assert params["net"].embed_grid.Dense_0.kernel.shape == (din, L)
-    with pytest.raises(NotImplementedError, match=r"Haiku.*ROADMAP.md §1 item 12"):
-        convert.convert_graphcast(model, {"gnn/layer": sd["head.fc1.weight"]})
+    # keys naming a gnn take the Haiku converter, as in JAX: this one
+    # module path does not classify
+    for fn in (convert.convert_graphcast, twc.convert.convert_graphcast):
+        with pytest.raises(ValueError, match="did not classify"):
+            fn(model, {"gnn/layer": sd["head.fc1.weight"]})
 
 
 def test_convert_torch_file_dispatch(tmp_path):
-    """A staged state dict converts through torch.load(weights_only=True);
-    an ONNX artifact and a model without a converter raise."""
+    """A staged state dict converts through torch.load(weights_only=True),
+    the same tensors as an ONNX artifact through the protobuf reader; a
+    model without a converter raises."""
     import test_weights_convert as twc
 
     jmodel, sd, _ = twc._make_pangu_case()
@@ -235,13 +243,15 @@ def test_convert_torch_file_dispatch(tmp_path):
     staged = tmp_path / "pangu.pt"
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, staged)
     _assert_trees_equal(convert.convert_torch_file(model, staged), convert.convert_pangu(model, sd))
-    with pytest.raises(NotImplementedError, match=r"ONNX.*ROADMAP.md §1 item 12"):
-        convert.convert_torch_file(model, tmp_path / "pangu.onnx")
+    from skyrim_tpu_torch.weights.onnx_io import build_onnx
+
+    (tmp_path / "pangu.onnx").write_bytes(build_onnx(sd))
+    _assert_trees_equal(convert.convert_torch_file(model, tmp_path / "pangu.onnx"), convert.convert_pangu(model, sd))
 
     class Other:
-        name = "dlwp"
+        name = "gencast"
 
-    with pytest.raises(NotImplementedError, match="no converter for 'dlwp'"):
+    with pytest.raises(NotImplementedError, match="no converter for 'gencast'"):
         convert.convert_torch_file(Other(), staged)
 
 

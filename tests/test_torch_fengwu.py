@@ -195,7 +195,8 @@ def test_skyrim_predict_matches_jax(pair, tmp_path, monkeypatch):
         out, ref = load_forecast(p), j_load_forecast(jp)
         assert out.dims == ref.dims and out.attrs == ref.attrs and out.data.shape == (1, 8, 49, 96)
         assert_golden_close(out.data, ref.data)
-    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet"]
+    assert Skyrim.list_available_models() == ["pangu", "graphcast", "fourcastnet_v2", "fengwu", "fuxi", "fourcastnet",
+                                              "dlwp"]
 
 
 # --- the converter -----------------------------------------------------------
@@ -225,7 +226,7 @@ def test_config_from_state_dict_and_artifact(tmp_path):
     """fengwu_config_from_sd reads the JAX function's configuration off the
     tensor shapes of tests/test_onnx_rename.py's FengWu case (window (2,
     4)); load_fengwu_from_artifact takes that state dict staged as a torch
-    file, and refuses the ONNX artifact, naming ROADMAP.md §1 item 12."""
+    file, and the same tensors as an ONNX artifact, to JAX's tree."""
     jax = pytest.importorskip("jax")
     import test_weights_convert as twc
     from test_onnx_rename import _fengwu_case
@@ -239,8 +240,12 @@ def test_config_from_state_dict_and_artifact(tmp_path):
     model, tree = convert.load_fengwu_from_artifact(path, lat=49, lon=96, device="cpu")
     assert model.cfg == cfg and model.device.type == "cpu"
     _assert_trees_equal(tree, jax.tree.map(np.asarray, twc.convert.convert_fengwu(jmodel, sd)))
-    with pytest.raises(NotImplementedError, match=r"ONNX.*ROADMAP.md §1 item 12"):
-        convert.load_fengwu_from_artifact(tmp_path / "fengwu.onnx")
+    from skyrim_tpu_torch.weights.onnx_io import build_onnx
+
+    (tmp_path / "fengwu.onnx").write_bytes(build_onnx({k: np.asarray(v) for k, v in sd.items()}))
+    model, tree = convert.load_fengwu_from_artifact(tmp_path / "fengwu.onnx", lat=49, lon=96, device="cpu")
+    assert model.cfg == cfg
+    _assert_trees_equal(tree, jax.tree.map(np.asarray, twc.convert.convert_fengwu(jmodel, sd)))
 
 
 def test_staged_state_dict_reaches_global_model(tmp_path, monkeypatch):

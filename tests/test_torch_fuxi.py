@@ -345,10 +345,11 @@ def test_converter_matches_jax(case):
     assert np.isfinite(model.apply(params, torch.from_numpy(_x(model))).numpy()).all()
 
 
-def test_converter_conv_updown():
+def test_converter_conv_updown(tmp_path):
     """k=2/s=2 Conv2d down and ConvTranspose2d up weights map onto the
-    patch-merge GEMMs as the JAX converter maps them; a 3×3 kernel is
-    refused."""
+    patch-merge GEMMs as the JAX converter maps them, from a state dict and
+    from three traced ONNX stage files (convert_fuxi_onnx_cascade, the
+    strided-conv program of the rename pass); a 3×3 kernel is refused."""
     jax = pytest.importorskip("jax")
     import test_weights_convert as twc
 
@@ -363,11 +364,29 @@ def test_converter_conv_updown():
     out = convert.convert_fuxi(model, sd)
     _assert_converted_equal(out, jax.tree.map(np.asarray, twc.convert.convert_fuxi(jmodel, sd)))
     assert tuple(out["stages"][0]["down"]["kernel"].shape) == (4 * Dc, D)
+    from skyrim_tpu.weights.onnx_io import build_onnx
+    from test_onnx_rename import _Trace, _trace_v2_block
+
+    paths = []
+    for s in range(jmodel.cfg.n_stages):  # tests/test_onnx_rename.py's traced stage, conv down/up
+        tr, p = _Trace(), f"stages.{s}"
+        tr.op("Conv", sd[f"{p}.cube_embed.weight"], sd[f"{p}.cube_embed.bias"])
+        tr.ln(sd[f"{p}.down_norm.weight"], sd[f"{p}.down_norm.bias"])
+        tr.op("Conv", sd[f"{p}.down.weight"], sd[f"{p}.down.bias"])
+        for i in range(jmodel.cfg.depth):
+            _trace_v2_block(tr, sd, f"{p}.blocks.{i}")
+        tr.op("ConvTranspose", sd[f"{p}.up.weight"])
+        tr.ln(sd[f"{p}.up_norm.weight"], sd[f"{p}.up_norm.bias"])
+        tr.linear(sd[f"{p}.fuse.weight"], sd[f"{p}.fuse.bias"])
+        tr.op("ConvTranspose", sd[f"{p}.head.weight"], sd[f"{p}.head.bias"])
+        paths.append(tmp_path / f"stage{s}.onnx")
+        paths[-1].write_bytes(build_onnx(tr.tensors, nodes=tr.nodes, graph_inputs=("input",)))
+    cascade = convert.convert_fuxi_onnx_cascade(model, paths)
+    _assert_converted_equal(cascade, jax.tree.map(np.asarray, twc.convert.convert_fuxi_onnx_cascade(jmodel, paths)))
+    assert tuple(cascade["stages"][2]["up"]["kernel"].shape) == (D, 4 * Dc)
     sd["stages.0.down.weight"] = rng.normal(size=(D, Dc, 3, 3)).astype(np.float32)
     with pytest.raises(ValueError, match="k=2/s=2"):
         convert.convert_fuxi(model, sd)
-    with pytest.raises(NotImplementedError, match=r"ONNX.*ROADMAP.md §1 item 12"):
-        convert.convert_fuxi_onnx_cascade(model, ["a.onnx", "b.onnx", "c.onnx"])
 
 
 def test_staged_state_dict_reaches_global_model(tmp_path, monkeypatch):
