@@ -161,7 +161,23 @@ Phases:
      facade's), then ic_ensemble_forecast("pangu", n_members=4, n_steps=2)
      on the checkpoint's parameters loaded once (the control member equal
      bit for bit to GlobalModel.forecast, members 1-3 different, 8 steps'
-     launches, ms a member-step);
+     launches, ms a member-step); then the data and IO layers: Pangu's 69
+     input channels encoded as GFS GRIB2 messages (grib.encode_simple, the
+     synthetic source's fields, HGT in metres) with their .idx, served by a
+     fake transport put in place of the GFS source's, the byte-range cache
+     in a temporary SKYRIM_CACHE; the native GRIB decoder
+     (skyrim_tpu_torch/native/gribcore.cc, built with g++) required, the 69
+     messages decoded by it and by numpy equal bit for bit (both timed); the
+     fetched IC finite and within each message's packing quantum of its
+     field (x 9.81 for HGT), a second fetch from the cache;
+     Skyrim("pangu", ic_source="gfs").predict(lead_time=12, save=True) on a
+     seed-2 checkpoint (2 steps, 2 files, 2 forwards' launches), its files
+     equal bit for bit to GlobalModel.rollout's from a file: IC holding the
+     fetched field; stream_save_forecast of the same model and IC, 4 steps
+     into a local Zarr store, float32 equal bit for bit to stream_rollout's
+     frames (wall time beside the steps' CUDA-event times) and float16 with
+     3 channels equal bit for bit to those frames cast on the card, beside
+     the NetCDF writes of the same 4 frames and every store's bytes;
   5. the small test configurations on the card (kernels) against the CPU
      (plain versions), 4 steps each: Pangu's and GraphCast's, SFNO's,
      FengWu's, FuXi's (Swin-V2, V1, and Swin-V2 int8-served at min_size
@@ -170,7 +186,7 @@ Phases:
      SFNO, AFNO and DLWP launching no kernel of the port).
 
 Prints the results on a JSON line (the main paths, the facade, "dlwp",
-"ensemble", "ic_ensemble", the small configurations, ...), then
+"ensemble", "ic_ensemble", "data_io", the small configurations, ...), then
 
 {"kernels": [...]} on a line of its own, then as the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, on
@@ -2124,6 +2140,269 @@ def ensemble_paths(torch) -> tuple[dict, dict]:
     return ensemble, ic_ensemble
 
 
+def gfs_messages(start) -> tuple[dict, dict, dict]:
+    """Pangu's 69 input channels as a GFS cycle: one simple-packed GRIB2
+    message per channel on the 721x1440 grid (encoded in parallel), the
+    matching NOAA .idx text, and a fake transport over them -- a dict keyed
+    by URL that honours offset/length, as tests/test_torch_fetchers.py
+    serves them.  The fields are the synthetic source's, HGT in metres
+    (geopotential / 9.81, as NOAA publishes it).  Returns (files, the
+    encoded fields by channel in float64, each message's quantum 2^E)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from skyrim_tpu_torch.channels import PANGU
+    from skyrim_tpu_torch.data import get_data_source, grib
+    from skyrim_tpu_torch.data.gfs import BUCKET_URL, gfs_key
+    from skyrim_tpu_torch.data.vocab import GFS_VOCAB
+
+    ic = get_data_source(PANGU, "synthetic").fetch(start).data[0]
+    fields = {ch: ic[i].astype(np.float64) / GFS_VOCAB[ch].scale for i, ch in enumerate(PANGU)}
+    with ThreadPoolExecutor(8) as pool:
+        msgs = list(pool.map(grib.encode_simple, fields.values()))
+    parts, lines, offset, quantum = [], [], 0, {}
+    for i, (ch, msg) in enumerate(zip(PANGU, msgs)):
+        e = GFS_VOCAB[ch]
+        lines.append(f"{i + 1}:{offset}:d={start:%Y%m%d%H}:{e.provider_id}:{e.levtype}:anl:")
+        parts.append(msg)
+        offset += len(msg)
+        f = fields[ch]
+        quantum[ch] = 2.0 ** int(np.ceil(np.log2((f.max() - f.min()) / (2**16 - 1))))
+    url = f"{BUCKET_URL}/{gfs_key(start, 0)}"
+    return {url: b"".join(parts), url + ".idx": "\n".join(lines).encode()}, fields, quantum
+
+
+class FakeTransport:
+    """Serves ``files`` by URL, honouring byte ranges; counts ranged reads."""
+
+    def __init__(self, files: dict):
+        self.files, self.ranged = files, 0
+
+    def __call__(self, url, offset=None, length=None):
+        data = self.files[url]
+        if offset is None:
+            return data
+        self.ranged += 1
+        return data[offset:offset + length]
+
+
+@contextlib.contextmanager
+def ic_cache(path):
+    """The NWP fetchers' byte-range cache (SKYRIM_CACHE, read by
+    io.save.LOCAL_CACHE at import) in ``path`` inside the block."""
+    from skyrim_tpu_torch.data import nwp_base
+
+    before = os.environ.get("SKYRIM_CACHE"), nwp_base.LOCAL_CACHE
+    os.environ["SKYRIM_CACHE"] = nwp_base.LOCAL_CACHE = str(path)
+    try:
+        yield
+    finally:
+        if before[0] is None:
+            os.environ.pop("SKYRIM_CACHE")
+        else:
+            os.environ["SKYRIM_CACHE"] = before[0]
+        nwp_base.LOCAL_CACHE = before[1]
+
+
+def store_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def data_io_path(torch) -> dict:
+    """Phase 4, the data and IO layers: Pangu at full width from a
+    GFS-format IC, then streamed to Zarr.
+
+    The 69 channels are encoded as GFS GRIB2 messages with an .idx and
+    served by a fake transport put in place of the GFS source's
+    (Skyrim(...).model.data_source.client.transport), the byte-range cache
+    in a temporary SKYRIM_CACHE.  The native GRIB decoder must have built
+    (g++); the fetched IC must be finite and within each message's
+    simple-packing quantum (2^E / 2, times 9.81 for HGT -> z) of the encoded
+    field; a second fetch must come from the cache; the 69 messages decoded
+    by the native path and by numpy must be equal bit for bit (both
+    timed).  Skyrim("pangu", ic_source="gfs").predict(lead_time=12,
+    save=True) on a seed-2 checkpoint: 2 steps, 2 files, 2 forwards'
+    launches, the first file equal bit for bit to GlobalModel's rollout from
+    a file: IC holding the fetched field.  stream_save_forecast of the same
+    model and IC, 4 steps, into a local Zarr store, in float32 (equal bit
+    for bit to stream_rollout's frames; its steps timed by CUDA events) and
+    in float16 with three channels (equal bit for bit to those frames cast
+    on the card); beside it, the NetCDF writes of the same 4 frames, and
+    each store's bytes."""
+    import numpy as np
+
+    from skyrim_tpu_torch.core import GlobalModel, Skyrim
+    from skyrim_tpu_torch.core import model as core_model
+    from skyrim_tpu_torch.data import grib, gribcore
+    from skyrim_tpu_torch.field import Field
+    from skyrim_tpu_torch.io import SaveConfig, load_forecast, read_zarr, save_forecast, stream_save_forecast
+    from skyrim_tpu_torch.io import write_netcdf
+    from skyrim_tpu_torch.models import MODELS
+    from skyrim_tpu_torch.params import to_tree
+    from skyrim_tpu_torch.rollout import initial_condition_from_field, stream_rollout
+    from skyrim_tpu_torch.weights import save_checkpoint
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(gribcore.available(), "the native GRIB decoder (skyrim_tpu_torch/native/gribcore.cc) did not build")
+    start = datetime.datetime(2024, 1, 1, 0)
+    t0 = time.perf_counter()
+    files, fields, quantum = gfs_messages(start)
+    encode_s = time.perf_counter() - t0
+    url = next(u for u in files if not u.endswith(".idx"))
+    blob = files[url]
+
+    # the 69 messages decoded by the native path and by numpy, bit for bit
+    from skyrim_tpu_torch.data.idx import parse_idx
+
+    entries = sorted(parse_idx(files[url + ".idx"].decode()).values(), key=lambda e: e.offset)
+    msgs = [blob[e.offset:e.offset + e.length] if e.length else blob[e.offset:] for e in entries]
+    grib._install_native()
+    t0 = time.perf_counter()
+    native = [grib.decode_message(m).values for m in msgs]
+    decode_native_s = time.perf_counter() - t0
+    hooks = grib._unpack_bits_impl, grib._decode_simple_impl
+    grib._unpack_bits_impl, grib._decode_simple_impl = grib._unpack_bits_numpy, None
+    try:
+        t0 = time.perf_counter()
+        pure = [grib.decode_message(m).values for m in msgs]
+        decode_numpy_s = time.perf_counter() - t0
+    finally:
+        grib._unpack_bits_impl, grib._decode_simple_impl = hooks
+    check(all(np.array_equal(a, b) for a, b in zip(native, pure)), "native and numpy GRIB decodes differ")
+    del native, pure, msgs
+
+    out = {"encode_s": encode_s, "decode_native_s": decode_native_s, "decode_numpy_s": decode_numpy_s,
+           "messages": len(entries), "grib_bytes": len(blob)}
+    with tempfile.TemporaryDirectory() as tmp, weights_dir(Path(tmp) / "weights"), ic_cache(Path(tmp) / "cache"):
+        model = MODELS["pangu"](device="cuda")
+        save_checkpoint("pangu", to_tree(model.init_params(torch.Generator().manual_seed(2))))
+        del model
+        sky = Skyrim("pangu", ic_source="gfs")
+        check(sky.model.data_source.name == "gfs", f"Skyrim's default IC source is {sky.model.data_source.name}")
+        transport = sky.model.data_source.client.transport = FakeTransport(files)
+        model, params = sky.model.model, sky.model.params
+
+        # the IC: fetched and decoded on the host (8 threads), then from the cache
+        t0 = time.perf_counter()
+        ic_field = sky.model.data_source.fetch(start)
+        out["ic_fetch_s"] = time.perf_counter() - t0
+        ic = ic_field.data
+        check(ic.shape == (1, 69, 721, 1440) and bool(np.isfinite(ic).all()), f"the GFS IC {ic.shape} is not finite")
+        worst = 0.0
+        for i, ch in enumerate(ic_field.coords["channel"]):
+            scale = sky.model.data_source.client.vocabulary[ch].scale
+            want = fields[ch] * scale
+            err = float(np.abs(ic[0, i].astype(np.float64) - want).max())
+            bound = scale * quantum[ch] / 2 + 4 * 2.0**-24 * float(np.abs(want).max())
+            check(err <= bound, f"the GFS IC's {ch} is {err} off its encoded field (bound {bound})")
+            worst = max(worst, err / bound)
+        ranged = transport.ranged
+        t0 = time.perf_counter()
+        again = sky.model.data_source.fetch(start)
+        out["ic_fetch_cached_s"] = time.perf_counter() - t0
+        check(transport.ranged == ranged == 69 and np.array_equal(again.data, ic),
+              f"the second fetch made {transport.ranged - ranged} ranged reads")
+        out["ic_err_over_bound"] = worst
+        del again
+
+        # the facade: 12 h = 2 steps, 2 files, IC read through the cache
+        events = []
+        save_t = {"s": 0.0}
+        save = core_model.save_forecast
+
+        def timed_save(*a, **kw):
+            t = time.perf_counter()
+            path = save(*a, **kw)
+            save_t["s"] += time.perf_counter() - t
+            return path
+
+        core_model.save_forecast = timed_save
+        try:
+            with timed_advances(torch, model, events):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pred, paths = sky.predict(start.strftime("%Y%m%d"), "0000", lead_time=12, save=True,
+                                          save_config=SaveConfig(forecast_id="gfs", output_dir=str(Path(tmp) / "out")))
+                torch.cuda.synchronize()
+                out["predict_wall_s"] = time.perf_counter() - t0
+                counts, by_shape = read_counts()
+        finally:
+            core_model.save_forecast = save
+        out["predict_netcdf_write_s"] = save_t["s"]
+        out["predict_steps_device_ms"] = [e0.elapsed_time(e1) for e0, e1 in events]
+        expect, expect_shape = expected_launches(model, 2)
+        for k, v in expect.items():
+            check(counts[k] == v, f"the GFS forecast launched {k} {counts[k]} times, expected {v}")
+        check(by_shape["K1"] == expect_shape["K1"], f"the GFS forecast launched K1 by shape {by_shape['K1']}")
+        check(len(paths) == 2 and Path(paths[0]).name == "pangu__gfs__20240101_00:00__20240101_06:00.nc",
+              f"the GFS forecast's files {paths}")
+        ic_nc = Path(tmp) / "ic.nc"
+        write_netcdf(ic_field, ic_nc)
+        _, file_paths = GlobalModel("pangu", ic_source=f"file:{ic_nc}", params=params).rollout(
+            start, n_steps=2, save=True, save_config=SaveConfig(forecast_id="file", output_dir=str(Path(tmp) / "out")))
+        for a, b in zip(paths, file_paths):
+            diff = float(np.abs(load_forecast(a).data.astype(np.float64) - load_forecast(b).data).max())
+            check(diff == 0.0, f"the GFS forecast's {Path(a).name} differs from the file: IC's by {diff}")
+        del pred
+
+        # the stream: 4 steps to Zarr, f32 then f16 with three channels
+        x0 = initial_condition_from_field(model, ic_field)
+        ref = np.stack(list(stream_rollout(model, params, model.init_state(params, x0, start_time=start), 4)))
+        check(ref.shape == (4, 69, 721, 1440) and bool(np.isfinite(ref).all()), f"stream_rollout {ref.shape}")
+        events = []
+        with timed_advances(torch, model, events):
+            t0 = time.perf_counter()
+            target = stream_save_forecast(model, params, x0, start, 4, ic_source="gfs",
+                                          config=SaveConfig(forecast_id="s32", output_dir=str(Path(tmp) / "zarr")))
+            out["stream_f32_wall_s"] = time.perf_counter() - t0
+        out["stream_f32_steps_device_ms"] = [e0.elapsed_time(e1) for e0, e1 in events]
+        back = read_zarr(target)
+        check(back.data.dtype == np.float32 and np.array_equal(back.data, ref),
+              "the float32 Zarr frames are not stream_rollout's")
+        check(list(back.coords["channel"]) == list(model.channels) and back.sizes["time"] == 4,
+              f"the float32 store holds {back.sizes}")
+        out["zarr_bytes_f32"] = store_bytes(target)
+        del back
+        keep = ("z500", "t850", "u10m")
+        idx = [list(model.channels).index(c) for c in keep]
+        t0 = time.perf_counter()
+        target16 = stream_save_forecast(model, params, x0, start, 4, ic_source="gfs", save_dtype="float16",
+                                        config=SaveConfig(forecast_id="s16", output_dir=str(Path(tmp) / "zarr"),
+                                                          filter_vars=keep))
+        out["stream_f16_wall_s"] = time.perf_counter() - t0
+        back = read_zarr(target16)
+        want = torch.from_numpy(ref[:, idx]).cuda().half().cpu().numpy()
+        check(back.data.dtype == np.float16 and np.array_equal(back.data, want)
+              and list(back.coords["channel"]) == list(keep), "the float16 Zarr frames are not the cast frames")
+        out["zarr_bytes_f16"] = store_bytes(target16)
+
+        # the facade's path for the same 4 frames: one NetCDF file a step
+        cfg = SaveConfig(forecast_id="nc", output_dir=str(Path(tmp) / "nc"))
+        t0 = time.perf_counter()
+        for k in range(4):
+            t = start + (k + 1) * model.time_step
+            f = Field.from_canonical(ref[k][None], [t], model.channels, model.grid.lat, model.grid.lon,
+                                     attrs={"model": "pangu"})
+            save_forecast(f, "pangu", t - model.time_step, t, "gfs", cfg)
+        out["netcdf_4_steps_s"] = time.perf_counter() - t0
+        out["netcdf_bytes"] = store_bytes(Path(tmp) / "nc")
+        del sky, ref, back, model, params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"data_io: GFS IC of 69 messages ({len(blob)} B) fetched and decoded in {out['ic_fetch_s']:.3f} s "
+        f"(cached {out['ic_fetch_cached_s']:.3f} s), decode native {decode_native_s:.3f} s vs numpy "
+        f"{decode_numpy_s:.3f} s, equal; predict(lead_time=12) {out['predict_wall_s']:.3f} s, files equal to "
+        f"the file: IC's; stream_save_forecast 4 steps f32 {out['stream_f32_wall_s']:.3f} s "
+        f"({out['zarr_bytes_f32']} B; steps {['%.2f' % t for t in out['stream_f32_steps_device_ms']]} ms), "
+        f"f16 x3 channels {out['stream_f16_wall_s']:.3f} s ({out['zarr_bytes_f16']} B); NetCDF writes of the "
+        f"4 steps {out['netcdf_4_steps_s']:.3f} s ({out['netcdf_bytes']} B); phase {out['seconds']:.1f} s")
+    return out
+
+
 def profile_step(torch, model, params, state, keep: int | None = 8) -> dict:
     """Device time by kernel over one step (every kernel logged, the
     ``keep`` longest returned, all of them for None), and the device's idle
@@ -2289,6 +2568,7 @@ def main() -> int:
         mp = {label: main_path(torch, label, torch.Generator(device="cuda").manual_seed(0)) for label in MAIN_PATHS}
         facade = facade_path(torch)
         ensemble, ic_ensemble = ensemble_paths(torch)
+        data_io = data_io_path(torch)
 
         # 3. kernels against their plain versions at full width
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -2344,6 +2624,7 @@ def main() -> int:
         "dlwp": dlwp_summary(mp["dlwp"]),
         "ensemble": ensemble,
         "ic_ensemble": ic_ensemble,
+        "data_io": data_io,
         "added_phases_s": mp["dlwp"]["wall_s"] + ensemble["seconds"] + ic_ensemble["seconds"]
         + small["dlwp"]["seconds"],
         "small_config": small,

@@ -13,7 +13,27 @@ GraphCast, FourCastNet v2, FengWu, FuXi, FourCastNet v1, DLWP) through
 (``core.GlobalEnsemble``), initial-condition ensembles
 (``core.ic_ensemble``), and the weight readers (``weights``: the port's
 checkpoints, torch state dicts, ONNX artifacts, GraphCast's Haiku
-parameters).
+parameters), and the data and IO layers (``data``: GRIB decoding and the
+GFS, IFS, ENS and CDS initial-condition sources; ``io``: NetCDF, Zarr,
+fsspec and ``hf://`` outputs and ``stream_save_forecast``; ``evaluate``:
+skill scores).
 """
 
 __version__ = "0.1.0"
+
+_LAZY = {
+    "SaveConfig": ("skyrim_tpu_torch.io", "SaveConfig"),
+    "save_forecast": ("skyrim_tpu_torch.io", "save_forecast"),
+    "load_forecast": ("skyrim_tpu_torch.io", "load_forecast"),
+    "read_forecast": ("skyrim_tpu_torch.io", "read_forecast"),
+}
+
+
+def __getattr__(name):
+    # lazy, so that ``import skyrim_tpu_torch`` stays light
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'skyrim_tpu_torch' has no attribute {name!r}")

@@ -56,8 +56,12 @@ class GlobalModel:
         self.ic_source = ic_source
         self.model = MODELS[model_name](**(model_kwargs or {}), device=device)
         self.params = params if params is not None else load_params(self.model, seed)
-        self.data_source = get_data_source(
-            self.model.in_channel_names, ic_source, grid=self.model.grid
+        self.data_source = self.build_datasource()
+
+    def build_datasource(self):
+        """The IC source, keyed by the model's in-channel names."""
+        return get_data_source(
+            self.model.in_channel_names, self.ic_source, grid=self.model.grid
         )
 
     def release_model(self):

@@ -3,4 +3,5 @@ from skyrim_tpu_torch.data.ic import (  # noqa: F401
     ICSource,
     SyntheticSource,
     get_data_source,
+    get_ic,
 )

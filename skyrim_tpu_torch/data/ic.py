@@ -3,10 +3,13 @@
 ``get_data_source(channel_names, ic_source)`` returns a source that
 produces the canonical (time, channel, lat, lon) Field:
 
-- ``file:<path>``: restart from a saved NetCDF forecast or IC
+- ``gfs`` / ``ifs`` / ``ens`` / ``cds``: the operational fetchers
+  (data/gfs.py, data/ifs.py, data/ens.py, data/cds.py: GRIB over an
+  injectable transport, decoded on the host)
+- ``file:<path>``: restart from a saved forecast (NetCDF or Zarr) or IC
 - ``synthetic``: climatology-shaped random ICs for offline runs
 
-The network fetchers (gfs, ifs, ens, cds) are not ported yet.
+``get_ic`` fetches an IC without a model.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from skyrim_tpu_torch.channels import parse_channel
 from skyrim_tpu_torch.field import Field
 from skyrim_tpu_torch.grid import GRID_721x1440, LatLonGrid
 from skyrim_tpu_torch.io.save import load_forecast
+from skyrim_tpu_torch.utils.logging import logger
 
 
 class ICSource(abc.ABC):
@@ -141,9 +145,31 @@ def get_data_source(
         if not path:
             raise ValueError("file source needs a path: ic_source='file:/path'")
         return FileSource(channel_names, path, **kwargs)
-    if src in ("gfs", "ifs", "ens", "cds"):
-        raise NotImplementedError(
-            f"IC source {initial_condition_source!r} is not ported yet; "
-            "use 'file:<path>' or 'synthetic'"
-        )
+    if src == "gfs":
+        from skyrim_tpu_torch.data.gfs import GFSSource
+
+        return GFSSource(channel_names, **kwargs)
+    if src == "ifs":
+        from skyrim_tpu_torch.data.ifs import IFSSource
+
+        return IFSSource(channel_names, **kwargs)
+    if src == "ens":
+        from skyrim_tpu_torch.data.ens import ENSSource
+
+        return ENSSource(channel_names, **kwargs)
+    if src == "cds":
+        from skyrim_tpu_torch.data.cds import CDSSource
+
+        return CDSSource(channel_names, **kwargs)
     raise ValueError(f"unknown IC source {initial_condition_source!r}")
+
+
+def get_ic(
+    channels: Sequence[str],
+    start_time: datetime.datetime,
+    ic_source: str = "ifs",
+) -> Field:
+    """Model-free IC fetch on the canonical grid."""
+    source = get_data_source(channels, ic_source)
+    logger.info("fetching IC %s @ %s", ic_source, start_time)
+    return source.fetch(start_time)

@@ -75,10 +75,22 @@ def write_netcdf(field: Field, target, var_name: str = "forecast") -> None:
         f.close()
 
 
+class _Buffer(_io.BytesIO):
+    """Keeps its bytes when ``netcdf_file.close()`` closes it."""
+
+    value = b""
+
+    def close(self):
+        if not self.closed:
+            self.value = self.getvalue()
+        super().close()
+
+
 def write_netcdf_bytes(field: Field, var_name: str = "forecast") -> bytes:
-    buf = _io.BytesIO()
+    """The NetCDF file's bytes (the fsspec targets of io/save.py)."""
+    buf = _Buffer()
     write_netcdf(field, buf, var_name)
-    return buf.getvalue()
+    return buf.value
 
 
 def read_netcdf(source, var_name: str | None = None) -> Field:

@@ -140,17 +140,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_skyrim_tpu():
+    """Every module of the port and chip_smoke.py import with the optional
+    host packages the card's machine lacks blocked, and pull in neither
+    jax, flax nor skyrim_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "for m in ('pandas', 'fsspec', 'matplotlib', 'imageio', 'huggingface_hub'): sys.modules[m] = None\n"
         "import skyrim_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(skyrim_tpu_torch.__path__, 'skyrim_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "gc = {'skyrim_tpu_torch.models.graphcast', 'skyrim_tpu_torch.ops.graph_kernels',\n"
         "      'skyrim_tpu_torch.ops.fused_mlp', 'skyrim_tpu_torch.ops.graph', 'skyrim_tpu_torch.data.solar'}\n"
+        "io = {'skyrim_tpu_torch.' + m for m in ('data.grib', 'data.gribcore', 'data.idx', 'data.vocab',\n"
+        "      'data.schedules', 'data.regrid', 'data.transport', 'data.nwp_base', 'data.gfs', 'data.ifs',\n"
+        "      'data.ens', 'data.cds', 'data.openmeteo', 'data.observations', 'io.zarrlite', 'evaluate',\n"
+        "      'plotting')}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'skyrim_tpu'))\n"
-        "print(len(names), bad, sorted(gc - set(sys.modules)))\n"
-        "sys.exit(1 if bad or gc - set(sys.modules) or len(names) < 20 else 0)\n"
+        "print(len(names), bad, sorted(gc - set(sys.modules)), sorted(io - set(names)))\n"
+        "sys.exit(1 if bad or gc - set(sys.modules) or io - set(names) or len(names) < 20 else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert out.returncode == 0, out.stdout + out.stderr
