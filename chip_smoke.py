@@ -183,7 +183,32 @@ Phases:
      FengWu's, FuXi's (Swin-V2, V1, and Swin-V2 int8-served at min_size
      256), AFNO's golden ones and DLWP's (face 16, features (8, 16),
      73x144) (FengWu's and FuXi V1's K1 and FuXi's K2 launched on the card,
-     SFNO, AFNO and DLWP launching no kernel of the port).
+     SFNO, AFNO and DLWP launching no kernel of the port);
+  6. train (run after phase 4, before phase 3): the gradients of K1 (both
+     Pangu stages, shifted, earth bias at 0.5), K2 (both shapes, exact
+     against torch.roll's, its backward one K2 launch), K3 and K4 (on the
+     stage buffers' views) at full width against autograd through their
+     plain versions, within 1e-5 of the largest element; a K1 whose output
+     is detached (its kernel path without the Function), which that check
+     must refuse; K6-K9's at the
+     small GraphCast configuration on the inputs of their first calls in a
+     forward.  Then Pangu at its published widths (721x1440, 69 channels,
+     embed 192, depths 2-6-6-2, seed-0 parameters, the norm stats the
+     dataset's) finetuned by Trainer(TrainConfig(batch_size=1,
+     remat=True)).fit on a seeded synthetic dataset in the CDS layout (one
+     NetCDF slice of 4 frames, 1.15 GB as float32, in a temporary
+     directory): every leaf of net6, norm and consts changed, net24 moved by
+     the decay alone with its optimizer step counted, the loss finite and
+     falling over the same pair fed three times, that step's CUDA-event ms
+     split into forward, backward and optimizer, its peak, its launches by
+     kernel (remat: the forward twice, 32 K1, 48 K2 with K2's 16 backward
+     launches, 2 K3, 2 K4) and a profile (idle share); the checkpoint,
+     loaded by load_params, forecasting bit for bit what the trained tree
+     forecasts; one step's leaf gradients on the kernel path and on the
+     plain path (the plain blocks each under torch.utils.checkpoint) within
+     a relative L2 error of 2e-2, or, for a leaf whose two bf16 gradients
+     differ by more (the earth-bias tables), the kernel path's no further
+     from the plain path's in f32 than 1.25x the bf16 plain path's.
 
 Prints the results on a JSON line (the main paths, the facade, "dlwp",
 "ensemble", "ic_ensemble", "data_io", the small configurations, ...), then
@@ -2404,15 +2429,20 @@ def data_io_path(torch) -> dict:
 
 
 def profile_step(torch, model, params, state, keep: int | None = 8) -> dict:
-    """Device time by kernel over one step (every kernel logged, the
-    ``keep`` longest returned, all of them for None), and the device's idle
-    share of the step's host wall time (torch.profiler, CUPTI)."""
+    """``profile_call`` of one forecast step."""
+    return profile_call(torch, lambda: model.advance(params, state), keep)
+
+
+def profile_call(torch, fn, keep: int | None = 8) -> dict:
+    """Device time by kernel over one call of ``fn`` (every kernel logged,
+    the ``keep`` longest returned, all of them for None), and the device's
+    idle share of the call's host wall time (torch.profiler, CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.advance(params, state)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = {}
@@ -2525,6 +2555,385 @@ def small_config(torch, label: str) -> dict:
     return dict(worst_max_over_std=worst)
 
 
+# --- the train phase ------------------------------------------------------------------
+
+
+def _flat_tensors(args):
+    out = []
+    for a in args:
+        if isinstance(a, (tuple, list)):
+            out += _flat_tensors(a)
+        elif hasattr(a, "requires_grad"):
+            out.append(a)
+    return out
+
+
+def grad_check(torch, g, name, fn, plain, args, exact=False) -> dict:
+    """The gradients of ``fn(*args)`` (a wrapper's Function: the kernel
+    forward, its backward) against autograd through ``plain(*args)`` on the
+    same inputs and cotangent, for every input that requires a gradient:
+    within 1e-5 of the largest plain gradient (the backward replays the
+    plain composition on the saved inputs, so only summation order may
+    differ), exactly for ``exact``.  Raises SmokeError where the output is
+    cut from the graph or a gradient is missing.  Returns the worst error
+    over its limit's scale and the ms of a forward + backward of each."""
+    leaves = [t for t in _flat_tensors(args) if t.requires_grad]
+    out = fn(*args)
+    check(out.grad_fn is not None, f"{name}: the output is cut from the autograd graph")
+    cot = torch.randn(out.shape, device=out.device, generator=g).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, cot, allow_unused=True)
+    check(all(x is not None for x in got), f"{name}: an input got no gradient")
+    ref = torch.autograd.grad(plain(*args), leaves, cot)
+    worst = 0.0
+    for a, b in zip(got, ref):
+        check(bool(torch.isfinite(a).all()), f"{name}: non-finite gradient")
+        err, scale = float((a.float() - b.float()).abs().max()), float(b.float().abs().max())
+        worst = max(worst, err / scale if scale else err)
+    check(worst == 0 if exact else worst <= 1e-5, f"{name}: gradient off by {worst:.3g} of its largest element")
+    del out, got, ref
+
+    def both(f):
+        return lambda: torch.autograd.grad(f(*args), leaves, cot)
+
+    return dict(rel_err=worst, ms=time_ms(torch, both(fn), 3), plain_ms=time_ms(torch, both(plain), 3))
+
+
+def kernel_grad_checks(torch, g) -> dict:
+    """K1 (both Pangu stages, shifted, earth bias at 0.5), K2 (both shapes;
+    its backward one K2 launch, equal to torch.roll's gradient bit for bit),
+    K3 and K4 (on the stage buffers' views) at full width: each Function's
+    gradients against autograd through its plain version; then a K1 whose
+    output is detached (its kernel path without the Function), which the
+    check must refuse."""
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops import resample as RS
+    from skyrim_tpu_torch.ops import roll as RL
+    from skyrim_tpu_torch.ops.windows import shift_attention_mask
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+
+    def randn(*shape, scale=1.0, dtype=torch.float32, grad=True):
+        t = (torch.randn(*shape, device=dev, generator=g) * scale).to(dtype)
+        return t.requires_grad_(grad)
+
+    out = {}
+    window = (2, 6, 12)
+    for stage, (Z, H, Wd, C, heads, valid_h) in (("stage 1/4", (8, 186, 360, 192, 6, 181)),
+                                                  ("stage 2/3", (8, 96, 180, 384, 12, 91))):
+        hidden, wlen = 4 * C, 144
+        mask = torch.from_numpy(shift_attention_mask((Z, H, Wd), window, (1, 3, 6), (Z, valid_h, Wd))).to(dev)
+        args = (randn(Z, H, Wd, C, dtype=bf16), (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+                (randn(C, 3 * C, scale=C**-0.5), randn(3 * C, scale=0.1)),
+                randn(Z // 2 * H // 6, heads, wlen, wlen, scale=ATTN_BIAS_SCALE), mask,
+                (randn(C, C, scale=C**-0.5), randn(C, scale=0.1)), (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+                (randn(C, hidden, scale=C**-0.5), randn(hidden, scale=0.1), randn(hidden, C, scale=hidden**-0.5),
+                 randn(C, scale=0.1)), window, heads)
+        out[f"K1 {stage}"] = grad_check(torch, g, f"K1 {stage}", FB.fused_swin_block, FB.reference_swin_block, args)
+        if stage == "stage 1/4":
+            try:  # the planted fault: K1's kernel path returning a detached output, as before its Function
+                grad_check(torch, g, "K1 cut from the graph", lambda *a: FB._swin_block(*a).detach(),
+                           FB.reference_swin_block, args)
+            except SmokeError as e:
+                out["K1 cut from the graph"] = f"refused: {e}"
+            check("K1 cut from the graph" in out, "the gradient check took a K1 output cut from the graph")
+        x = args[0]
+        before = RL.roll3d.launches
+        y = RL.roll3d(x, (1, 3, 6))
+        torch.autograd.grad(y, x, torch.ones_like(y))
+        check(RL.roll3d.launches == before + 2, "K2's backward did not launch K2")
+        out[f"K2 {stage}"] = grad_check(torch, g, f"K2 {stage}", RL.roll3d, RL.plain_roll3d, (x, (1, 3, 6)),
+                                        exact=True)
+        del args, x, y
+        torch.cuda.empty_cache()
+    down_buf, up_buf = randn(8, 186, 360, 192, dtype=bf16), randn(8, 96, 180, 384, dtype=bf16)
+    down = (down_buf[:, :181], (1 + randn(768, scale=0.1), randn(768, scale=0.3)),
+            (randn(768, 384, scale=768**-0.5), randn(384, scale=0.1)))
+    out["K3"] = grad_check(torch, g, "K3", RS.fused_downsample, RS._plain_downsample, down)
+    up = (up_buf[:, :91], (randn(384, 768, scale=384**-0.5), randn(768, scale=0.1)),
+          (1 + randn(192, scale=0.1), randn(192, scale=0.3)))
+    out["K4"] = grad_check(torch, g, "K4", RS.fused_upsample, RS._plain_upsample, up)
+    for k, v in out.items():
+        log(f"train: gradient {k}: {v}")
+    del down, up, down_buf, up_buf
+    torch.cuda.empty_cache()
+    return out
+
+
+def graphcast_grad_checks(torch, g) -> dict:
+    """K6-K9 at phase 5's small GraphCast configuration: the first call of
+    each on a card forward, its inputs recorded, then each Function's
+    gradients on those inputs against its plain version's (grad_check)."""
+    import numpy as np
+
+    import skyrim_tpu_torch.models.graphcast as GCM
+    from skyrim_tpu_torch.ops import fused_mlp as FM
+    from skyrim_tpu_torch.ops import graph_kernels as GK
+
+    cfg = GCM.GraphCastConfig(lat=19, lon=36, in_channels=4, latent=16, processor_rounds=2, mesh_refinements=2)
+    model = GCM.GraphCastModel(cfg, device="cuda")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    kernels = {"K6": ("fused_mlp", FM.reference_mlp), "K7": ("fused_round_messages", GK.reference_round_messages),
+               "K8": ("fused_m2g_tiled", GK.reference_m2g_tiled), "K9": ("fused_g2m_tiled", GK._plain_g2m_tiled)}
+    seen = {}
+    originals = {k: getattr(GCM, attr) for k, (attr, _) in kernels.items()}
+
+    def recorder(key):
+        def call(*args, **kw):
+            seen.setdefault(key, (args, kw))
+            return originals[key](*args, **kw)
+
+        return call
+
+    for k, (attr, _) in kernels.items():
+        setattr(GCM, attr, recorder(k))
+    try:
+        x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 4, 19, 36)).astype(np.float32)).cuda()
+        with torch.no_grad():
+            model.apply(params, x)
+    finally:
+        for k, (attr, _) in kernels.items():
+            setattr(GCM, attr, originals[k])
+
+    def fresh(a):
+        if isinstance(a, (tuple, list)):
+            return type(a)(fresh(v) for v in a)
+        if hasattr(a, "is_floating_point") and a.is_floating_point():
+            return a.detach().clone().requires_grad_(True)
+        return a
+
+    out = {}
+    for k, (attr, plain) in kernels.items():
+        args, kw = seen[k]
+        args = fresh(args)
+        kw = {n: fresh(v) for n, v in kw.items()}
+        fn = originals[k]
+        if k == "K7":  # two outputs: their gradients through one weighted sum
+            def fn(*a, _f=fn):
+                return sum((o.float() * (i + 1)).sum() for i, o in enumerate(_f(*a)))
+
+            plain = (lambda _p: lambda *a: sum((o.float() * (i + 1)).sum() for i, o in enumerate(_p(*a))))(plain)
+        out[k] = grad_check(torch, g, f"{k} (small GraphCast)", lambda *a, _f=fn: _f(*a, **kw),
+                            lambda *a, _p=plain: _p(*a, **kw), args)
+        log(f"train: gradient {k} at the small GraphCast configuration: {out[k]}")
+    return out
+
+
+def gradient_agreement(kernel: dict, plain: dict, exact: dict) -> dict:
+    """Leaf gradients of one step on the kernel path against the plain
+    path's, both bf16, by relative L2 error: within 2e-2, or, where the two
+    bf16 paths differ by more, the kernel path no further from ``exact``
+    (the plain path in f32) than 1.25x the bf16 plain path's own distance
+    from it.  The earth-bias tables need the second: each table's gradient
+    sums the score gradients of every window of its type, and two bf16
+    computations of it differ by about 2 % whatever computes them (the
+    plain path alone is 2.3 % from f32 at full width).  Returns the largest
+    errors."""
+    check(kernel.keys() == plain.keys() == exact.keys() and kernel, "the paths differentiate other leaves")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    leaves = [k for k, r in exact.items() if float(r.norm()) > 0]
+    to_plain = {k: rel(kernel[k], plain[k]) for k in leaves}
+    worst = max(to_plain, key=to_plain.get)
+    floor = {}
+    for k in leaves:
+        if to_plain[k] > 2e-2:
+            floor[k] = (rel(kernel[k], exact[k]), rel(plain[k], exact[k]))
+            check(floor[k][0] <= 1.25 * floor[k][1],
+                  f"{k}: kernel path {to_plain[k]:.4g} from the plain path and {floor[k][0]:.4g} from f32, "
+                  f"the plain path {floor[k][1]:.4g} from f32")
+    log(f"train: kernel vs plain path gradients, largest relative L2 error {to_plain[worst]:.4g} ({worst}); "
+        f"{len(floor)} leaves past 2e-2, each as close to f32 as the plain path: "
+        + ", ".join(f"{k.split('/')[1]} {a:.4g} vs {b:.4g}" for k, (a, b) in floor.items()))
+    return {"max": to_plain[worst], "leaf": worst, "leaves": len(leaves),
+            "past_2e-2": {k: {"to_plain": to_plain[k], "to_f32": a, "plain_to_f32": b} for k, (a, b) in floor.items()}}
+
+
+@contextlib.contextmanager
+def plain_pangu():
+    """Pangu's blocks, rolls and resamplers on their plain versions on the
+    card, each block under its own torch.utils.checkpoint so that a
+    full-width plain step fits the card's memory."""
+    import skyrim_tpu_torch.models.pangu as PM
+    from torch.utils.checkpoint import checkpoint
+
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops import resample as RS
+    from skyrim_tpu_torch.ops.roll import plain_roll3d
+
+    def shift(x, s, forward):
+        s = tuple(int(v) for v in s)
+        return x if not any(s) else plain_roll3d(x, s if forward else tuple(-v for v in s))
+
+    plain = {"fused_swin_block": lambda *a: checkpoint(FB.reference_swin_block, *a, use_reentrant=False),
+             "fused_downsample": RS._plain_downsample, "fused_upsample": RS._plain_upsample, "shift_roll": shift}
+    saved = {k: getattr(PM, k) for k in plain}
+    for k, v in plain.items():
+        setattr(PM, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(PM, k, v)
+
+
+def write_training_set(root: Path, channels, frames: int, seed: int) -> None:
+    """A CDS dataset-factory layout (metadata.json and one NetCDF slice) of
+    ``frames`` 6-hourly 721x1440 frames of the channels, seeded normals."""
+    import numpy as np
+
+    from skyrim_tpu_torch.field import Field
+    from skyrim_tpu_torch.grid import GRID_721x1440
+    from skyrim_tpu_torch.io.netcdf import write_netcdf
+
+    data = np.random.default_rng(seed).standard_normal((frames, len(channels), 721, 1440), dtype=np.float32)
+    times = [datetime.datetime(2024, 1, 1) + datetime.timedelta(hours=6 * k) for k in range(frames)]
+    write_netcdf(Field.from_canonical(data, times, list(channels), GRID_721x1440.lat, GRID_721x1440.lon),
+                 root / "slice_00000.nc")
+    (root / "metadata.json").write_text(json.dumps({
+        "channels": list(channels), "files": ["slice_00000.nc"], "n_slices": 1, "slice_size": frames,
+        "times": [t.isoformat() for t in times]}))
+
+
+def train_path(torch) -> dict:
+    """The train phase: Pangu (the published widths, 721x1440, 69 channels,
+    embed 192, depths 2-6-6-2) finetuned through the kernels on a seeded
+    synthetic dataset in the CDS layout (4 frames, 3 pairs); see the
+    module's docstring."""
+    import numpy as np
+
+    from skyrim_tpu_torch.finetune import FineTuneDataset, TrainConfig, Trainer
+    from skyrim_tpu_torch.models.base import make_norm_params
+    from skyrim_tpu_torch.models.pangu import PanguModel
+    from skyrim_tpu_torch.weights import load_params
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    grads = kernel_grad_checks(torch, g)
+    gc_grads = graphcast_grad_checks(torch, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res = {"kernel_gradients": grads, "graphcast_gradients": gc_grads}
+    with tempfile.TemporaryDirectory() as tmp, weights_dir(Path(tmp) / "weights"):
+        model = PanguModel("pangu", device="cuda")
+        t0 = time.perf_counter()
+        write_training_set(Path(tmp), model.channels, frames=4, seed=0)
+        ds = FineTuneDataset(tmp, n_history=1, frames_out=1)
+        mean, std = ds.normalization_stats()
+        res["dataset_s"] = time.perf_counter() - t0
+        res["dataset_gb"] = (Path(tmp) / "slice_00000.nc").stat().st_size / 1e9
+        check(len(ds) == 3, f"the dataset holds {len(ds)} pairs, expected 3")
+        params = model.init_params(torch.Generator().manual_seed(0))
+        params["norm"] = make_norm_params(len(model.channels), mean, std, device="cuda")
+        cfg = TrainConfig(batch_size=1, remat=True)
+        trainer = Trainer(model, params, cfg)
+        check("cache" not in trainer.params, "the trainer kept the derived cache")
+        before = {k: v.detach().clone() for k, v in trainer.leaves.items()}
+
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fit = trainer.fit(ds)
+        torch.cuda.synchronize()
+        res["fit_s"] = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts()[0].items() if v}
+        log(f"train: fit of {fit['steps']} steps in {res['fit_s']:.2f} s, loss {fit['loss']}, launches {counts}")
+        check(fit["steps"] == 3 and np.isfinite(fit["loss"]).all(), f"fit: {fit}")
+        for k in ("K1", "K2", "K3", "K4"):
+            check(counts.get(k, 0) > 0, f"fit did not launch {k}")
+        res.update(fit_loss=fit["loss"], fit_launches=counts)
+
+        decay = 1 - cfg.learning_rate * cfg.weight_decay
+        for k, p in trainer.leaves.items():
+            if k.startswith("net24/"):  # apply runs net6: net24 takes the decay alone, and its step count
+                want = before[k].clone()
+                for _ in range(fit["steps"]):
+                    want.mul_(decay)
+                check(torch.equal(p.detach(), want), f"{k} moved by more than the decay")
+                check(int(trainer.opt.state[p]["step"]) == fit["steps"], f"{k}: the optimizer skipped it")
+            else:
+                check(not torch.equal(p.detach(), before[k]), f"{k} did not change")
+        del before
+
+        # the same pair three times: the loss falls; each step timed by parts
+        x, y = (torch.from_numpy(a[None]).cuda() for a in ds[0])
+        losses, parts = [], []
+        for i in range(3):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss = trainer.loss(x, y)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            trainer.update()
+            ev[3].record()
+            torch.cuda.synchronize()
+            trainer.step_count += 1
+            losses.append(float(loss.detach()))
+            parts.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+            if i == 1:
+                step_counts, step_shapes = read_counts()
+                res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del loss
+        check(losses[2] < losses[0], f"the same pair three times: losses {losses}")
+        fwd, bwd, opt = parts[1]
+        step = {k: v for k, v in step_counts.items() if v}
+        log(f"train: step ms forward {fwd:.2f} backward {bwd:.2f} optimizer {opt:.2f}, peak {res['peak_gb']:.2f} GB, "
+            f"launches {step}, K1 by path {step_shapes['K1 path']}, losses {losses}")
+        # remat: the forward twice (16 K1, 16 K2, K3 and K4 each), K2's 16 backward launches
+        expect = {"K1": 32, "K2": 48, "K3": 2, "K4": 2, "ln_gemm": 64, "gemm": 64}
+        check(step == expect, f"one train step launched {step}, expected {expect}")
+        res.update(same_pair_losses=losses, step_ms={"forward": fwd, "backward": bwd, "optimizer": opt,
+                                                     "total": fwd + bwd + opt}, step_launches=step)
+
+        def one_step():
+            trainer.loss(x, y).backward()
+            trainer.update()
+
+        res["profile"] = profile_call(torch, one_step)
+        trainer.step_count += 1
+        path = trainer.save()
+
+        # round trip: the checkpoint, loaded and rebuilt, forecasts what the trained tree forecasts
+        loaded = load_params(model, allow_init=False)
+        trained = model.prepare_params({k: v for k, v in trainer.params.items()})
+        state = model.init_state(trained, x[0])
+        _, y_trained = model.advance(trained, state)
+        _, y_loaded = model.advance(loaded, model.init_state(loaded, x[0]))
+        check(torch.equal(y_trained, y_loaded), f"the checkpoint {Path(path).name} forecasts otherwise")
+        res["checkpoint"] = Path(path).name
+        del trainer, loaded, trained, state, y_trained, y_loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one step's gradients on the kernel path, the plain path and the plain path in f32, from the same
+        # parameters and pair
+        got = []
+        for plain, dtype in ((False, None), (True, None), (True, torch.float32)):
+            if dtype is not None:
+                model.compute_dtype = dtype
+            tr = Trainer(model, params, TrainConfig(batch_size=1, remat=not plain))
+            with plain_pangu() if plain else contextlib.nullcontext():
+                tr.loss(x, y).backward()
+            got.append({k: p.grad.float() for k, p in tr.leaves.items() if p.grad is not None})
+            del tr
+            if dtype is not None:
+                del model.compute_dtype  # back to the class's bf16
+            gc.collect()
+            torch.cuda.empty_cache()
+        res["kernel_vs_plain_rel_l2"] = gradient_agreement(*got)
+        del got, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def dlwp_summary(run: dict) -> dict:
     """DLWP's main path for the results line: ms a call (12 h) and a 6-h
     frame, the device's busy time by kernel name and idle share of one call,
@@ -2569,6 +2978,7 @@ def main() -> int:
         facade = facade_path(torch)
         ensemble, ic_ensemble = ensemble_paths(torch)
         data_io = data_io_path(torch)
+        train = train_path(torch)
 
         # 3. kernels against their plain versions at full width
         g = torch.Generator(device="cuda").manual_seed(0)
@@ -2625,6 +3035,7 @@ def main() -> int:
         "ensemble": ensemble,
         "ic_ensemble": ic_ensemble,
         "data_io": data_io,
+        "train": train,
         "added_phases_s": mp["dlwp"]["wall_s"] + ensemble["seconds"] + ic_ensemble["seconds"]
         + small["dlwp"]["seconds"],
         "small_config": small,

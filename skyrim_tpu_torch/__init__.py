@@ -16,7 +16,8 @@ checkpoints, torch state dicts, ONNX artifacts, GraphCast's Haiku
 parameters), and the data and IO layers (``data``: GRIB decoding and the
 GFS, IFS, ENS and CDS initial-condition sources; ``io``: NetCDF, Zarr,
 fsspec and ``hf://`` outputs and ``stream_save_forecast``; ``evaluate``:
-skill scores).
+skill scores), and finetuning (``finetune``: ``FineTuneDataset``,
+``Trainer``; each kernel's backward its plain composition, ``ops/vjp.py``).
 """
 
 __version__ = "0.1.0"

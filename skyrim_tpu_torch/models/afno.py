@@ -185,7 +185,6 @@ class FourCastNetModel(PrognosticModel):
             "norm": make_norm_params(self.cfg.in_channels, device=self.device),
         }
 
-    @torch.no_grad()
     def apply(self, params, x):
         """``denormalize(net(normalize(x[-1])))``, in f32: no residual."""
         xn = normalize(params["norm"], x[-1]).to(self.compute_dtype)

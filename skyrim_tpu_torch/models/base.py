@@ -7,7 +7,10 @@
 step counter as a Python int, so step-dependent control flow (Pangu's
 6h/24h choice) needs no device synchronisation.  Parameters stay f32
 (FuXi's stages bf16, as the JAX package keeps them); the network runs in
-``compute_dtype`` (bf16 by default).
+``compute_dtype`` (bf16 by default).  ``apply`` is differentiable in the
+leaves that require a gradient (a serving tree's do not; the finetune
+trainer's copy's do) and needs no ``params["cache"]``; ``advance`` and the
+rollouts run without autograd.
 """
 
 from __future__ import annotations
@@ -69,10 +72,13 @@ class PrognosticModel(abc.ABC):
     @abc.abstractmethod
     def apply(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         """One physics step: x (n_history, C, H, W) → (frames_out, C, H, W),
-        in physical units."""
+        in physical units.  Differentiable in every floating leaf of
+        ``params`` that requires a gradient; without ``params["cache"]``
+        the derived weights are built inline from the leaves."""
 
     def prepare_params(self, params: Params) -> Params:
-        """Attach derived, step-invariant caches under ``params["cache"]``."""
+        """Attach derived, step-invariant caches under ``params["cache"]``
+        (functions of the leaves; ``apply`` rebuilds them inline without)."""
         return params
 
     def init_state(
@@ -101,8 +107,10 @@ class PrognosticModel(abc.ABC):
     def _step_days(self) -> float:
         return self.time_step.total_seconds() / 86400.0
 
+    @torch.no_grad()
     def advance(self, params: Params, state: ModelState) -> tuple[ModelState, torch.Tensor]:
-        """Default advance: apply + shift the history window."""
+        """Default advance: apply + shift the history window, without
+        autograd (``apply`` is differentiable; serving is not)."""
         y = self.apply(params, state.x)
         new_x = torch.cat([state.x, y], dim=0)[-self.n_history :]
         return (

@@ -192,6 +192,7 @@ class DLWPModel(PrognosticModel):
         }
         return self.prepare_params(params)
 
+    @torch.no_grad()
     def prepare_params(self, params):
         """Attach the convs in torch's layout (``torch_conv_weights``), in
         the compute dtype, under ``params["cache"]["convs"]``."""
@@ -229,12 +230,16 @@ class DLWPModel(PrognosticModel):
         return self._bilinear(table, "ll").view(N, C, *self.grid.shape)
 
     def _convs(self, params, dtype) -> dict:
+        """The cached convs in ``dtype`` (added to the cache at first use), or
+        without a cache the convs built here, differentiably."""
+        if "cache" not in params:
+            return torch_conv_weights(params["net"], dtype)
         convs = params["cache"]["convs"]
         if dtype not in convs:
-            convs[dtype] = torch_conv_weights(params["net"], dtype)
+            with torch.no_grad():
+                convs[dtype] = torch_conv_weights(params["net"], dtype)
         return convs[dtype]
 
-    @torch.no_grad()
     def apply(self, params, x):
         """x (2, 7, H, W) → (2, 7, H, W): the two history frames stacked on
         channels (frame 0 first), the U-Net on the cube, the output's frames

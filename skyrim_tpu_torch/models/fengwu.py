@@ -82,11 +82,11 @@ class FengWuNet(nn.Module):
         for g, nc in enumerate(self.n_out):
             self.add_module(f"dec_{g}", ConvParams((p, p, D, nc)))
 
-    @torch.no_grad()
     def grand_weights(self) -> dict:
         """The patch convolutions as one block-diagonal GEMM weight
         (p·p·lanes, groups·md) and the transposed ones as one recovery
-        weight (D, p·p·Cout), with their biases, in f32."""
+        weight (D, p·p·Cout), with their biases, in f32; autograd
+        differentiates the expansion, as ``apply`` without a cache needs."""
         cfg = self.cfg
         p, md = cfg.patch, cfg.modal_dim
         lanes, cout = sum(self.n_in), sum(self.n_out)
@@ -110,9 +110,12 @@ class FengWuNet(nn.Module):
             "bias_r": torch.cat([d.bias for d in dec]),
         }
 
-    def forward(self, groups, gw: dict):
+    def forward(self, groups, gw: dict | None = None):
         """groups: per modality (hist·Ci, H, W), normalised, in the compute
-        dtype → (ΣCo, H, W), the groups' outputs concatenated."""
+        dtype → (ΣCo, H, W), the groups' outputs concatenated.  ``gw``: the
+        cached ``grand_weights()``, or None to build them here."""
+        if gw is None:
+            gw = self.grand_weights()
         cfg = self.cfg
         p, D, wh = cfg.patch, cfg.fuser_dim, cfg.window[0]
         Hin, Win = groups[0].shape[1:]
@@ -165,6 +168,7 @@ class FengWuModel(PrognosticModel):
         }
         return self.prepare_params(params)
 
+    @torch.no_grad()
     def prepare_params(self, params):
         """Attach the grand patch and recovery GEMM weights (pure functions
         of the conv params) under ``params["cache"]``."""
@@ -183,10 +187,9 @@ class FengWuModel(PrognosticModel):
         sizes = [cfg.surface_channels] + [cfg.levels] * cfg.level_vars
         return [g.reshape(-1, *HW) for g in torch.split(x, sizes, dim=1)]
 
-    @torch.no_grad()
     def apply(self, params, x):
         """The residual in normalised space, in f32:
         ``denormalize(normalize(x[-1]) + net(normalize(x)))``."""
         xn = normalize(params["norm"], x).to(self.compute_dtype)
-        y = params["net"](self._split_groups(xn), params["cache"]["gw"]).float()
+        y = params["net"](self._split_groups(xn), params.get("cache", {}).get("gw")).float()
         return denormalize(params["norm"], normalize(params["norm"], x[-1]) + y)[None]

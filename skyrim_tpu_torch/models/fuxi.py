@@ -428,7 +428,6 @@ class FuXiModel(PrognosticModel):
             stages.append({"params": quantize_tree(rest, min_size), "int8": int8 or {}})
         return {**params, "stages": stages}
 
-    @torch.no_grad()
     def _forward(self, stage, params, x):
         """One stage on the 2-frame state x (2, C, H, W): the residual in
         normalised space, in f32."""
@@ -446,6 +445,7 @@ class FuXiModel(PrognosticModel):
     def apply(self, params, x):
         return self._forward(params["stages"][0], params, x)[None]
 
+    @torch.no_grad()
     def advance(self, params, state: ModelState):
         """The cascade: stage ``min(step // stage_steps, resident − 1)`` by the
         Python int step (one resident stage needs no choice)."""

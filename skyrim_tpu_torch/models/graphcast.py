@@ -225,7 +225,7 @@ class GraphCastNet(nn.Module):
         # grid→mesh: per-(point, slot) edge embedding with the dst mesh-embed
         # transform folded in
         g2m_bias = self.g2m.edge_bias(t["g2m_slot_ef"].to(dtype))
-        g2m_bias += self.g2m.message.dst_part(mesh_embed)[t["g2m_slot_dst"]]
+        g2m_bias = g2m_bias + self.g2m.message.dst_part(mesh_embed)[t["g2m_slot_dst"]]
         m2g_bias = self.m2g.edge_bias(t["m2g_efeat"].to(dtype))
         return {
             "mesh_embed": mesh_embed,
@@ -234,10 +234,14 @@ class GraphCastNet(nn.Module):
             "m2g_bias": m2g_bias.view(H, W, 3 * L),
         }
 
-    def forward(self, grid_in, cache: dict, t: dict):
-        """grid_in feature-major (F_in, n_grid) → (n_grid, C_out)."""
+    def forward(self, grid_in, cache: dict | None, t: dict):
+        """grid_in feature-major (F_in, n_grid) → (n_grid, C_out).  ``cache``:
+        ``cache_tables``' output, or None to compute it here, differentiably
+        (the JAX net's exact inline path)."""
         grid_lat = self.embed_grid(grid_in, x_transposed=True)
         dt = grid_lat.dtype
+        if cache is None:
+            cache = self.cache_tables(t, dt)
         mesh_lat = cache["mesh_embed"].to(dt)
         mm_lat = cache["mm_edge"].to(dt)
         mesh_lat = self.g2m.encode(grid_lat, mesh_lat, cache["g2m_bias"], t)
@@ -362,11 +366,10 @@ class GraphCastModel(PrognosticModel):
         params["cache"] = params["net"].cache_tables(self.tables, self.compute_dtype)
         return params
 
-    @torch.no_grad()
     def _apply_at(self, params, x, time_days: float):
         nc = self.cfg.in_channels
         grid_in = self._grid_input(params, x, time_days)
-        delta = params["net"](grid_in, params["cache"], self.tables)
+        delta = params["net"](grid_in, params.get("cache"), self.tables)
         delta = delta.T.reshape(nc, self.cfg.lat, self.cfg.lon).float()
         xn_last = normalize(params["norm"], x[-1])
         return denormalize(params["norm"], xn_last + delta)[None]
@@ -374,6 +377,7 @@ class GraphCastModel(PrognosticModel):
     def apply(self, params, x):
         return self._apply_at(params, x, 0.0)
 
+    @torch.no_grad()
     def advance(self, params, state):
         y = self._apply_at(params, state.x, state.time_days)
         new_x = torch.cat([state.x, y], dim=0)[-self.n_history :]

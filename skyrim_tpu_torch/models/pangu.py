@@ -17,7 +17,10 @@ block runs through K1 (ops/fused_block.py) between two K2 rolls
 (ops/roll.py) when shifted; ``EarthAttention3D.forward``, which no block
 calls, runs attention alone through K5 (ops/flash_window_attention.py); DownSample/UpSample run K3/K4
 (ops/resample.py).  The patch embed/recover products stay
-``torch.matmul``.
+``torch.matmul``.  Without ``params["cache"]`` (the finetune trainer's
+tree) ``apply`` builds the grand weights inline, differentiably, and K3
+and K4 prepare their operands themselves, as skyrim_tpu/models/pangu.py:520-521
+does.
 """
 
 from __future__ import annotations
@@ -249,12 +252,10 @@ class PanguNet(nn.Module):
         self.DownSample_0 = DownSample(C, 2 * C)
         self.UpSample_0 = UpSample(2 * C, C)
 
-    @torch.no_grad()
     def grand_weights(self) -> dict:
         """Expand the conv-shaped patch params into the grand embed/recover
-        GEMM weights, cast to bf16 (whatever the compute dtype), and add
-        the operands K3 and K4 take (``"down"``, ``"up"``: the DownSample
-        and UpSample modules' ``prepare()``)."""
+        GEMM weights, cast to bf16 (whatever the compute dtype); autograd
+        differentiates the expansion, as ``apply`` without a cache needs."""
         cfg = self.cfg
         pz, ph, pw = cfg.patch
         C = cfg.embed_dim
@@ -304,8 +305,6 @@ class PanguNet(nn.Module):
             "bias_g": bias_g.to(dt),
             "Wr": Wr.reshape(Zt * 2 * C, ph * pw * Cout).to(dt),
             "bias_out": bias_out.to(dt),
-            "down": self.DownSample_0.prepare(),
-            "up": self.UpSample_0.prepare(),
         }
 
     def _stage(self, x, s, valid):
@@ -314,8 +313,14 @@ class PanguNet(nn.Module):
             xp = getattr(self, name)(xp, valid)
         return xp[: valid[0], : valid[1], : valid[2]]
 
-    def forward(self, x72, gw: dict):
-        """x72 (H, W, 65 upper + 4 surface + 3 masks) normalized → (H, W, 69)."""
+    def forward(self, x72, gw: dict | None = None):
+        """x72 (H, W, 65 upper + 4 surface + 3 masks) normalized → (H, W, 69).
+
+        ``gw``: the cached ``grand_weights()`` with K3's and K4's prepared
+        operands (``"down"``, ``"up"``), or None to build the grand weights
+        here, differentiably, and let K3 and K4 prepare theirs."""
+        if gw is None:
+            gw = self.grand_weights()
         cfg = self.cfg
         pz, ph, pw = cfg.patch
         C = cfg.embed_dim
@@ -392,20 +397,21 @@ class PanguModel(PrognosticModel):
             params["net24"] = net()
         return self.prepare_params(params)
 
+    @torch.no_grad()
     def prepare_params(self, params):
-        """Attach the grand embed/recover GEMM weights (pure functions of
-        the conv params) under ``params["cache"]``."""
+        """Attach the grand embed/recover GEMM weights and K3's and K4's
+        operands (pure functions of the parameters) under
+        ``params["cache"]``; ``apply`` builds them inline without it."""
         if "cache" in params:
             return params
-        params = dict(params)
-        params["cache"] = {"gw6": params["net6"].grand_weights()}
-        if "net24" in params:
-            params["cache"]["gw24"] = params["net24"].grand_weights()
-        return params
+        nets = {key: params[net] for key, net in (("gw6", "net6"), ("gw24", "net24")) if net in params}
+        cache = {key: n.grand_weights() | {"down": n.DownSample_0.prepare(), "up": n.UpSample_0.prepare()}
+                 for key, n in nets.items()}
+        return {**params, "cache": cache}
 
-    @torch.no_grad()
     def _forward(self, net: PanguNet, params, x, gw):
-        """One network evaluation on a (C, H, W) state."""
+        """One network evaluation on a (C, H, W) state; ``gw`` the cached
+        grand weights or None."""
         xn = normalize(params["norm"], x).to(self.compute_dtype)
         consts = params["consts"].to(self.compute_dtype)
         x72 = torch.cat([xn, consts], dim=0).permute(1, 2, 0)
@@ -414,7 +420,7 @@ class PanguModel(PrognosticModel):
         return denormalize(params["norm"], y)
 
     def apply(self, params, x):
-        return self._forward(params["net6"], params, x[-1], params["cache"]["gw6"])[None]
+        return self._forward(params["net6"], params, x[-1], params.get("cache", {}).get("gw6"))[None]
 
     def init_state(self, params, x0, generator=None, start_time=None):
         state = super().init_state(params, x0, generator, start_time=start_time)
@@ -423,16 +429,17 @@ class PanguModel(PrognosticModel):
             state = state.replace(extra={"anchor": state.x[-1]})
         return state
 
+    @torch.no_grad()
     def advance(self, params, state: ModelState):
         if self.variant != "pangu":
             return super().advance(params, state)
-        cache = params["cache"]
+        cache = params.get("cache", {})
         # steps 1, 2, 3: 6h net; step 4 (completing 24h): 24h net from anchor
         if state.step % 4 == 3:
-            y = self._forward(params["net24"], params, state.extra["anchor"], cache["gw24"])
+            y = self._forward(params["net24"], params, state.extra["anchor"], cache.get("gw24"))
             anchor = y
         else:
-            y = self._forward(params["net6"], params, state.x[-1], cache["gw6"])
+            y = self._forward(params["net6"], params, state.x[-1], cache.get("gw6"))
             anchor = state.extra["anchor"]
         new_state = state.replace(
             x=y[None],

@@ -223,6 +223,7 @@ class FourCastNetV2Model(PrognosticModel):
         }
         return self.prepare_params(params)
 
+    @torch.no_grad()
     def prepare_params(self, params):
         """Attach the position embedding in bf16 (the JAX package casts the
         f32 parameter on every call) under ``params["cache"]``."""
@@ -233,10 +234,9 @@ class FourCastNetV2Model(PrognosticModel):
         params["cache"] = {"pos_embed": net.pos_embed.to(torch.bfloat16)} if self.cfg.use_pos_embed else {}
         return params
 
-    @torch.no_grad()
     def apply(self, params, x):
         """The network predicts the next normalised state directly (the
         fcnv2_sm contract; the big skip carries the identity path)."""
         xn = normalize(params["norm"], x[-1]).to(self.compute_dtype)
-        y = params["net"](xn, params["cache"])
+        y = params["net"](xn, params.get("cache", {}))
         return denormalize(params["norm"], y.float())[None]

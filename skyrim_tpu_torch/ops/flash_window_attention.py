@@ -41,8 +41,12 @@ Bound on this card: bytes (qkv, output and the f32 bias and mask tables).
 
 On a CPU tensor each wrapper runs its plain version
 (``reference_window_attention``/``_qkv``, with ``ops/windows.py`` for
-K5); on a CUDA tensor it takes contiguous bf16, launches the kernel or
-raises.  ``<wrapper>.launches`` counts the calls that launched.
+K5), which autograd differentiates; on a CUDA tensor it takes contiguous
+bf16, launches the kernel or raises.  The JAX package defines no VJP for
+K5, K10 or K11, and no training path reaches them (Pangu, FengWu and
+FuXi V1 train through K1), so on a CUDA tensor that requires a gradient
+they raise ``NotImplementedError`` rather than return a result cut from
+the graph.  ``<wrapper>.launches`` counts the calls that launched.
 """
 
 from __future__ import annotations
@@ -176,6 +180,16 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _refuse_grad(what, *tensors):
+    """Raise where the result would need a gradient: the kernel has no
+    backward, in the JAX package or here."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} has no backward (the JAX package defines no VJP for it); finetuning (ROADMAP §1 item 9) "
+            "trains window attention through K1 (ops.fused_block.fused_swin_block)"
+        )
+
+
 def attention_4d(qkv, bias, mask, window, heads, lib, fn, what):
     """Check a packed (Z, H, W, 3C) CUDA qkv and launch ``fn`` of ``lib`` on it
     (K5's kernel here, K1's copy of it in ops/fused_block.py)."""
@@ -205,6 +219,7 @@ def fused_window_attention_4d(qkv, bias, mask, window, heads):
     (Z, H, W, 3C) qkv → (Z, H, W, C), heads merged."""
     if qkv.device.type == "cpu":
         return reference_window_attention_4d(qkv, bias, mask, window, heads)
+    _refuse_grad("fused_window_attention_4d", qkv, bias, mask)
     lib = _lib()
     out = attention_4d(qkv, bias, mask, window, heads, lib, lib.skt_attention_4d, "fused_window_attention_4d")
     fused_window_attention_4d.launches += 1
@@ -225,6 +240,7 @@ def fused_window_attention(qkv, bias, mask, n_lon_windows, heads):
     bias, n_types, n_masks = _tables(bias, mask, n_win, n_lon_windows, heads, wlen, what)
     if qkv.device.type == "cpu":
         return reference_window_attention_qkv(qkv, bias, mask, n_lon_windows, heads)
+    _refuse_grad(what, qkv, bias, mask)
     hd = C // heads
     vec, body = _require(what, wlen, hd, qkv)
     bias, mask, mask_ptr = _f32_tables(bias, mask, qkv.device)
@@ -252,6 +268,7 @@ def flash_window_attention(q, k, v, bias, mask, n_lon_windows):
     bias, n_types, n_masks = _tables(bias, mask, n_win, n_lon_windows, heads, wlen, what)
     if q.device.type == "cpu":
         return reference_window_attention(q, k, v, bias, mask, n_lon_windows)
+    _refuse_grad(what, q, k, v, bias, mask)
     vec, body = _require(what, wlen, hd, q, k, v)
     bias, mask, mask_ptr = _f32_tables(bias, mask, q.device)
     out = torch.empty_like(q)

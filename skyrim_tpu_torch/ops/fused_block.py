@@ -38,7 +38,10 @@ with fc2 needs more registers than a thread has).
 
 On a CPU tensor the wrapper runs ``reference_swin_block``, the plain
 PyTorch version of the same function; on a CUDA tensor it launches the
-kernels or raises.  ``fused_swin_block.launches`` counts wrapper calls
+kernels or raises.  Reverse mode is JAX's ``_fused_swin_block_bwd``
+(``ops/vjp.py``): the inputs are saved, and the backward differentiates
+``reference_swin_block`` on them; the mask, the window and the heads get
+no gradient.  ``fused_swin_block.launches`` counts wrapper calls
 that launched the kernels, ``launches_by_shape`` the same by input shape
 and ``launches_by_path`` by ``block_path``; ``layernorm.launches`` and
 ``window_attention.launches`` count those two kernels' launches
@@ -59,6 +62,7 @@ from skyrim_tpu_torch.ops.flash_window_attention import (
     reference_window_attention_qkv,  # noqa: F401  (the attention-alone checks of K1 reach it here)
 )
 from skyrim_tpu_torch.ops.gemm import LN_GEMM_MAX_K, _EPS, _layernorm_f32, gemm, ln_gemm
+from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -148,6 +152,11 @@ def fused_swin_block(
     heads: int,
 ) -> torch.Tensor:
     """Whole pre-norm window-attention block; returns (Z, H, W, C) in x's dtype."""
+    return with_plain_vjp(_swin_block, reference_swin_block, x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb,
+                          window, heads)
+
+
+def _swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads):
     if x.device.type == "cpu":
         return reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads)
     if x.dtype != torch.bfloat16 or x.ndim != 4 or not x.is_contiguous():

@@ -41,6 +41,9 @@ variance, eps 1e-6) → compute dtype.
 
 On a CPU tensor ``fused_mlp`` runs ``reference_mlp`` and ``fused_finish``
 ``reference_finish``; on a CUDA tensor they launch the kernels or raise.
+Reverse mode is JAX's ``_mlp_bwd``/``_finish_bwd`` (``ops/vjp.py``): the
+backward differentiates the plain version on the saved inputs
+(``x_transposed`` is not differentiated).
 ``<wrapper>.launches`` counts wrapper calls that launched,
 ``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout),
 ``mlp_finish.launches_by_shape`` the whole-row finish's by (rows, L,
@@ -58,6 +61,7 @@ import torch
 
 from skyrim_tpu_torch.ops import _build
 from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32, _layernorm_f32
+from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ACT_NONE, _ACT_SWISH = 0, 1  # rowgemm::Act
@@ -347,8 +351,16 @@ def fused_finish(x, b0, wb, ln):
     """``LN(Dense(swish(x + b0)))`` over rows (K12).  x: (N, L); b0: (L,); wb:
     ((L, Cout), (Cout,)); ln: (scale, bias) over Cout.  Returns (N, Cout),
     in the launches ``finish_path`` names."""
+    return with_plain_vjp(_finish, _plain_finish, x, b0, wb, ln)
+
+
+def _plain_finish(x, b0, wb, ln):
+    return reference_finish(x, b0, wb, ln, x.dtype)
+
+
+def _finish(x, b0, wb, ln):
     if x.device.type == "cpu":
-        return reference_finish(x, b0, wb, ln, x.dtype)
+        return _plain_finish(x, b0, wb, ln)
     if x.ndim != 2 or wb[0].shape[1] % 8:
         raise ValueError(f"fused_finish takes (N, L) rows and Cout % 8 == 0, got {tuple(x.shape)} -> {wb[0].shape[1]}")
     path = finish_path(x.shape[1], wb[0].shape[1])
@@ -372,6 +384,10 @@ def fused_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False
     x: (N, Cin), or (Cin, N) with ``x_transposed``; w1b1: ((Cin [+ Cin2], H),
     (H,)); w2b2: ((H, Cout), (Cout,)); ln: optional (scale, bias) over Cout;
     x2: optional (N, Cin2); residual: optional (N, Cout)."""
+    return with_plain_vjp(_mlp, reference_mlp, x, w1b1, w2b2, ln, x2, residual, x_transposed)
+
+
+def _mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False):
     if x.device.type == "cpu":
         return reference_mlp(x, w1b1, w2b2, ln, x2=x2, residual=residual, x_transposed=x_transposed)
     if x.dtype != torch.bfloat16 or x.ndim != 2:

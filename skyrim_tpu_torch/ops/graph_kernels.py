@@ -53,7 +53,11 @@ slot sum (K8, K9, K13) is taken in f32
 and rounded once.  Bounds and designs are in the CUDA sources' headers.
 
 Each wrapper takes its plain PyTorch version (``reference_*``) on a CPU
-tensor and launches the kernels or raises on a CUDA tensor; ``launches``
+tensor and launches the kernels or raises on a CUDA tensor.  Reverse mode
+is JAX's ``_round_bwd``, ``_m2g_tiled_bwd``, ``_g2m_tiled_bwd``,
+``_m2g_bwd`` and ``_g2m_bwd`` (``ops/vjp.py``): the backward differentiates
+the plain version on the saved inputs; the static tables (``local``,
+``local_hw``, ``local_t``) and K9's row plan get no gradient.  ``launches``
 counts wrapper calls that launched (K7 also ``launches_by_shape``;
 ``block_messages.launches`` K14's messages launches).
 """
@@ -77,6 +81,7 @@ from skyrim_tpu_torch.ops.fused_mlp import (
     segment_sum,
 )
 from skyrim_tpu_torch.ops.graph import block_onehot, g2m_row_plan
+from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -169,6 +174,10 @@ def fused_round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB):
     segment ids (== SB ⇒ padding); we: (L, L) edge-part kernel slice; b0:
     (L,); wb: ((L, L), (L,)); ln: (scale, bias).  Returns (new_edges (B, M,
     L), agg (B, SB, L))."""
+    return with_plain_vjp(_round_messages, reference_round_messages, edges, gsrc, staged, local, we, b0, wb, ln, SB)
+
+
+def _round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB):
     if edges.device.type == "cpu":
         return reference_round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB)
     B, M, L = edges.shape
@@ -209,6 +218,10 @@ def fused_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
     int32 index of each point into its tile's rows (from
     ``ops.graph.build_face_tiles``); bias_hw: (H, W, deg·L); ad_hw: (H, W, L).
     The tiles need not divide the grid.  Returns (H, W, L)."""
+    return with_plain_vjp(_m2g_tiled, reference_m2g_tiled, uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw)
+
+
+def _m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
     if uniq.device.type == "cpu":
         return reference_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw)
     H, W = local_hw.shape
@@ -302,8 +315,16 @@ def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=No
     dst index (== U ⇒ empty).  plan: ``g2m_plan(local_t, U, th, tw)`` built
     once with the tables; without it the plan is built here from
     ``local_t``.  Returns (TH, TW, U, L) tile partials."""
+    return with_plain_vjp(_g2m_tiled, _plain_g2m_tiled, asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan)
+
+
+def _plain_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=None):
+    return reference_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw)
+
+
+def _g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=None):
     if asrc_hw.device.type == "cpu":
-        return reference_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw)
+        return _plain_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw)
     H, W, L = asrc_hw.shape
     if H % th or W % tw or L % 8:
         raise ValueError(f"fused_g2m_tiled: tiles {(th, tw)} must cover {(H, W)} exactly, L {L} % 8")
@@ -346,6 +367,10 @@ def fused_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
     wide/bias_w: (N, deg·L) source rows and cached bias, slot-major lane
     slices; ad: (N, L) dst-part rows; b0: (L,); wb: ((L, L), (L,)); ln over L;
     deg 1 to 4, L ≤ 512 on a CUDA tensor.  Returns (N, L)."""
+    return with_plain_vjp(_fixed_degree_messages, reference_fixed_degree_messages, wide, bias_w, ad, b0, wb, ln, deg)
+
+
+def _fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
     if wide.device.type == "cpu":
         return reference_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg)
     if wide.ndim != 2 or deg not in (1, 2, 3, 4) or wide.shape[1] % (8 * deg) or wide.shape[0] * deg >= 2**31:
@@ -414,6 +439,10 @@ def fused_block_messages(src_rows, bias_b, local, b0, wb, ln, SB):
     segment ids in any order (== SB ⇒ padding); L ≤ 512 on a CUDA tensor.
     Returns (B, SB, L) block aggregates (unpack with the plan's ``unpack``
     outside)."""
+    return with_plain_vjp(_block_messages, reference_block_messages, src_rows, bias_b, local, b0, wb, ln, SB)
+
+
+def _block_messages(src_rows, bias_b, local, b0, wb, ln, SB):
     if src_rows.device.type == "cpu":
         return reference_block_messages(src_rows, bias_b, local, b0, wb, ln, SB)
     if src_rows.ndim != 3:

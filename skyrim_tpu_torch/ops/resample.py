@@ -24,6 +24,11 @@ of input and output (≈ 0.09 ms at 3.35 TB/s) for 0.077 TFLOP of products
 On CPU tensors the wrappers run the plain PyTorch versions
 ``reference_downsample`` (after the zero pad of an odd H) and
 ``reference_upsample``; on CUDA tensors they launch the kernel or raise.
+Reverse mode is JAX's ``_down_bwd``/``_up_bwd`` (``ops/vjp.py``): each is
+a Function over the raw ``(ln, wb)`` whose backward differentiates the
+plain version on the saved inputs (K3's cropped view as it is); the
+``prepared`` operands get no gradient, and without them the forward
+computes them itself.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import torch.nn.functional as F
 
 from skyrim_tpu_torch.ops import _build
 from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32, _layernorm_f32
+from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 DOWN_MAX_C, DOWN_BN, UP_MAX_C, UP_MAX_CO = 192, 128, 384, 192  # the kernel's limits (csrc/resample.cu)
@@ -113,8 +119,16 @@ def fused_downsample(x, ln, wb, prepared=None):
     contiguous; ln over 4C; wb ((4C, N), (N,)); ``prepared`` the terms of
     ``prepare_downsample(ln, wb)`` (computed here when not given) →
     (Z, ⌈H/2⌉, W/2, N)."""
+    return with_plain_vjp(_downsample, _plain_downsample, x, ln, wb, prepared)
+
+
+def _plain_downsample(x, ln, wb, prepared=None):
+    return reference_downsample(pad_even_h(x), ln, wb)
+
+
+def _downsample(x, ln, wb, prepared=None):
     if x.device.type == "cpu":
-        return reference_downsample(pad_even_h(x), ln, wb)
+        return _plain_downsample(x, ln, wb)
     _check_input(x, "fused_downsample")
     Z, H, Wd, C = x.shape
     N = wb[0].shape[1]
@@ -140,8 +154,16 @@ def fused_upsample(x, wb, ln, prepared=None):
     """x (Z, H, W, C), channels contiguous, any row strides; wb ((C, 4Co),
     (4Co,)); ln over Co; ``prepared`` = ``prepare_upsample(wb, ln)``
     (made here when not given) → (Z, 2H, 2W, Co)."""
+    return with_plain_vjp(_upsample, _plain_upsample, x, wb, ln, prepared)
+
+
+def _plain_upsample(x, wb, ln, prepared=None):
+    return reference_upsample(x, wb, ln)
+
+
+def _upsample(x, wb, ln, prepared=None):
     if x.device.type == "cpu":
-        return reference_upsample(x, wb, ln)
+        return _plain_upsample(x, wb, ln)
     _check_input(x, "fused_upsample")
     Z, H, Wd, C = x.shape
     w, b, scale, shift = prepared if prepared is not None else prepare_upsample(wb, ln)

@@ -13,6 +13,11 @@ is the output token with the shifts added.
 On a CPU tensor ``roll3d`` runs ``plain_roll3d``; on a CUDA tensor it
 launches the kernel or raises.  ``roll3d.launches`` counts the kernel's
 launches, ``launches_by_shape`` the same by input shape.
+
+Reverse mode as ``skyrim_tpu/ops/roll.py`` ``_roll_bwd``: the gradient of a
+roll is the roll of the gradient by the negated shifts, so K2's backward is
+a second K2 launch on a CUDA tensor (counted with the forward's) and
+``plain_roll3d`` on a CPU one.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ def _lib():
     return lib
 
 
-def roll3d(x: torch.Tensor, shifts) -> torch.Tensor:
+def _roll(x: torch.Tensor, shifts) -> torch.Tensor:
     if x.device.type == "cpu":
         return plain_roll3d(x, shifts)
     if x.ndim != 4 or not x.is_contiguous():
@@ -57,6 +62,22 @@ def roll3d(x: torch.Tensor, shifts) -> torch.Tensor:
     roll3d.launches += 1
     roll3d.launches_by_shape[x.shape] = roll3d.launches_by_shape.get(x.shape, 0) + 1
     return out
+
+
+class _Roll3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shifts):
+        ctx.shifts = shifts
+        return _roll(x, shifts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _roll(g.contiguous(), tuple(-int(s) for s in ctx.shifts)), None
+
+
+def roll3d(x: torch.Tensor, shifts) -> torch.Tensor:
+    """``out[z, h, w] = x[(z+s0)%Z, (h+s1)%H, (w+s2)%W]`` on (Z, H, W, C)."""
+    return _Roll3d.apply(x, tuple(int(s) for s in shifts))
 
 
 roll3d.launches = 0
