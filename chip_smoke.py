@@ -208,10 +208,33 @@ Phases:
      plain path (the plain blocks each under torch.utils.checkpoint) within
      a relative L2 error of 2e-2, or, for a leaf whose two bf16 gradients
      differ by more (the earth-bias tables), the kernel path's no further
-     from the plain path's in f32 than 1.25x the bf16 plain path's.
+     from the plain path's in f32 than 1.25x the bf16 plain path's;
+  7. multi_device (run last): the multi-device layer (skyrim_tpu_torch/parallel)
+     on rank processes of this script (--multi-device-rank DIR, a file://
+     rendezvous) that share the card over gloo, the exchanged slabs staged
+     through host memory; two launches, each with a time limit, a rank that
+     fails or hangs failing the phase.  2 ranks: Pangu at its published
+     widths (721x1440, embed 192, depths 2-6-6-2; seed-0 parameters drawn
+     on the card, the constant masks at random, replicated from rank 0) over
+     (dp, lat, lon) = (1, 1, 2), 2 steps (the window covers at both stages,
+     stage 1 through the shift); FengWu over (1, 1, 2), 1 step (K1's chain
+     at C 1152 on covers); DLWP over (1, 1, 2) in gather mode, 1 call; a
+     2-member Pangu IC ensemble (ic_ensemble_forecast, the synthetic IC)
+     over (2, 1, 1).  4 ranks: Pangu over (1, 1, 4), 1 step; the IC
+     ensemble over (2, 1, 2).  Each output gathered on rank 0 and held to
+     the same model, parameters and IC on one process through the kernels
+     (the ensembles: mesh=None), max |diff| / mean |one process| <= 1e-2 a
+     step, and whether it is bit for bit; each rank's launches by kernel
+     equal to its local forwards' (Pangu: K1 16, K2 16, K3 1, K4 1 a
+     forward), K1's and K2's by shape (the covers), and no call of K1-K4's
+     plain versions; the 4-rank Pangu under three planted faults (every
+     window cover's halo from the other side of the ring, the cover offset
+     one token off, the constant masks left uncut), each refused, its ratio
+     to the limit printed; the backend, the seconds and nvidia-smi's line.
 
 Prints the results on a JSON line (the main paths, the facade, "dlwp",
-"ensemble", "ic_ensemble", "data_io", the small configurations, ...), then
+"ensemble", "ic_ensemble", "data_io", the small configurations,
+"multi_device", ...), then
 
 {"kernels": [...]} on a line of its own, then as the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, on
@@ -2934,6 +2957,387 @@ def train_path(torch) -> dict:
     return res
 
 
+# --- the multi_device phase ---------------------------------------------------------------
+
+# a sharded run against the same model, parameters and IC on one process, both through the kernels: the
+# max |sharded - one process| over the mean |one process| of each step (JAX's tests/parallel/
+# test_fused_shard.py:186-193 bound for its manual path)
+MD_TOL = 1e-2
+MD_LAUNCH_TIMEOUT_S = 480  # one launch of ranks, all of them
+MD_GROUP_TIMEOUT_S = 300  # a collective or the rendezvous
+# per world: (label, kind, model, mesh (dp, lat, lon), steps); every model at its published widths
+MD_LAUNCHES = {
+    2: (("pangu", "forecast", "pangu", (1, 1, 2), 2),
+        ("fengwu", "forecast", "fengwu", (1, 1, 2), 1),
+        ("dlwp", "forecast", "dlwp", (1, 1, 2), 1),
+        ("ic_ensemble", "ensemble", "pangu", (2, 1, 1), 2)),
+    4: (("pangu", "forecast", "pangu", (1, 1, 4), 1),
+        ("ic_ensemble", "ensemble", "pangu", (2, 1, 2), 2)),
+}
+MD_MODES = {"pangu": "manual", "fengwu": "manual", "dlwp": "gather"}
+# planted in the 4-rank Pangu, each of which the comparison must refuse: every halo of the window covers
+# from the other side of the ring; the cover's offset (mis) one window token off; Pangu's constant masks
+# left uncut, every rank reading rank 0's columns
+MD_FAULTS = ("wrong_neighbour", "cover_offset", "consts_uncut")
+MD_ENSEMBLE_MEMBERS = 2
+PLAIN_VERSIONS = (("fused_block", "reference_swin_block"), ("roll", "plain_roll3d"),
+                  ("resample", "_plain_downsample"), ("resample", "_plain_upsample"))  # K1-K4's, on CPU tensors
+
+
+def count_plain_calls() -> dict:
+    """Wrap the plain versions that K1-K4's wrappers take on a CPU tensor with
+    a counter (the wrappers look them up at each call); returns the counts."""
+    import importlib
+
+    calls = {}
+    for module, name in PLAIN_VERSIONS:
+        mod = importlib.import_module(f"skyrim_tpu_torch.ops.{module}")
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+
+        setattr(mod, name, counted)
+    return calls
+
+
+@contextlib.contextmanager
+def planted(fault: str):
+    """One of MD_FAULTS in parallel/fused_shard.py for the block, restored after."""
+    from skyrim_tpu_torch.parallel import fused_shard as FS
+
+    name = {"wrong_neighbour": "ring_exchange", "cover_offset": "cover_offset",
+            "consts_uncut": "local_lon_slice"}[fault]
+    real = getattr(FS, name)
+    if fault == "wrong_neighbour":
+        setattr(FS, name, lambda mesh, axis, sends: real(mesh, axis, [(t, -hop) for t, hop in sends]))
+    elif fault == "cover_offset":
+        setattr(FS, name, lambda start, s2, ww: real(start, s2, ww) + 1)
+    else:
+        setattr(FS, name, lambda x, axis: x if FS.current() is None else x.narrow(axis, 0, x.shape[axis] // FS.current().n))
+    try:
+        yield
+    finally:
+        setattr(FS, name, real)
+
+
+def step_errors(torch, out, ref) -> list[float]:
+    """Per frame (dim 0; members by frame for an ensemble): max |out - ref| /
+    mean |ref|."""
+    out, ref = torch.as_tensor(out).float(), torch.as_tensor(ref).float()
+    out, ref = out.reshape(-1, *out.shape[-3:]), ref.reshape(-1, *ref.shape[-3:])
+    return [float((o - r).abs().max() / (r.abs().mean() + 1e-6)) for o, r in zip(out, ref)]
+
+
+def md_forecast(torch, name: str, sizes, steps: int, faults: bool) -> dict:
+    """One rank of a sharded forecast of ``name`` at its published widths over
+    a (dp, lat, lon) = ``sizes`` mesh: seed-0 parameters drawn on the card (and
+    Pangu's constant masks at random, so that a rank reading another's
+    columns shows), replicated from rank 0; a seeded IC; ``steps`` sharded
+    advances with every count set to 0 just before and read just after; the
+    output gathered; on rank 0 the same advances on one process through the
+    kernels, and the per-step errors.  With ``faults`` each of MD_FAULTS
+    planted for one more step from the same IC, its ratio to MD_TOL on rank 0."""
+    from skyrim_tpu_torch.models import MODELS
+    from skyrim_tpu_torch.parallel.mesh import make_mesh
+    from skyrim_tpu_torch.parallel.sharding import gather, leaf_spec, replicate, shard_state, sharded_advance
+
+    mesh = make_mesh(*sizes)
+    model = MODELS[name](device=mesh.device)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    if name == "pangu":
+        params["consts"] = torch.randn(params["consts"].shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                                       device=mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    replicate(mesh, params)
+    torch.cuda.synchronize()
+    replicate_s = time.perf_counter() - t0
+    x0 = torch.randn(model.state_shape, generator=torch.Generator(device="cuda").manual_seed(1), device=mesh.device)
+    advance = sharded_advance(model, mesh)
+    state0 = shard_state(mesh, model.init_state(params, x0))
+
+    def run(n):
+        """n sharded advances from the IC; the outputs gathered."""
+        state, ys = state0, []
+        for _ in range(n):
+            state, y = advance(params, state)
+            ys.append(y)
+        ys = torch.cat(ys, dim=0)
+        return gather(mesh, ys, leaf_spec(mesh, (*ys.shape[:-2], *model.grid.shape)))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run(steps)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    counts, by_shape = read_counts()
+    res = dict(mode=advance.mode, counts=counts, by_shape={k: {str(s): v for s, v in by_shape[k].items()}
+                                                           for k in ("K1", "K2")},
+               forwards=steps, replicate_s=replicate_s, sharded_s=sharded_s, finite=bool(torch.isfinite(out).all()))
+    if mesh.rank == 0:
+        ref_state, refs = model.init_state(params, x0), []
+        for _ in range(steps):
+            ref_state, y = model.advance(params, ref_state)
+            refs.append(y)
+        ref = torch.cat(refs, dim=0)
+        res.update(step_err=step_errors(torch, out, ref), bitwise=bool(torch.equal(out, ref)),
+                   shape=tuple(out.shape))
+    if faults:
+        for fault in MD_FAULTS:
+            with planted(fault):
+                y = run(1)
+            if mesh.rank == 0:
+                res[f"fault {fault}"] = max(step_errors(torch, y, ref[: y.shape[0]])) / MD_TOL
+    del model, params, state0, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def md_ensemble(torch, sizes, steps: int) -> dict:
+    """One rank of ic_ensemble_forecast("pangu", n_members=2) at full width
+    over a ``sizes`` mesh (seed-0 parameters drawn on the card, the synthetic
+    IC), the counts set to 0 just before and read just after; on rank 0 the
+    same call with mesh=None (the members in turn on one process) and the
+    per member-step errors."""
+    from skyrim_tpu_torch.core.ic_ensemble import ic_ensemble_forecast
+    from skyrim_tpu_torch.models import MODELS
+    from skyrim_tpu_torch.parallel.mesh import make_mesh
+
+    import numpy as np
+
+    from skyrim_tpu_torch.parallel.sharding import _step_mode
+
+    mesh = make_mesh(*sizes)
+    model = MODELS["pangu"](device=mesh.device)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    start = datetime.datetime(2024, 1, 1, 0)
+    kw = dict(n_steps=steps, n_members=MD_ENSEMBLE_MEMBERS, ic_source="synthetic", params=params)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    field = ic_ensemble_forecast("pangu", start, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    sharded_s = time.perf_counter() - t0
+    counts, by_shape = read_counts()
+    dp = sizes[0]
+    members = MD_ENSEMBLE_MEMBERS // dp if MD_ENSEMBLE_MEMBERS % dp == 0 else MD_ENSEMBLE_MEMBERS
+    res = dict(mode=_step_mode(model, mesh), counts=counts, by_shape={k: {str(s): v for s, v in by_shape[k].items()}
+                                                       for k in ("K1", "K2")},
+               forwards=members * steps, sharded_s=sharded_s, shape=tuple(field.data.shape),
+               finite=bool(np.isfinite(field.data).all()), members_differ=bool(
+                   np.abs(field.data[1] - field.data[0]).max() > 0))
+    if mesh.rank == 0:
+        alone = ic_ensemble_forecast("pangu", start, device=mesh.device, **kw)
+        res.update(step_err=step_errors(torch, field.data, alone.data),
+                   bitwise=bool(np.array_equal(field.data, alone.data)),
+                   same_coords=field.dims == alone.dims and field.attrs == alone.attrs)
+    del model, params, field
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def md_rank_main(workdir: str) -> int:
+    """One rank of a multi_device launch (``chip_smoke.py --multi-device-rank
+    DIR``, SKYRIM_COORDINATOR etc. set by the phase): every item of its
+    world's MD_LAUNCHES, results to DIR/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        log("chip_smoke rank: no CUDA device")
+        return 1
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from skyrim_tpu_torch.parallel.mesh import maybe_initialize_distributed, process_count, rank_device
+
+    maybe_initialize_distributed(device="cuda", timeout_s=MD_GROUP_TIMEOUT_S)
+    rank, world = dist.get_rank(), process_count()
+    plain = count_plain_calls()
+    items = {}
+    for label, kind, name, sizes, steps in MD_LAUNCHES[world]:
+        t0 = time.perf_counter()
+        if kind == "forecast":
+            items[label] = md_forecast(torch, name, sizes, steps, faults=world == 4 and name == "pangu")
+        else:
+            items[label] = md_ensemble(torch, sizes, steps)
+        items[label].update(mesh=list(sizes), seconds=time.perf_counter() - t0)
+        log(f"md rank {rank}/{world} {label} over {sizes}: { {k: v for k, v in items[label].items() if k not in ('counts', 'by_shape')} }")
+    dist.barrier()
+    result = dict(rank=rank, backend=dist.get_backend(), device=str(rank_device("cuda")), items=items,
+                  plain_calls=dict(plain), peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_md_ranks(world: int) -> tuple[list[dict], float]:
+    """Start ``world`` ranks of this script (a file:// rendezvous in a temporary
+    directory) and wait for all of them, at most MD_LAUNCH_TIMEOUT_S; a rank
+    that fails or hangs fails the phase (every rank is then killed).  Relays
+    the ranks' output to stderr; returns their results and the seconds."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, SKYRIM_COORDINATOR=f"file://{tmp}/rendezvous", SKYRIM_NUM_PROCESSES=str(world))
+        procs = []
+        for r in range(world):
+            out = open(Path(tmp) / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--multi-device-rank", tmp],
+                                           cwd=ROOT, env=dict(env, SKYRIM_PROCESS_ID=str(r)), stdout=out,
+                                           stderr=subprocess.STDOUT), out))
+        deadline = time.monotonic() + MD_LAUNCH_TIMEOUT_S
+        try:
+            for p, _ in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p, out in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                out.close()
+        for r in range(world):
+            for line in (Path(tmp) / f"rank{r}.log").read_text().splitlines():
+                log(f"[rank {r}/{world}] {line}")
+        codes = [p.returncode for p, _ in procs]
+        check(all(c == 0 for c in codes), f"multi_device: {world} ranks exited {codes} (killed after "
+                                          f"{MD_LAUNCH_TIMEOUT_S} s where they hung)")
+        return [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)], time.perf_counter() - t0
+
+
+def chunk_checks(torch, g) -> dict:
+    """The kernels at the multi_device path's shapes, on one process.  K1 on
+    Pangu's window covers and K3 and K4 on a rank's lon chunks (contiguous
+    copies) against their plain versions, with phase 3's tolerance; then K1
+    on each half and K3 and K4 on each half and quarter of a full-width
+    input's longitude against the same columns of one launch on the whole,
+    bit for bit, so that a sharded forward can equal the single process's
+    (K2 is exact, the row GEMM and the attention per row and per window).
+    Returns each check's max |diff|."""
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops import resample as RS
+    from skyrim_tpu_torch.ops.windows import shift_attention_mask
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    window, shift = (2, 6, 12), (1, 3, 6)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    def block(C, heads, H, valid_h):
+        """K1's parameters at width C (Pangu's stage 1 or 2) and its shift mask."""
+        hidden, n_types = 4 * C, 4 * H // 6
+        mask = torch.from_numpy(shift_attention_mask((8, H, 12), window, shift, (8, valid_h, 12))).to(dev)
+        args = ((1 + randn(C, scale=0.1), randn(C, scale=0.1)), (randn(C, 3 * C, scale=C**-0.5), randn(3 * C, scale=0.1)),
+                randn(n_types, heads, 144, 144, scale=0.5), mask, (randn(C, C, scale=C**-0.5), randn(C, scale=0.1)),
+                (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+                (randn(C, hidden, scale=C**-0.5), randn(hidden, scale=0.1), randn(hidden, C, scale=hidden**-0.5),
+                 randn(C, scale=0.1)))
+        return (lambda x: FB.fused_swin_block(x, *args, window, heads),
+                lambda x: FB.reference_swin_block(x, *args, window, heads))
+
+    stage1, stage2 = block(192, 6, 186, 181), block(384, 12, 96, 91)
+    C = 192
+    k3 = ((1 + randn(4 * C, scale=0.1), randn(4 * C, scale=0.3)), (randn(4 * C, 2 * C, scale=(4 * C) ** -0.5),
+                                                                  randn(2 * C, scale=0.1)))
+    k4 = ((randn(2 * C, 4 * C, scale=(2 * C) ** -0.5), randn(4 * C, scale=0.1)),
+          (1 + randn(C, scale=0.1), randn(C, scale=0.3)))
+    down = (lambda x: RS.fused_downsample(x, *k3), lambda x: RS._plain_downsample(x, *k3))
+    up = (lambda x: RS.fused_upsample(x, *k4), lambda x: RS._plain_upsample(x, *k4))
+    out = {}
+    # against the plain versions: K1 on the covers of 2 and 4 ranks, K3 and K4 on a rank's chunk
+    for name, (fn, plain), shape in (("K1", stage1, (8, 186, 192, C)), ("K1", stage1, (8, 186, 108, C)),
+                                     ("K1", stage2, (8, 96, 108, 2 * C)), ("K1", stage2, (8, 96, 60, 2 * C)),
+                                     ("K3", down, (8, 181, 180, C)), ("K3", down, (8, 181, 90, C)),
+                                     ("K4", up, (8, 91, 90, 2 * C)), ("K4", up, (8, 91, 45, 2 * C))):
+        x = randn(*shape).to(bf16)
+        out[f"{name} {shape} vs plain"] = compare(torch, fn(x), plain(x), f"multi_device {name} at {shape}")
+    # on lon chunks against the whole (scale: output columns a 2 input columns)
+    for name, fn, x, scale, parts in (("K1", stage1[0], randn(8, 186, 360, C).to(bf16), 2, (2,)),
+                                      ("K3", down[0], randn(8, 186, 360, C).to(bf16)[:, :181], 1, (2, 4)),
+                                      ("K4", up[0], randn(8, 96, 180, 2 * C).to(bf16)[:, :91], 4, (2, 4))):
+        whole, worst = fn(x), 0.0
+        for n in parts:  # K1: 90-token quarters cut a window
+            w = x.shape[2] // n
+            for d in range(n):
+                part = fn(x[:, :, d * w:(d + 1) * w].contiguous())
+                cols = whole[:, :, d * w * scale // 2:(d + 1) * w * scale // 2]
+                worst = max(worst, float((part.float() - cols.float()).abs().max()))
+        out[f"{name} on lon chunks vs the whole"] = worst
+        check(worst == 0.0, f"multi_device: {name} on a lon chunk differs from its columns of the whole by {worst}")
+    torch.cuda.synchronize()
+    log(f"multi_device: the kernels at the path's shapes: {out}")
+    return out
+
+
+def multi_device_path(torch) -> dict:
+    """The multi_device phase (run last): two launches of rank processes that
+    share the card over gloo, 2 and 4 ranks (MD_LAUNCHES), each item held to
+    the same model, parameters and IC on one process through the kernels
+    within MD_TOL a step; each rank's launches those of its local forwards
+    (``expected_launches``; Pangu: K1 16, K2 16, K3 1, K4 1 a forward), no
+    plain-version call; the 4-rank Pangu refusing MD_FAULTS."""
+    from skyrim_tpu_torch.models import MODELS
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    res = {"card": smi, "kernel_checks": chunk_checks(torch, torch.Generator(device="cuda").manual_seed(0)),
+           "launches": {}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for world, items in MD_LAUNCHES.items():
+        ranks, seconds = run_md_ranks(world)
+        summary = {"seconds": seconds, "backend": ranks[0]["backend"], "devices": [r["device"] for r in ranks],
+                   "peak_gb": [r["peak_gb"] for r in ranks], "items": {}}
+        for r in ranks:
+            check(r["backend"] == "gloo", f"multi_device: rank {r['rank']} on backend {r['backend']}, expected gloo "
+                                          f"(ranks share one card)")
+            check(sum(r["plain_calls"].values()) == 0, f"multi_device: rank {r['rank']} called plain versions "
+                                                       f"{r['plain_calls']}")
+        for label, kind, name, sizes, steps in items:
+            per_rank = [r["items"][label] for r in ranks]
+            head = per_rank[0]
+            what = f"multi_device {label} over {tuple(sizes)}"
+            expect, _ = expected_launches(MODELS[name](device="cuda"), head["forwards"])
+            for r, it in enumerate(per_rank):
+                check(it["mode"] == MD_MODES[name], f"{what}: rank {r} stepped in mode {it['mode']}")
+                check(it["finite"], f"{what}: rank {r} gathered non-finite values")
+                for k, v in expect.items():
+                    check(it["counts"][k] == v, f"{what}: rank {r} launched {k} {it['counts'][k]} times, expected "
+                                                f"{v} ({head['forwards']} local forwards)")
+            check(max(head["step_err"]) <= MD_TOL, f"{what}: step errors {head['step_err']} past {MD_TOL}")
+            if kind == "ensemble":
+                check(head["same_coords"] and head["members_differ"], f"{what}: coords or members wrong")
+            faults = {k[len('fault '):]: v for k, v in head.items() if k.startswith("fault ")}
+            for fault, ratio in faults.items():
+                check(ratio > 1, f"{what}: planted fault {fault} not refused ({ratio:.3g}x the limit)")
+            summary["items"][label] = dict(
+                mesh=sizes, steps=steps, mode=head["mode"], step_err=head["step_err"], bitwise=head["bitwise"],
+                launches_per_rank={k: per_rank[0]["counts"][k] for k in ("K1", "K2", "K3", "K4")},
+                k1_k2_shapes=head["by_shape"], forwards_per_rank=head["forwards"], fault_over_limit=faults,
+                seconds=[it["seconds"] for it in per_rank], sharded_s=[it["sharded_s"] for it in per_rank],
+                replicate_s=head.get("replicate_s"))
+            log(f"{what}: mode {head['mode']}, step errors {['%.3g' % e for e in head['step_err']]} "
+                f"(limit {MD_TOL}), bit for bit {head['bitwise']}, launches a rank "
+                f"{summary['items'][label]['launches_per_rank']} over {head['forwards']} forwards, "
+                f"K1/K2 by shape {head['by_shape']}, plain calls 0"
+                + (f", planted faults refused at {faults} x the limit" if faults else ""))
+        log(f"multi_device: {world} ranks on backend {summary['backend']} ({summary['devices']}) in "
+            f"{seconds:.1f} s; {smi}")
+        res["launches"][world] = summary
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"multi_device: phase {res['seconds']:.1f} s; {smi}")
+    return res
+
+
 def dlwp_summary(run: dict) -> dict:
     """DLWP's main path for the results line: ms a call (12 h) and a 6-h
     frame, the device's busy time by kernel name and idle share of one call,
@@ -2945,6 +3349,8 @@ def dlwp_summary(run: dict) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--multi-device-rank":
+        return md_rank_main(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3018,6 +3424,9 @@ def main() -> int:
             t0 = time.perf_counter()
             small[label] = small_config(torch, label)
             small[label]["seconds"] = time.perf_counter() - t0
+
+        # 7. the multi-device layer: ranks that share the card
+        multi_device = multi_device_path(torch)
     except Exception as e:  # every failure ends the run without a result
         log(f"chip_smoke: FAILED: {type(e).__name__}: {e}")
         import traceback
@@ -3049,6 +3458,7 @@ def main() -> int:
         "fuxi_cascade": mp["fuxi"]["cascade"],
         "fuxi_int8": mp["fuxi"]["int8"],
         "sht": sht,
+        "multi_device": multi_device,
         "build_s": build_s,
     }), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)

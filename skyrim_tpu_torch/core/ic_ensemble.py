@@ -4,11 +4,13 @@ Perturb the analysis, roll every member out, and return the (number,
 time, channel, lat, lon) contract of the ECMWF ENS product, so model
 ensembles and that product are interchangeable downstream.
 
-The members run in turn on one device against one resident parameter
-set, loaded once: the semantics of the JAX package's ``vmap`` over
-members (``skyrim_tpu/parallel/sharding.py`` ``dp_ensemble_rollout``).
-Members spread over several cards wait for the multi-device layer
-(ROADMAP.md §1 item 10), so ``mesh`` must be None.
+``mesh=None`` runs the members in turn on one device against one
+resident parameter set, loaded once: the semantics of the JAX package's
+``vmap`` over members.  A ``parallel.mesh.Mesh`` runs them over the mesh,
+one process per rank (``parallel/sharding.py`` ``dp_ensemble_rollout``):
+members split over ``dp``, each member's state sharded over (lat, lon),
+and every rank returns the same Field.  Unlike the JAX package, no mesh is
+built here: the ranks are processes the caller started.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import numpy as np
 
 from skyrim_tpu_torch.core.model import GlobalModel
 from skyrim_tpu_torch.field import Field
-from skyrim_tpu_torch.rollout import initial_condition_from_field, rollout_times, scan_rollout
+from skyrim_tpu_torch.parallel.mesh import Mesh
+from skyrim_tpu_torch.parallel.sharding import dp_ensemble_rollout
+from skyrim_tpu_torch.rollout import initial_condition_from_field, rollout_times
 from skyrim_tpu_torch.utils.logging import logger
 
 
@@ -41,32 +45,6 @@ def perturb_members(
     return np.stack(members)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "members over a device mesh wait for the multi-device layer (ROADMAP.md §1 item 10); "
-            "pass mesh=None to run them in turn on one device"
-        )
-
-
-def dp_ensemble_rollout(model, mesh, n_steps: int):
-    """``run(params, x0_batch, start_time=None)``: ICs (B, hist, C, H, W) →
-    outputs (B, n_steps, C, H, W) as numpy, the members in turn on the
-    model's device against the one ``params``, each member's frames copied
-    to the host before the next starts."""
-    _refuse_mesh(mesh)
-
-    def run(params, x0_batch, start_time: datetime.datetime | None = None) -> np.ndarray:
-        outs = []
-        for x0 in x0_batch:
-            state = model.init_state(params, x0, start_time=start_time)
-            _, ys = scan_rollout(model, params, state, n_steps)
-            outs.append(ys[:n_steps].cpu().numpy())
-        return np.stack(outs)
-
-    return run
-
-
 def ic_ensemble_forecast(
     model_name: str,
     start_time: datetime.datetime,
@@ -82,15 +60,22 @@ def ic_ensemble_forecast(
 ) -> Field:
     """Run an IC-perturbation ensemble; returns (number, time, channel,
     lat, lon).  ``seed`` draws the perturbations; ``params`` the port's
-    parameters (``weights.load_params`` without them); ``device`` the card
-    unless the caller asks for the CPU."""
-    _refuse_mesh(mesh)
+    parameters (``weights.load_params`` without them), the same on every
+    rank; ``device`` the card unless the caller asks for the CPU (with a
+    ``mesh``, the mesh's device); ``mesh`` None or a ``parallel.mesh.Mesh``."""
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a skyrim_tpu_torch.parallel.mesh.Mesh or None, got {type(mesh).__name__}")
+        device = mesh.device
     gm = GlobalModel(model_name, ic_source=ic_source, model_kwargs=model_kwargs, params=params, device=device)
     model = gm.model
     ic_field = gm.data_source.fetch(start_time, model.n_history, model.time_step)
     x0 = initial_condition_from_field(model, ic_field)
     members = perturb_members(x0, n_members, perturb_scale, seed)
-    logger.info("IC ensemble: %s × %d members in turn on %s", model_name, n_members, model.device)
+    if mesh is None:
+        logger.info("IC ensemble: %s × %d members in turn on %s", model_name, n_members, model.device)
+    else:
+        logger.info("IC ensemble: %s × %d members over mesh %s", model_name, n_members, mesh.shape)
     outputs = dp_ensemble_rollout(model, mesh, n_steps)(gm.params, members, start_time)
 
     times = rollout_times(start_time, model.time_step, n_steps)

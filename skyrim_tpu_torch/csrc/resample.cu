@@ -55,8 +55,13 @@
 //   turn, wgmma m64nBNk16 on the slot and the resident weights (K4: W (K, 4
 //   Co) MN-major by the transpose bit; K3: W'^T (N, 4 Cp) K-major).  K3's
 //   consumers also read each slot's rows for the sums while its products
-//   run: lane q of a row's quad takes chunks q and q ^ 4 in an order that
-//   keeps a quarter warp's 16-byte loads on eight different chunk slots.
+//   run: lane q of a row's quad loads chunks q and q ^ 4 in an order that
+//   keeps a quarter warp's 16-byte loads on eight different chunk slots,
+//   sums each chunk apart and adds the two sums, so that a pixel's output
+//   does not depend on where the tiles cut its line (a lon-sharded chunk's
+//   lines are cut elsewhere than the whole grid's; 0.260-0.275 ms against
+//   0.247-0.255 for the order-dependent sums, tools/kernel_variants.py
+//   resample, NVIDIA H100 80GB HBM3, 700 W).
 // - Epilogue in registers: a row's BN values lie in one quad, so K4's group
 //   statistics are two quad shuffles (and K3's row sums too).  K4's bf16
 //   results go as one bf16x2 word a pair into one staging tile, shared by the
@@ -242,14 +247,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       if constexpr (MODE == DOWN) {  // the rows' sums from the slot, under its products
         const unsigned char* slot = ring + stage * SLOT;
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+          float p[2] = {0.f, 0.f}, p2[2] = {0.f, 0.f};  // each chunk's sums apart
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             float f[8];
             load8(reinterpret_cast<const bf16*>(slot + (16 * w + g + 8 * h) * 128 + (((c0 ^ (4 * c)) ^ g) << 4)), f);
 #pragma unroll
-            for (int u = 0; u < 8; ++u) s[h] += f[u], s2[h] += f[u] * f[u];
+            for (int u = 0; u < 8; ++u) p[c] += f[u], p2[c] += f[u] * f[u];
           }
+          // one sum, whichever chunk the row's place in the tile loaded first
+          s[h] += p[0] + p[1], s2[h] += p2[0] + p2[1];
+        }
       }
       // one group left in flight: the previous slice's products are done,
       // its slot goes back to the producer

@@ -147,6 +147,11 @@ class FengWuModel(PrognosticModel):
     name = "fengwu"
     channels = ch.FENGWU
     n_history = 2
+    lon_manual = True  # the lon-sharded step of parallel/fused_shard.py
+
+    @property
+    def lon_shard_divisor(self) -> int:
+        return self.cfg.tokens[1]
 
     def __init__(self, cfg: FengWuConfig | None = None, device="cuda"):
         self.device = resolve_device(device)

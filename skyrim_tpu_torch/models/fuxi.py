@@ -54,6 +54,7 @@ from skyrim_tpu_torch.ops import windows as W
 from skyrim_tpu_torch.ops.fused_block import fused_swin_block
 from skyrim_tpu_torch.ops.gemm import _layernorm_f32
 from skyrim_tpu_torch.ops.roll import shift_roll
+from skyrim_tpu_torch.parallel import fused_shard as FS
 from skyrim_tpu_torch.quantize import QuantizedTensor, int8_dot, maybe_dequantize, quantize_tree, split_dense_int8
 from skyrim_tpu_torch.utils.device import resolve_device
 from skyrim_tpu_torch.utils.tree import flatten, unflatten
@@ -184,12 +185,13 @@ def swin_v1_block(x, prm, heads: int, window: tuple[int, int], shifted: bool, va
     shift = _shift(window, shifted)
     mask = W.mask_tensor((1, H, Wd), win3, shift, (1, valid_h, Wd), x.device)
     bias = prm["rel_bias"][_table("earth_index", win3, x.device)].permute(2, 0, 1)  # (heads, wlen, wlen)
-    h = fused_swin_block(
-        shift_roll(x[None], shift, forward=True),
-        (prm["LayerNorm_0/scale"], prm["LayerNorm_0/bias"]), (prm["qkv/kernel"], prm["qkv/bias"]), bias, mask,
-        (prm["proj/kernel"], prm["proj/bias"]), (prm["LayerNorm_1/scale"], prm["LayerNorm_1/bias"]),
-        (prm["Dense_0/kernel"], prm["Dense_0/bias"], prm["Dense_1/kernel"], prm["Dense_1/bias"]), win3, heads,
-    )
+    args = ((prm["LayerNorm_0/scale"], prm["LayerNorm_0/bias"]), (prm["qkv/kernel"], prm["qkv/bias"]), bias, mask,
+            (prm["proj/kernel"], prm["proj/bias"]), (prm["LayerNorm_1/scale"], prm["LayerNorm_1/bias"]),
+            (prm["Dense_0/kernel"], prm["Dense_0/bias"], prm["Dense_1/kernel"], prm["Dense_1/bias"]), win3, heads)
+    if FS.current() is not None:
+        # lon-sharded: the block on the local chunk's window cover
+        return FS.manual_swin_block(x[None], *args, shift=shift)[0]
+    h = fused_swin_block(shift_roll(x[None], shift, forward=True), *args)
     return shift_roll(h, shift, forward=False)[0]
 
 
@@ -351,6 +353,18 @@ class FuXiModel(PrognosticModel):
     name = "fuxi"
     channels = ch.FUXI
     n_history = 2
+
+    @property
+    def lon_manual(self) -> bool:
+        # the lon-sharded step (parallel/fused_shard.py) drives the V1
+        # blocks' K1; Swin-V2 blocks step in the sharding layer's gather mode
+        return not self.cfg.attn_v2
+
+    @property
+    def lon_shard_divisor(self) -> int:
+        # lon shards must divide the half-resolution token width, so that
+        # the trunk's 2×2 patch merge and expand stay local
+        return self.cfg.tokens[1] // 2
 
     def __init__(self, cfg: FuXiConfig | None = None, device="cuda"):
         self.device = resolve_device(device)

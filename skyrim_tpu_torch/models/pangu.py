@@ -48,6 +48,7 @@ from skyrim_tpu_torch.ops.flash_window_attention import fused_window_attention_4
 from skyrim_tpu_torch.ops.fused_block import fused_swin_block
 from skyrim_tpu_torch.ops.resample import fused_downsample, fused_upsample, prepare_downsample, prepare_upsample
 from skyrim_tpu_torch.ops.roll import shift_roll
+from skyrim_tpu_torch.parallel import fused_shard as FS
 from skyrim_tpu_torch.utils.device import resolve_device
 
 
@@ -170,14 +171,15 @@ class PanguBlock(nn.Module):
         shift = tuple(w // 2 for w in self.window) if self.shifted else (0, 0, 0)
         mask = W.mask_tensor((Z, H, Wd), self.window, shift, valid, x.device)
         attn = self.EarthAttention3D_0
+        args = (self.LayerNorm_0.sb(), attn.qkv.wb(), attn.expanded_bias(), mask, attn.proj.wb(),
+                self.LayerNorm_1.sb(), (*self.Dense_0.wb(), *self.Dense_1.wb()), self.window, self.heads)
+        if FS.current() is not None:
+            # lon-sharded: the block runs on the local chunk's window cover,
+            # the lon shift folded into the cover's offsets
+            return FS.manual_swin_block(x, *args, shift=shift)
         # the block commutes with the shift roll: roll in, run unshifted
         # with the shift mask, roll back
-        h = shift_roll(x, shift, forward=True)
-        h = fused_swin_block(
-            h, self.LayerNorm_0.sb(), attn.qkv.wb(), attn.expanded_bias(), mask,
-            attn.proj.wb(), self.LayerNorm_1.sb(), (*self.Dense_0.wb(), *self.Dense_1.wb()),
-            self.window, self.heads,
-        )
+        h = fused_swin_block(shift_roll(x, shift, forward=True), *args)
         return shift_roll(h, shift, forward=False)
 
 
@@ -367,6 +369,14 @@ class PanguModel(PrognosticModel):
     name = "pangu"
     channels = ch.PANGU
     n_history = 1
+    lon_manual = True  # the lon-sharded step of parallel/fused_shard.py
+
+    @property
+    def lon_shard_divisor(self) -> int:
+        # lon shards must divide the half-resolution token width, so that
+        # the 2×2 patch merge (K3) stays local: n | Wt/2 ⟹ n | Wt, (Wt/n)
+        # even, and n | cfg.lon
+        return self.cfg.hw_tokens[1] // 2
 
     def __init__(self, variant: str = "pangu", cfg: PanguConfig | None = None, device="cuda"):
         if variant not in ("pangu", "pangu6", "pangu24"):
@@ -413,7 +423,9 @@ class PanguModel(PrognosticModel):
         """One network evaluation on a (C, H, W) state; ``gw`` the cached
         grand weights or None."""
         xn = normalize(params["norm"], x).to(self.compute_dtype)
-        consts = params["consts"].to(self.compute_dtype)
+        # inside a lon-manual region x is this rank's lon chunk: the constant
+        # masks are cut to it
+        consts = FS.local_lon_slice(params["consts"], axis=-1).to(self.compute_dtype)
         x72 = torch.cat([xn, consts], dim=0).permute(1, 2, 0)
         y = net(x72, gw)
         y = y.permute(2, 0, 1).float()

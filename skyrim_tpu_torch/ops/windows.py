@@ -19,10 +19,19 @@ Window3 = tuple[int, int, int]
 
 
 def pad_to_windows(x: torch.Tensor, window: Window3) -> tuple[torch.Tensor, tuple[int, int, int]]:
-    """Zero-pad (Z, H, W, C) at the end so each spatial dim divides its window."""
+    """Zero-pad (Z, H, W, C) at the end so each spatial dim divides its window.
+
+    Inside a lon-manual region (parallel/fused_shard.py) W is a local chunk
+    of a periodic axis whose global width already divides the window:
+    padding it would put zeros into the ring, so lon is never padded there
+    (the cover gather handles chunks that cut a window)."""
+    from skyrim_tpu_torch.parallel import fused_shard
+
     Z, H, W, _ = x.shape
     wz, wh, ww = window
     pz, ph, pw = (-Z) % wz, (-H) % wh, (-W) % ww
+    if fused_shard.current() is not None:
+        pw = 0
     if pz or ph or pw:
         x = F.pad(x, (0, 0, 0, pw, 0, ph, 0, pz))
     return x, (pz, ph, pw)

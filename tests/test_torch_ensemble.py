@@ -314,8 +314,19 @@ def test_ensemble_mean_and_spread_match_jax(sfno_run):
     assert spread.min() >= 0 and spread.max() > 0
 
 
-def test_a_mesh_is_refused():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 10"):
+def test_a_port_mesh_runs_and_anything_else_is_refused(sfno_run):
+    """A port ``Mesh`` (here one rank's: the multi-rank runs are in
+    tests/test_torch_sharded.py) gives the in-turn run's Field bit for bit;
+    any other mesh raises TypeError."""
+    from skyrim_tpu_torch.parallel.mesh import single_device_mesh
+
+    out, _, ic, params = sfno_run
+    mesh = single_device_mesh("cpu")
+    meshed = ic_ensemble_forecast("tiny_sfno", T0, n_steps=2, n_members=4, perturb_scale=0.01,
+                                  ic_source=f"file:{ic}", params=params, mesh=mesh)
+    assert meshed.dims == out.dims and meshed.attrs == out.attrs
+    np.testing.assert_array_equal(meshed.data, out.data)
+    with pytest.raises(TypeError, match="Mesh or None"):
         ic_ensemble_forecast("tiny_sfno", T0, mesh=object(), ic_source="synthetic", device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 10"):
+    with pytest.raises(TypeError, match="Mesh or None"):
         dp_ensemble_rollout(TinySFNO(device="cpu"), object(), 2)
