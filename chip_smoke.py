@@ -230,11 +230,37 @@ Phases:
      plain versions; the 4-rank Pangu under three planted faults (every
      window cover's halo from the other side of the ring, the cover offset
      one token off, the constant masks left uncut), each refused, its ratio
-     to the limit printed; the backend, the seconds and nvidia-smi's line.
+     to the limit printed; the backend, the seconds and nvidia-smi's line;
+  8. tooling (run after phase 5, before phase 7): (a) the port's CLI, python
+     -m skyrim_tpu_torch.cli -m pangu -ic file --ic-path <phase 4's IC> -lt
+     12 -o <tmp>, in a subprocess on phase 4's checkpoint: 2 files, the last
+     equal bit for bit to the facade's 12-h file; (b) utils/op_stats.py on
+     one full-width Pangu step (the 6-h net, seed-0 parameters drawn on the
+     card, the climatological norm stats and synthetic IC of
+     utils/stability.py): the top rows, the kernels' self time within 5 % of
+     the profiler's busy time (their intervals' union), the idle share; (c)
+     utils/roofline.py on that step's host wall (median of 3): FLOPs, counted
+     bytes, floor bytes, mfu_pct, hbm_roof_pct and bound beside the card's
+     name and power limit, no share over 100 %; at phase 5's small Pangu the
+     counted FLOPs and bytes on the card equal the CPU's; (d)
+     utils/stability.py: stability_rollout for 8 steps (all finite),
+     precision_divergence for 2 (the f32 leg on the plain compositions, TF32
+     off: only the bf16 leg launches K1), perturbation_control for 2; (e)
+     Pangu at its published widths trained one step at batch 2 over (2,1,1)
+     by 2 ranks of this script (--tooling-rank DIR) sharing the card over
+     gloo, against one process's Trainer at batch 2 on the same data: both
+     ranks' leaves bit-equal, each leaf's update within 1e-2 relative L2 of
+     the one process's (the largest printed), the all-reduce's seconds; in
+     the same launch the bytes a rank sends in one Pangu step over (1,1,2),
+     counted by parallel/collective_analysis.py, equal to the halo bytes
+     reckoned from the window shapes; (f) parallel/scaling_bench.py over 1 and
+     2 ranks, time_sliced set.
 
 Prints the results on a JSON line (the main paths, the facade, "dlwp",
 "ensemble", "ic_ensemble", "data_io", the small configurations,
-"multi_device", ...), then
+"multi_device", "tooling", ...), also written to
+build/chip_smoke_results.json (parallel/collective_analysis.py's
+measured_step_wall reads it), then
 
 {"kernels": [...]} on a line of its own, then as the last line
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, on
@@ -255,8 +281,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM
 # kernel vs plain on the card: bf16 rounding of intermediates (the residual
 # stream above all) and summation order differ, so elementwise
 # |kernel - plain| <= 2e-2 * std(plain) + 2 bf16 ulps (2 * 2**-8) of a scale.
@@ -331,7 +355,12 @@ def compare(torch, out, ref, name: str, exact: bool = False, per_element: bool =
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    """The least time (ms) the H100 could take and which of the two bounds it,
+    on utils/roofline.py's peaks (dense bf16 tensor cores, HBM3)."""
+    from skyrim_tpu_torch.utils.roofline import device_peaks
+
+    peak_flops, peak_bytes = device_peaks("H100")
+    t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1888,7 +1917,7 @@ def fuxi_int8(torch, model, params, state) -> dict:
     return out
 
 
-def facade_path(torch) -> dict:
+def facade_path(torch, keep: Path) -> dict:
     """Phase 4, the facade: Skyrim("pangu", ic_source="file:<IC>").predict
     at full width, the IC the synthetic source's frame written as NetCDF
     by the port, the parameters a seed-1 init saved as the port's
@@ -1902,7 +1931,8 @@ def facade_path(torch) -> dict:
     on every run, phase 3).  The wall time split on the host clock into IC
     read (file to device state), NetCDF writes and the rest (the steps'
     launches and the device-to-host copies), beside the steps' device time
-    by CUDA events around each model.advance."""
+    by CUDA events around each model.advance.  The IC, the checkpoint and
+    the files stay in ``keep`` for phase 8's CLI run (``"for_cli"``)."""
     import numpy as np
 
     from skyrim_tpu_torch.core import GlobalModel, GlobalPrediction, Skyrim
@@ -1930,7 +1960,8 @@ def facade_path(torch) -> dict:
 
         return wrapper
 
-    with tempfile.TemporaryDirectory() as tmp, weights_dir(Path(tmp) / "weights"):
+    tmp = keep
+    with weights_dir(Path(tmp) / "weights"):
         model = MODELS["pangu"](device="cuda")
         ic_field = get_data_source(model.in_channel_names, "synthetic", grid=model.grid).fetch(start)
         ic = Path(tmp) / "ic.nc"
@@ -1986,7 +2017,9 @@ def facade_path(torch) -> dict:
         f"parameters the checkpoint's; wall {wall_s:.3f} s = IC read {spent['ic_read_s']:.3f} + NetCDF writes "
         f"{spent['netcdf_write_s']:.3f} + other host {rest_s:.3f} s (host clock); the steps on the device "
         f"{['%.2f' % t for t in steps_ms]} ms (CUDA events)")
-    return dict(wall_s=wall_s, rest_s=rest_s, steps_device_ms=steps_ms, **spent)
+    return dict(wall_s=wall_s, rest_s=rest_s, steps_device_ms=steps_ms, **spent,
+                for_cli=dict(ic=str(ic), weights=str(Path(tmp) / "weights"), last_file=paths[-1],
+                             date=start.strftime("%Y%m%d")))
 
 
 @contextlib.contextmanager
@@ -2459,24 +2492,18 @@ def profile_step(torch, model, params, state, keep: int | None = 8) -> dict:
 def profile_call(torch, fn, keep: int | None = 8) -> dict:
     """Device time by kernel over one call of ``fn`` (every kernel logged,
     the ``keep`` longest returned, all of them for None), and the device's
-    idle share of the call's host wall time (torch.profiler, CUPTI)."""
-    from torch.profiler import ProfilerActivity, profile
+    idle share of the call's host wall time: utils/op_stats.py's
+    collect_op_stats (torch.profiler, CUPTI), its rows the card's kernels."""
+    from skyrim_tpu_torch.utils.op_stats import collect_op_stats
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.key[:80]] = getattr(e, "device_time_total", 0.0) / 1e3
-    busy_ms = sum(kernels.values())
+    stats = collect_op_stats(fn, (), n_steps=1, device="cuda", warmup=0)
+    wall_ms = stats.wall_us / 1e3
+    busy_ms = stats.total_us / 1e3
     if busy_ms == 0:
         log("profile: the profiler saw no device time (not measured)")
         return {"wall_ms": wall_ms, "device_busy_ms": None, "idle_share": None, "top": []}
-    ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
+    ranked = [(name[:80], self_us / 1e3) for self_us, _, _, name in stats.rows]
     for name, ms in ranked:  # every kernel of the step, so that one gone from it shows
         log(f"profile: {ms:9.3f} ms {100 * ms / busy_ms:5.1f}%  {name}")
     top = ranked[:keep]
@@ -2957,6 +2984,293 @@ def train_path(torch) -> dict:
     return res
 
 
+# --- the tooling phase ---------------------------------------------------------------------
+
+# the kernels' device self time of one step against the profiler's busy time (the union of their
+# intervals) for the same step
+TOOL_BUSY_TOL = 0.05
+# a dp rank's update of each leaf against one process's at the same batch, relative L2
+TOOL_TRAIN_TOL = 1e-2
+TOOL_LAUNCH_TIMEOUT_S = 300
+TOOL_BATCH = 2
+
+
+def cli_run(torch, facade: dict) -> dict:
+    """(a) ``python -m skyrim_tpu_torch.cli -m pangu -ic file --ic-path <IC>
+    -lt 12 -o <tmp>`` in a subprocess, on phase 4's IC and checkpoint: two
+    files, the last equal bit for bit to the facade's 12-h file."""
+    import numpy as np
+
+    from skyrim_tpu_torch.io import load_forecast
+
+    info = facade["for_cli"]
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "skyrim_tpu_torch.cli", "-m", "pangu", "-ic", "file", "--ic-path", info["ic"],
+               "-d", info["date"], "-lt", "12", "-o", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, SKYRIM_WEIGHTS_DIR=info["weights"]),
+                              capture_output=True, text=True, timeout=TOOL_LAUNCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        files = sorted(Path(out).rglob("*.nc"), key=lambda f: f.name[-20:])
+        check(len(files) == 2, f"the CLI wrote {[f.name for f in files]}")
+        check(files[-1].name == Path(info["last_file"]).name, f"the CLI's last file {files[-1].name}")
+        a, b = load_forecast(str(files[-1])).data, load_forecast(info["last_file"]).data
+        check(a.shape == b.shape and np.array_equal(a, b), "the CLI's 12-h file differs from the facade's")
+    log(f"tooling (a): {' '.join(cmd[1:7])} ... -lt 12: {[f.name for f in files]} in {seconds:.1f} s, the last "
+        f"equal bit for bit to the facade's")
+    return dict(seconds=seconds, files=[f.name for f in files], equal_to_facade=True)
+
+
+def small_counts(torch) -> dict:
+    """(c) at phase 5's small Pangu: one step's counted FLOPs and bytes on the
+    card (its K1 launched 8 times) equal the CPU's, integer for integer."""
+    import numpy as np
+
+    from skyrim_tpu_torch.models.pangu import PanguConfig, PanguModel
+    from skyrim_tpu_torch.utils.op_bytes import step_counts
+
+    cfg = PanguConfig(lat=49, lon=96, embed_dim=16, depths=(2, 2, 2, 2), num_heads=(2, 2, 2, 2))
+    x = np.random.default_rng(0).normal(size=(69, 49, 96)).astype(np.float32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = PanguModel("pangu", cfg=cfg, device=device)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        reset_counts()
+        got[device] = step_counts(model, params, model.init_state(params, x))
+        if device == "cuda":
+            check(counters()["K1"].launches == 8, f"the small Pangu launched K1 {counters()['K1'].launches} times")
+    keys = ("flops", "bytes", "kernel_flops", "kernel_bytes", "op_flops", "op_bytes")
+    card, cpu = ({k: got[d][k] for k in keys} for d in ("cuda", "cpu"))
+    check(card == cpu, f"the small Pangu's counts: card {card}, CPU {cpu}")
+    log(f"tooling (c): the small Pangu's step counted {card['flops']} FLOPs and {card['bytes']} bytes on the card "
+        f"and on the CPU")
+    return card
+
+
+def tooling_pangu(torch) -> dict:
+    """(b) op_stats of one full-width Pangu step, (c) its roofline, (d) the
+    stability harness: 8 steps, the bf16-f32 divergence and the perturbation
+    control over 2 (Pangu's 6-h net, its seed-0 parameters drawn on the card,
+    the climatological norm stats and IC)."""
+    import numpy as np
+
+    from skyrim_tpu_torch.models.pangu import PanguModel
+    from skyrim_tpu_torch.utils import stability as S
+    from skyrim_tpu_torch.utils.op_stats import collect_op_stats
+    from skyrim_tpu_torch.utils.roofline import model_roofline
+
+    smi = nvidia_smi_line()
+    model = PanguModel("pangu6", device="cuda")
+    params = S.climatological_params(model, torch.Generator(device="cuda").manual_seed(0))
+    x0 = S.synthetic_ic(model)
+    state = model.init_state(params, x0)
+    res = {}
+
+    # (b) op stats: a warm-up step, then one profiled
+    reset_counts()
+    stats = collect_op_stats(lambda: model.advance(params, state), (), n_steps=1, device="cuda")
+    counts = {k: v for k, v in read_counts()[0].items() if v}
+    check({k: counts.get(k, 0) for k in ("K1", "K2", "K3", "K4")} == {"K1": 32, "K2": 32, "K3": 2, "K4": 2},
+          f"op_stats' two steps launched {counts}")
+    gap = abs(stats.total_us - stats.busy_us) / stats.busy_us
+    check(gap <= TOOL_BUSY_TOL, f"op_stats: self time {stats.total_us:.0f} us against busy {stats.busy_us:.0f} us")
+    for self_us, frac, _, name in stats.rows[:12]:
+        log(f"tooling (b): {self_us:10.1f} us {100 * frac:5.1f}%  {name[:100]}")
+    log(f"tooling (b): one Pangu step: kernels' self time {stats.total_us:.0f} us, busy {stats.busy_us:.0f} us "
+        f"({100 * gap:.2f} % apart), wall {stats.wall_us:.0f} us, idle share {stats.idle_share:.3f}; {smi}")
+    res["op_stats"] = dict(self_us=stats.total_us, busy_us=stats.busy_us, wall_us=stats.wall_us,
+                           idle_share=stats.idle_share, top=[[r[3][:80], r[0]] for r in stats.rows[:12]])
+
+    # (c) the roofline on the step's host wall (median of 3, the card synchronised)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.advance(params, state)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    roof = model_roofline(model, params, state, wall)
+    for k in ("mfu_pct", "hbm_roof_pct", "hbm_floor_pct"):
+        check(0 < roof[k] <= 100, f"the roofline's {k} is {roof[k]}")
+    log(f"tooling (c): Pangu step wall {1e3 * wall:.3f} ms: {roof['flops']} FLOPs ({roof['kernel_flops']} the "
+        f"kernels'), {roof['bytes']} bytes counted ({roof['kernel_bytes']} the kernels'; the ops' most: "
+        f"{roof['top_ops'][:8]}), floor {roof['bytes_floor_gb']} GiB; mfu {roof['mfu_pct']} %, hbm roof "
+        f"{roof['hbm_roof_pct']} %, floor {roof['hbm_floor_pct']} %, bound {roof['bound']}; {smi}")
+    res["roofline"] = dict(roof, step_wall_s=wall, walls_s=walls, card=smi)
+
+    # (d) the stability harness
+    reset_counts()
+    stab = S.stability_rollout(model, params, x0, 8)
+    check(stab["all_finite"] and counters()["K1"].launches == 8 * 16, f"stability_rollout: {stab}")
+    reset_counts()
+    prec = S.precision_divergence(model, params, x0, 2)
+    # only the bf16 leg launches: the f32 leg runs the plain compositions
+    check(counters()["K1"].launches == 2 * 16, f"precision_divergence launched K1 {counters()['K1'].launches} times")
+    check(all(np.isfinite(v) and 0 < v < 1 for v in prec["rel_l2"]), f"precision_divergence: {prec}")
+    pert = S.perturbation_control(model, params, x0, 2)
+    check(all(np.isfinite(v) for v in pert["rel_l2"]), f"perturbation_control: {pert}")
+    log(f"tooling (d): 8 steps rms {['%.4f' % v for v in stab['rms']]}, growth/step {stab['growth_per_step_geo']:.4f}, "
+        f"all finite; bf16 vs f32 (plain, TF32 off) rel L2 {prec['rel_l2']}; eps 1e-6 control {pert['rel_l2']}")
+    res["stability"] = dict(rollout=stab, precision=prec, perturbation=pert)
+    del model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tool_batch(torch, model):
+    """The dp trainer's batch: TOOL_BATCH seeded pairs drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    shape = (TOOL_BATCH, model.n_history, len(model.channels), *model.grid.shape)
+    return (torch.randn(shape, generator=g, device="cuda"), torch.randn(shape, generator=g, device="cuda"))
+
+
+def tooling_rank_main(workdir: str) -> int:
+    """One of 2 ranks of the tooling launch (``chip_smoke.py --tooling-rank
+    DIR``): (e) Pangu at its published widths trained one step over (2,1,1)
+    at batch TOOL_BATCH, the leaves saved to DIR/rank<r>.pt; (f) the bytes
+    this rank sends in one Pangu step over (1,1,2), counted, and reckoned
+    from the window shapes.  Results to DIR/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        log("chip_smoke rank: no CUDA device")
+        return 1
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from skyrim_tpu_torch.finetune import TrainConfig, Trainer
+    from skyrim_tpu_torch.models.pangu import PanguModel
+    from skyrim_tpu_torch.parallel import collective_analysis as CA
+    from skyrim_tpu_torch.parallel.mesh import count_exchanges, make_mesh, maybe_initialize_distributed
+
+    maybe_initialize_distributed(device="cuda", timeout_s=MD_GROUP_TIMEOUT_S)
+    rank = dist.get_rank()
+    res = {"rank": rank, "backend": dist.get_backend()}
+    mesh = make_mesh(2, 1, 1)
+    model = PanguModel("pangu", device=mesh.device)
+    trainer = Trainer(model, model.init_params(torch.Generator(device="cuda").manual_seed(0)),
+                      TrainConfig(batch_size=TOOL_BATCH, remat=True), mesh=mesh)
+    xs, ys = tool_batch(torch, model)
+    average, spent = trainer.average_gradients, []
+
+    def timed_average():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average()
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+
+    trainer.average_gradients = timed_average
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with count_exchanges() as exchanges:
+        loss = float(trainer.train_step(xs, ys))
+    torch.cuda.synchronize()
+    res.update(loss=loss, step_s=time.perf_counter() - t0, allreduce_s=spent, exchanges=CA.summarize(exchanges),
+               counts={k: v for k, v in read_counts()[0].items() if v}, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    torch.save({k: p.detach().cpu() for k, p in trainer.leaves.items()}, Path(workdir) / f"rank{rank}.pt")
+    del trainer, xs, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ring = make_mesh(1, 1, 2)
+    model = PanguModel("pangu6", device=ring.device)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    res["collectives"] = CA.analyze_model(model, ring, None, params=params)
+    res["reckoned_halo_bytes"] = CA.reckon_lon_halo_bytes(model, 2)
+    dist.barrier()
+    (Path(workdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_trainer(torch, workdir: Path) -> dict:
+    """(e) and the collectives of (f): one process's Trainer at batch
+    TOOL_BATCH on the data the ranks take, then the 2-rank launch; both
+    ranks' leaves bit-equal, each leaf's update within TOOL_TRAIN_TOL
+    (relative L2) of the one process's; the counted halo bytes equal the
+    reckoned."""
+    from skyrim_tpu_torch.finetune import TrainConfig, Trainer
+    from skyrim_tpu_torch.models.pangu import PanguModel
+
+    model = PanguModel("pangu", device="cuda")
+    trainer = Trainer(model, model.init_params(torch.Generator(device="cuda").manual_seed(0)),
+                      TrainConfig(batch_size=TOOL_BATCH, remat=True))
+    before = {k: p.detach().cpu() for k, p in trainer.leaves.items()}
+    xs, ys = tool_batch(torch, model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(trainer.train_step(xs, ys))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    ref = {k: p.detach().cpu() - before[k] for k, p in trainer.leaves.items()}
+    del trainer, xs, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ranks, seconds = run_md_ranks(2, "--tooling-rank", workdir)
+    leaves = [torch.load(Path(workdir) / f"rank{r}.pt") for r in range(2)]
+    check(all(r["backend"] == "gloo" for r in ranks), "the tooling ranks are not on gloo")
+    worst, worst_key = 0.0, None
+    for k, want in ref.items():
+        check(torch.equal(leaves[0][k], leaves[1][k]), f"dp trainer: the ranks' {k} differ")
+        d = float(torch.linalg.vector_norm((leaves[0][k] - before[k]) - want))
+        n = float(torch.linalg.vector_norm(want))
+        check(d <= TOOL_TRAIN_TOL * n, f"dp trainer: {k}'s update {d / max(n, 1e-30):.3g} (relative L2) from one "
+                                       f"process's")
+        if n > 0 and d / n > worst:
+            worst, worst_key = d / n, k
+    for r in ranks:
+        check(r["counts"].get("K1") == 32 and r["counts"].get("K2") == 48,
+              f"dp trainer: rank {r['rank']} launched {r['counts']}")
+        check(abs(r["loss"] - loss) <= 1e-3 * abs(loss), f"dp trainer: rank {r['rank']} loss {r['loss']}, one "
+                                                         f"process's {loss}")
+        rec = r["collectives"]["collectives"]
+        check(r["collectives"]["mode"] == "manual" and rec["total_payload_bytes"] == r["reckoned_halo_bytes"] > 0,
+              f"collectives: rank {r['rank']} counted {rec} against {r['reckoned_halo_bytes']} reckoned")
+    head = ranks[0]
+    log(f"tooling (e): dp trainer over (2,1,1), batch {TOOL_BATCH}, Pangu at its published widths: ranks bit-equal, "
+        f"the largest update difference {worst:.3g} (relative L2, {worst_key}) from one process's; loss "
+        f"{head['loss']:.6f} (one process {loss:.6f}); step {head['step_s']:.2f} s (one process {one_s:.2f} s), "
+        f"all-reduce {head['allreduce_s']} s of {head['exchanges']['by_kind']['all-reduce']['bytes']} bytes; "
+        f"launch {seconds:.1f} s; {nvidia_smi_line()}")
+    log(f"tooling (f): Pangu over (1,1,2): {head['collectives']['collectives']['by_kind']} a rank, reckoned "
+        f"{head['reckoned_halo_bytes']} bytes")
+    return dict(worst_update_rel_l2=worst, worst_leaf=worst_key, loss=head["loss"], one_process_loss=loss,
+                step_s=[r["step_s"] for r in ranks], one_process_step_s=one_s, allreduce_s=head["allreduce_s"],
+                exchanges=head["exchanges"], peak_gb=[r["peak_gb"] for r in ranks], launch_s=seconds,
+                collectives=head["collectives"]["collectives"], reckoned_halo_bytes=head["reckoned_halo_bytes"])
+
+
+def tooling_path(torch, facade: dict) -> dict:
+    """Phase 8, the tooling: (a) the CLI, (b) op stats, (c) the roofline, (d)
+    the stability harness, (e) the dp trainer, (f) scaling and collectives."""
+    from skyrim_tpu_torch.parallel.scaling_bench import run_scaling
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    res = {"card": nvidia_smi_line(), "cli": cli_run(torch, facade)}
+    res.update(tooling_pangu(torch))
+    res["small_counts"] = small_counts(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["dp_trainer"] = dp_trainer(torch, Path(tmp))
+    gc.collect()
+    torch.cuda.empty_cache()
+    scaling = run_scaling("pangu", [1, 2], 1, device="cuda")
+    check(scaling[1]["time_sliced"] and scaling[1]["mode"] == "manual", f"scaling_bench: {scaling}")
+    log(f"tooling (f): scaling_bench over 1 and 2 ranks (time-sliced on one card): {scaling}")
+    res["scaling"] = scaling
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"tooling: phase {res['seconds']:.1f} s; {res['card']}")
+    return res
+
+
 # --- the multi_device phase ---------------------------------------------------------------
 
 # a sharded run against the same model, parameters and IC on one process, both through the kernels: the
@@ -3176,18 +3490,19 @@ def md_rank_main(workdir: str) -> int:
     return 0
 
 
-def run_md_ranks(world: int) -> tuple[list[dict], float]:
-    """Start ``world`` ranks of this script (a file:// rendezvous in a temporary
-    directory) and wait for all of them, at most MD_LAUNCH_TIMEOUT_S; a rank
-    that fails or hangs fails the phase (every rank is then killed).  Relays
-    the ranks' output to stderr; returns their results and the seconds."""
+def run_md_ranks(world: int, flag: str = "--multi-device-rank", workdir: Path | None = None) -> tuple[list[dict], float]:
+    """Start ``world`` ranks of this script with ``flag`` (a file:// rendezvous
+    in ``workdir``, a temporary directory by default) and wait for all of
+    them, at most MD_LAUNCH_TIMEOUT_S; a rank that fails or hangs fails the
+    phase (every rank is then killed).  Relays the ranks' output to stderr;
+    returns their results and the seconds."""
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(str(workdir)) if workdir else tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, SKYRIM_COORDINATOR=f"file://{tmp}/rendezvous", SKYRIM_NUM_PROCESSES=str(world))
         procs = []
         for r in range(world):
             out = open(Path(tmp) / f"rank{r}.log", "w")
-            procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--multi-device-rank", tmp],
+            procs.append((subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, tmp],
                                            cwd=ROOT, env=dict(env, SKYRIM_PROCESS_ID=str(r)), stdout=out,
                                            stderr=subprocess.STDOUT), out))
         deadline = time.monotonic() + MD_LAUNCH_TIMEOUT_S
@@ -3206,7 +3521,7 @@ def run_md_ranks(world: int) -> tuple[list[dict], float]:
             for line in (Path(tmp) / f"rank{r}.log").read_text().splitlines():
                 log(f"[rank {r}/{world}] {line}")
         codes = [p.returncode for p, _ in procs]
-        check(all(c == 0 for c in codes), f"multi_device: {world} ranks exited {codes} (killed after "
+        check(all(c == 0 for c in codes), f"{flag}: {world} ranks exited {codes} (killed after "
                                           f"{MD_LAUNCH_TIMEOUT_S} s where they hung)")
         return [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(world)], time.perf_counter() - t0
 
@@ -3351,6 +3666,8 @@ def dlwp_summary(run: dict) -> dict:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--multi-device-rank":
         return md_rank_main(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--tooling-rank":
+        return tooling_rank_main(sys.argv[2])
     try:
         import torch
     except ImportError:
@@ -3366,6 +3683,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain references run in full f32
     torch.backends.cudnn.allow_tf32 = False
 
+    keep = tempfile.TemporaryDirectory()  # phase 4's IC, checkpoint and files, for phase 8's CLI run
     try:
         # 1. device
         kind = torch.cuda.get_device_name(0)
@@ -3381,7 +3699,7 @@ def main() -> int:
 
         # 4. the main paths, first: what they measure does not depend on what phase 3 allocated and freed
         mp = {label: main_path(torch, label, torch.Generator(device="cuda").manual_seed(0)) for label in MAIN_PATHS}
-        facade = facade_path(torch)
+        facade = facade_path(torch, Path(keep.name))
         ensemble, ic_ensemble = ensemble_paths(torch)
         data_io = data_io_path(torch)
         train = train_path(torch)
@@ -3425,6 +3743,11 @@ def main() -> int:
             small[label] = small_config(torch, label)
             small[label]["seconds"] = time.perf_counter() - t0
 
+        # 8. the tooling: the CLI on phase 4's IC, op stats, the roofline, the stability harness, the dp
+        # trainer, scaling and collectives
+        tooling = tooling_path(torch, facade)
+        facade.pop("for_cli")
+
         # 7. the multi-device layer: ranks that share the card
         multi_device = multi_device_path(torch)
     except Exception as e:  # every failure ends the run without a result
@@ -3433,10 +3756,12 @@ def main() -> int:
 
         traceback.print_exc()
         return 1
+    finally:
+        keep.cleanup()
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({
+    results = {
         "main_path": {name: {k: run[k] for k in ("setup_s", "setup_launches", "forecast_s", "step_ms",
                                                  "peak_gb", "profile")} for name, run in mp.items()},
         "facade": facade,
@@ -3459,8 +3784,12 @@ def main() -> int:
         "fuxi_int8": mp["fuxi"]["int8"],
         "sht": sht,
         "multi_device": multi_device,
+        "tooling": tooling,
         "build_s": build_s,
-    }), flush=True)
+    }
+    (ROOT / "build").mkdir(exist_ok=True)
+    (ROOT / "build" / "chip_smoke_results.json").write_text(json.dumps(results))
+    print(json.dumps(results), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -95,3 +95,29 @@ class ENSSource(ICSource):
             step = int((t - init).total_seconds() // 3600)
             fields.append(self.client.fetch_dataarray(init, [step]))
         return Field.concat(fields, "time")
+
+
+def main(argv: list[str] | None = None, transport=None) -> None:
+    """The live CLI (skyrim_tpu/data/ens.py main): fetch the members at the
+    analysis and at the lead time and print the Field.  ``transport``
+    replaces the HTTP transport (tests)."""
+    import argparse
+
+    p = argparse.ArgumentParser("python -m skyrim_tpu_torch.data.ens")
+    p.add_argument("--date", required=True)
+    p.add_argument("--time", default="0000")
+    p.add_argument("--lead_time", type=int, default=24)
+    p.add_argument("--channels", default="u10m,v10m,t2m")
+    p.add_argument("--members", type=int, default=3)
+    args = p.parse_args(argv)
+    kw = {} if transport is None else {"transport": transport}
+    model = ENSModel(args.channels.split(","), members=range(args.members), **kw)
+    f = model.fetch_members(
+        datetime.datetime.strptime(args.date + args.time, "%Y%m%d%H%M"),
+        [0, args.lead_time],
+    )
+    print(f)
+
+
+if __name__ == "__main__":
+    main()

@@ -181,3 +181,28 @@ class IFSSource(ICSource):
             step = int((t - init).total_seconds() // 3600)
             fields.append(self.client.fetch_dataarray(init, [step]))
         return Field.concat(fields, "time")
+
+
+def main(argv: list[str] | None = None, transport=None) -> None:
+    """The live CLI (skyrim_tpu/data/ifs.py main): fetch a forecast and save
+    it.  ``transport`` replaces the HTTP transport (tests)."""
+    import argparse
+
+    p = argparse.ArgumentParser("python -m skyrim_tpu_torch.data.ifs")
+    p.add_argument("--date", required=True)
+    p.add_argument("--time", default="0000")
+    p.add_argument("--lead_time", type=int, default=24)
+    p.add_argument("--channels", default="u10m,v10m,t2m")
+    p.add_argument("--output_dir", default="outputs")
+    args = p.parse_args(argv)
+    kw = {} if transport is None else {"transport": transport}
+    model = IFSModel(args.channels.split(","), **kw)
+    _, path = model.predict(
+        args.date, args.time, args.lead_time, save=True,
+        save_config={"output_dir": args.output_dir},
+    )
+    print(path)
+
+
+if __name__ == "__main__":
+    main()

@@ -27,8 +27,26 @@ card unless the model was made for the CPU), without ``params["cache"]``
 (a function of the leaves: ``apply`` then builds the derived weights
 inline, and ``prepare_params`` rebuilds the cache after loading), every
 floating leaf requiring a gradient.  Checkpoints go through
-``weights.registry.save_checkpoint`` as ``torch_<step>.pt``.  Training on
-a device mesh waits for the multi-device layer (ROADMAP.md §1 item 10).
+``weights.registry.save_checkpoint`` as ``torch_<step>.pt`` (rank 0 alone
+writes them under a mesh).
+
+Over a ``parallel.mesh.Mesh`` (JAX's ``trainer.py:43-115``: the batch as
+``P(dp, None, None, lat, lon)`` through ``compatible_spec``, parameters
+and optimizer state replicated):
+
+- the parameters are made rank 0's on every rank (``sharding.replicate``);
+- a batch's members are split over ``dp`` where the batch divides by it,
+  else every dp rank takes all of them (``compatible_spec`` replicates a
+  dim the mesh does not divide);
+- the ranks of one ``dp`` index — a spatial group, ``lat`` × ``lon`` of
+  them — each compute their members whole, as ``sharding.py``'s ``gather``
+  mode serves: redundant compute, the same numbers as JAX's partitioned
+  step (ROADMAP.md §3);
+- the gradients, flattened into one buffer, are summed over ``dp`` by one
+  all-reduce and divided by ``dp`` before the global-norm clip, so the clip
+  sees the gradient of the whole batch, as optax does under ``jit``;
+- every rank then takes the same clip and AdamW step on the same bits and
+  ends the step with identical leaves.
 """
 
 from __future__ import annotations
@@ -91,12 +109,8 @@ def named_leaves(params, path: str = "", out: dict | None = None) -> dict[str, t
 
 class Trainer:
     def __init__(self, model: PrognosticModel, params, config: TrainConfig | None = None, mesh=None):
-        if mesh is not None:
-            raise ValueError(
-                "training over a device mesh waits for the multi-device layer (ROADMAP.md §1 item 10); "
-                "pass mesh=None to train on the model's device"
-            )
         self.model = model
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.config = config or TrainConfig()
         self.device = model.device
         # derived step-invariant caches are functions of the leaves, not
@@ -104,6 +118,10 @@ class Trainer:
         params = {k: v for k, v in params.items() if k != "cache"}
         named_leaves(params)  # refuse a quantized tree before copying it
         self.params = _on_device(copy.deepcopy(params), self.device)
+        if self.mesh is not None:
+            from skyrim_tpu_torch.parallel.sharding import replicate
+
+            replicate(self.mesh, self.params)
         self.leaves = named_leaves(self.params)
         for p in self.leaves.values():
             p.requires_grad_(True)
@@ -134,6 +152,40 @@ class Trainer:
             total = total + sample / cfg.rollout_steps
         return total / len(xs)
 
+    def _members(self, n: int) -> slice:
+        """This rank's batch members of ``n``: its ``dp`` slice where ``n``
+        divides by ``dp``, else all of them."""
+        from skyrim_tpu_torch.parallel.mesh import AXES
+
+        dp = self.mesh.shape[AXES.dp] if self.mesh is not None else 1
+        if dp == 1 or n % dp:
+            return slice(0, n)
+        d = self.mesh.coords[AXES.dp]
+        return slice(d * n // dp, (d + 1) * n // dp)
+
+    def _split(self, n: int) -> bool:
+        from skyrim_tpu_torch.parallel.mesh import AXES
+
+        return self.mesh is not None and self.mesh.shape[AXES.dp] > 1 and n % self.mesh.shape[AXES.dp] == 0
+
+    def average_gradients(self) -> None:
+        """Sum every leaf's gradient over ``dp`` in one all-reduce of a flat
+        buffer and divide by ``dp``; leaves without a gradient take zeros."""
+        from skyrim_tpu_torch.parallel.mesh import AXES, all_reduce_
+
+        leaves = list(self.leaves.values())
+        for p in leaves:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1).float() for p in leaves])
+        all_reduce_(self.mesh, AXES.dp, flat)
+        flat /= self.mesh.shape[AXES.dp]
+        i = 0
+        for p in leaves:
+            n = p.numel()
+            p.grad.copy_(flat[i:i + n].view_as(p.grad))
+            i += n
+
     def update(self) -> torch.Tensor:
         """Clip the gradients, take the AdamW step and clear the gradients;
         returns the global norm before clipping."""
@@ -159,14 +211,22 @@ class Trainer:
         return norm
 
     def train_step(self, xs, ys) -> torch.Tensor:
-        """One step on a batch (numpy or tensors); returns the loss."""
+        """One step on a batch (numpy or tensors), the whole batch given to
+        every rank of a mesh; returns the batch's loss."""
         xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
         ys = torch.as_tensor(ys, dtype=torch.float32, device=self.device)
-        loss = self.loss(xs, ys)
+        mine = self._members(len(xs))
+        loss = self.loss(xs[mine], ys[mine])
         loss.backward()
-        self.update()
+        loss = loss.detach()
+        if self._split(len(xs)):
+            from skyrim_tpu_torch.parallel.mesh import AXES, all_reduce_
+
+            self.average_gradients()
+            loss = all_reduce_(self.mesh, AXES.dp, loss.clone()) / self.mesh.shape[AXES.dp]
+        self.last_grad_norm = self.update().detach()
         self.step_count += 1
-        return loss.detach()
+        return loss
 
     def fit(self, dataset: FineTuneDataset) -> dict:
         cfg = self.config
@@ -192,7 +252,11 @@ class Trainer:
         self.save()
         return {"loss": history, "steps": self.step_count}
 
-    def save(self) -> str:
+    def save(self) -> str | None:
+        """The checkpoint's path; under a mesh only rank 0 writes it (None
+        elsewhere)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
         return save_checkpoint(self.model.name, self.params, self.step_count)
 
 

@@ -55,8 +55,9 @@ import ctypes
 
 import torch
 
-from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops import _build, cost
 from skyrim_tpu_torch.ops import windows as W
+from skyrim_tpu_torch.ops.vjp import plain_only
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -217,7 +218,12 @@ def attention_4d(qkv, bias, mask, window, heads, lib, fn, what):
 def fused_window_attention_4d(qkv, bias, mask, window, heads):
     """K5: window partition + attention + reverse on a window-padded packed
     (Z, H, W, 3C) qkv → (Z, H, W, C), heads merged."""
-    if qkv.device.type == "cpu":
+    with cost.kernel("K5", cost.window_attention_4d, qkv, window, heads):
+        return _window_attention_4d(qkv, bias, mask, window, heads)
+
+
+def _window_attention_4d(qkv, bias, mask, window, heads):
+    if plain_only(qkv):
         return reference_window_attention_4d(qkv, bias, mask, window, heads)
     _refuse_grad("fused_window_attention_4d", qkv, bias, mask)
     lib = _lib()
@@ -232,13 +238,18 @@ fused_window_attention_4d.launches = 0
 def fused_window_attention(qkv, bias, mask, n_lon_windows, heads):
     """K10: attention on partitioned packed rows (nWin, wlen, 3C) →
     (nWin, wlen, C), heads merged."""
+    with cost.kernel("K10", cost.window_attention_rows, qkv, heads):
+        return _window_attention_rows(qkv, bias, mask, n_lon_windows, heads)
+
+
+def _window_attention_rows(qkv, bias, mask, n_lon_windows, heads):
     what = "fused_window_attention"
     if qkv.ndim != 3 or qkv.shape[2] % (3 * heads):
         raise ValueError(f"{what} takes a packed (nWin, wlen, 3C) qkv, C divisible by heads, got {tuple(qkv.shape)}")
     n_win, wlen, c3 = qkv.shape
     C = c3 // 3
     bias, n_types, n_masks = _tables(bias, mask, n_win, n_lon_windows, heads, wlen, what)
-    if qkv.device.type == "cpu":
+    if plain_only(qkv):
         return reference_window_attention_qkv(qkv, bias, mask, n_lon_windows, heads)
     _refuse_grad(what, qkv, bias, mask)
     hd = C // heads
@@ -261,12 +272,17 @@ fused_window_attention.launches = 0
 def flash_window_attention(q, k, v, bias, mask, n_lon_windows):
     """K11: attention over independent windows with split heads; q, k, v and
     the result (nWin, heads, wlen, hd)."""
+    with cost.kernel("K11", cost.window_attention_split, q):
+        return _window_attention_split(q, k, v, bias, mask, n_lon_windows)
+
+
+def _window_attention_split(q, k, v, bias, mask, n_lon_windows):
     what = "flash_window_attention"
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{what} takes q, k, v of one (nWin, heads, wlen, hd) shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     n_win, heads, wlen, hd = q.shape
     bias, n_types, n_masks = _tables(bias, mask, n_win, n_lon_windows, heads, wlen, what)
-    if q.device.type == "cpu":
+    if plain_only(q):
         return reference_window_attention(q, k, v, bias, mask, n_lon_windows)
     _refuse_grad(what, q, k, v, bias, mask)
     vec, body = _require(what, wlen, hd, q, k, v)

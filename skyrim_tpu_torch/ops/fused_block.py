@@ -55,7 +55,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops import _build, cost
 from skyrim_tpu_torch.ops.flash_window_attention import (
     attention_4d,
     reference_window_attention_4d,
@@ -152,8 +152,9 @@ def fused_swin_block(
     heads: int,
 ) -> torch.Tensor:
     """Whole pre-norm window-attention block; returns (Z, H, W, C) in x's dtype."""
-    return with_plain_vjp(_swin_block, reference_swin_block, x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb,
-                          window, heads)
+    with cost.kernel("K1", cost.swin_block, x, qkv_wb, mlp_wb, window, heads):
+        return with_plain_vjp(_swin_block, reference_swin_block, x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb,
+                              window, heads)
 
 
 def _swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads):

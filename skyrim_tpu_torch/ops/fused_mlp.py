@@ -59,7 +59,7 @@ import ctypes
 
 import torch
 
-from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops import _build, cost
 from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32, _layernorm_f32
 from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 
@@ -351,7 +351,8 @@ def fused_finish(x, b0, wb, ln):
     """``LN(Dense(swish(x + b0)))`` over rows (K12).  x: (N, L); b0: (L,); wb:
     ((L, Cout), (Cout,)); ln: (scale, bias) over Cout.  Returns (N, Cout),
     in the launches ``finish_path`` names."""
-    return with_plain_vjp(_finish, _plain_finish, x, b0, wb, ln)
+    with cost.kernel("K12", cost.finish, x, wb):
+        return with_plain_vjp(_finish, _plain_finish, x, b0, wb, ln)
 
 
 def _plain_finish(x, b0, wb, ln):
@@ -384,7 +385,8 @@ def fused_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False
     x: (N, Cin), or (Cin, N) with ``x_transposed``; w1b1: ((Cin [+ Cin2], H),
     (H,)); w2b2: ((H, Cout), (Cout,)); ln: optional (scale, bias) over Cout;
     x2: optional (N, Cin2); residual: optional (N, Cout)."""
-    return with_plain_vjp(_mlp, reference_mlp, x, w1b1, w2b2, ln, x2, residual, x_transposed)
+    with cost.kernel("K6", cost.mlp, x, w1b1, w2b2, x2, x_transposed):
+        return with_plain_vjp(_mlp, reference_mlp, x, w1b1, w2b2, ln, x2, residual, x_transposed)
 
 
 def _mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False):

@@ -68,7 +68,7 @@ import ctypes
 
 import torch
 
-from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops import _build, cost
 from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32
 from skyrim_tpu_torch.ops.fused_mlp import (
     _stream,
@@ -174,7 +174,9 @@ def fused_round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB):
     segment ids (== SB ⇒ padding); we: (L, L) edge-part kernel slice; b0:
     (L,); wb: ((L, L), (L,)); ln: (scale, bias).  Returns (new_edges (B, M,
     L), agg (B, SB, L))."""
-    return with_plain_vjp(_round_messages, reference_round_messages, edges, gsrc, staged, local, we, b0, wb, ln, SB)
+    with cost.kernel("K7", cost.round_messages, edges, SB):
+        return with_plain_vjp(_round_messages, reference_round_messages, edges, gsrc, staged, local, we, b0, wb, ln,
+                              SB)
 
 
 def _round_messages(edges, gsrc, staged, local, we, b0, wb, ln, SB):
@@ -218,7 +220,9 @@ def fused_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
     int32 index of each point into its tile's rows (from
     ``ops.graph.build_face_tiles``); bias_hw: (H, W, deg·L); ad_hw: (H, W, L).
     The tiles need not divide the grid.  Returns (H, W, L)."""
-    return with_plain_vjp(_m2g_tiled, reference_m2g_tiled, uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw)
+    with cost.kernel("K8", cost.m2g_tiled, uniq, bias_hw, deg):
+        return with_plain_vjp(_m2g_tiled, reference_m2g_tiled, uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th,
+                              tw)
 
 
 def _m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
@@ -315,7 +319,9 @@ def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=No
     dst index (== U ⇒ empty).  plan: ``g2m_plan(local_t, U, th, tw)`` built
     once with the tables; without it the plan is built here from
     ``local_t``.  Returns (TH, TW, U, L) tile partials."""
-    return with_plain_vjp(_g2m_tiled, _plain_g2m_tiled, asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan)
+    with cost.kernel("K9", cost.g2m_tiled, asrc_hw, D, U, th, tw):
+        return with_plain_vjp(_g2m_tiled, _plain_g2m_tiled, asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw,
+                              plan)
 
 
 def _plain_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=None):
@@ -367,7 +373,9 @@ def fused_fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
     wide/bias_w: (N, deg·L) source rows and cached bias, slot-major lane
     slices; ad: (N, L) dst-part rows; b0: (L,); wb: ((L, L), (L,)); ln over L;
     deg 1 to 4, L ≤ 512 on a CUDA tensor.  Returns (N, L)."""
-    return with_plain_vjp(_fixed_degree_messages, reference_fixed_degree_messages, wide, bias_w, ad, b0, wb, ln, deg)
+    with cost.kernel("K13", cost.fixed_degree_messages, wide, deg):
+        return with_plain_vjp(_fixed_degree_messages, reference_fixed_degree_messages, wide, bias_w, ad, b0, wb, ln,
+                              deg)
 
 
 def _fixed_degree_messages(wide, bias_w, ad, b0, wb, ln, deg):
@@ -439,7 +447,8 @@ def fused_block_messages(src_rows, bias_b, local, b0, wb, ln, SB):
     segment ids in any order (== SB ⇒ padding); L ≤ 512 on a CUDA tensor.
     Returns (B, SB, L) block aggregates (unpack with the plan's ``unpack``
     outside)."""
-    return with_plain_vjp(_block_messages, reference_block_messages, src_rows, bias_b, local, b0, wb, ln, SB)
+    with cost.kernel("K14", cost.block_messages, src_rows, SB):
+        return with_plain_vjp(_block_messages, reference_block_messages, src_rows, bias_b, local, b0, wb, ln, SB)
 
 
 def _block_messages(src_rows, bias_b, local, b0, wb, ln, SB):

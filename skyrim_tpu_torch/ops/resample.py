@@ -38,7 +38,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops import _build, cost
 from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32, _layernorm_f32
 from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 
@@ -119,7 +119,8 @@ def fused_downsample(x, ln, wb, prepared=None):
     contiguous; ln over 4C; wb ((4C, N), (N,)); ``prepared`` the terms of
     ``prepare_downsample(ln, wb)`` (computed here when not given) →
     (Z, ⌈H/2⌉, W/2, N)."""
-    return with_plain_vjp(_downsample, _plain_downsample, x, ln, wb, prepared)
+    with cost.kernel("K3", cost.downsample, x, wb):
+        return with_plain_vjp(_downsample, _plain_downsample, x, ln, wb, prepared)
 
 
 def _plain_downsample(x, ln, wb, prepared=None):
@@ -154,7 +155,8 @@ def fused_upsample(x, wb, ln, prepared=None):
     """x (Z, H, W, C), channels contiguous, any row strides; wb ((C, 4Co),
     (4Co,)); ln over Co; ``prepared`` = ``prepare_upsample(wb, ln)``
     (made here when not given) → (Z, 2H, 2W, Co)."""
-    return with_plain_vjp(_upsample, _plain_upsample, x, wb, ln, prepared)
+    with cost.kernel("K4", cost.upsample, x, wb):
+        return with_plain_vjp(_upsample, _plain_upsample, x, wb, ln, prepared)
 
 
 def _plain_upsample(x, wb, ln, prepared=None):

@@ -26,7 +26,8 @@ import ctypes
 
 import torch
 
-from skyrim_tpu_torch.ops import _build
+from skyrim_tpu_torch.ops import _build, cost
+from skyrim_tpu_torch.ops.vjp import plain_only
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -43,7 +44,7 @@ def _lib():
 
 
 def _roll(x: torch.Tensor, shifts) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if plain_only(x):
         return plain_roll3d(x, shifts)
     if x.ndim != 4 or not x.is_contiguous():
         raise ValueError(f"roll3d takes a contiguous (Z, H, W, C) tensor, got {tuple(x.shape)}")
@@ -77,7 +78,8 @@ class _Roll3d(torch.autograd.Function):
 
 def roll3d(x: torch.Tensor, shifts) -> torch.Tensor:
     """``out[z, h, w] = x[(z+s0)%Z, (h+s1)%H, (w+s2)%W]`` on (Z, H, W, C)."""
-    return _Roll3d.apply(x, tuple(int(s) for s in shifts))
+    with cost.kernel("K2", cost.roll, x):
+        return _Roll3d.apply(x, tuple(int(s) for s in shifts))
 
 
 roll3d.launches = 0

@@ -18,11 +18,37 @@ Arguments may be nested tuples and lists of tensors, ``None`` and Python
 values; only the tensors are the Function's inputs.  Integer tensors
 (index tables, row plans) and tensors that do not require a gradient
 (the shift mask) get none.
+
+``plain_versions()`` makes every wrapper run its plain version on a CUDA
+tensor too, launching nothing: the counterpart of the JAX package's
+``SKYRIM_NO_PALLAS``, for the stability harness's f32 leg
+(``utils/stability.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+_PLAIN = [0]
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the block every kernel wrapper runs its plain PyTorch version,
+    whatever device its tensors are on."""
+    _PLAIN[0] += 1
+    try:
+        yield
+    finally:
+        _PLAIN[0] -= 1
+
+
+def plain_only(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version: ``t`` on the CPU,
+    or inside ``plain_versions()``."""
+    return t.device.type == "cpu" or _PLAIN[0] > 0
 
 
 class _Slot:
@@ -79,6 +105,8 @@ def with_plain_vjp(kernel, plain, *args):
     on the same inputs.  ``kernel`` and ``plain`` take the same arguments
     and return a tensor or a tuple of tensors of the same shapes and
     dtypes."""
+    if _PLAIN[0]:
+        return plain(*args)
     tensors = []
     skeleton = _split(args, tensors)
     return _PlainVJP.apply(kernel, plain, skeleton, *tensors)

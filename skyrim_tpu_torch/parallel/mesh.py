@@ -19,10 +19,15 @@ collective: ``Mesh.to_wire`` stages it through host memory (under NCCL a
 host tensor goes to the card), and what arrives is moved back to the
 device of the tensor it stands for.  The backend in use is logged, never
 picked silently.
+
+``count_exchanges()`` records, while it is open, each exchange this rank
+makes through ``ring_exchange``, ``all_gather``, ``all_reduce_`` and
+``broadcast_`` (``parallel/collective_analysis.py`` reads the records).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -180,6 +185,35 @@ def single_device_mesh(device: str | torch.device | None = None) -> Mesh:
 # exchanges along one mesh axis (every rank of the line calls them alike)
 # --------------------------------------------------------------------------
 
+_COUNTS: list[list] = []
+
+
+@contextlib.contextmanager
+def count_exchanges():
+    """Yields a list that collects one record per exchange this rank makes in
+    the block: ``kind`` (the JAX package's HLO names: ``collective-permute``,
+    ``all-gather``, ``all-reduce``; and ``broadcast``), ``bytes`` (the
+    payload: a permute's sent tensor, an all-gather's result, an all-reduce's
+    or a broadcast's tensor), ``ici_bytes`` (what this rank pushes over its
+    links under the ring model: a permute's payload × hops, an all-gather's
+    (n − 1)/n of its result, an all-reduce's 2(n − 1)/n, a pipelined
+    broadcast's payload), ``group_size`` and ``op_name``."""
+    records: list = []
+    _COUNTS.append(records)
+    try:
+        yield records
+    finally:
+        _COUNTS.remove(records)
+
+
+def _record(kind: str, nbytes: int, ici: int, n: int) -> None:
+    for records in _COUNTS:
+        records.append({"kind": kind, "bytes": int(nbytes), "ici_bytes": int(ici), "group_size": n, "op_name": ""})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
 
 def ring_exchange(mesh: Mesh, axis: str, sends: list) -> list:
     """Periodic point-to-point exchange along ``axis``.  ``sends``: a list of
@@ -195,6 +229,7 @@ def ring_exchange(mesh: Mesh, axis: str, sends: list) -> list:
             out[i] = t.clone()
             continue
         buf = mesh.wire_empty(t)
+        _record("collective-permute", _nbytes(t), _nbytes(t) * min(hop % n, n - hop % n), n)
         ops.append(dist.P2POp(dist.isend, mesh.to_wire(t), ranks[(d + hop) % n], mesh.groups[axis], tag=i))
         ops.append(dist.P2POp(dist.irecv, buf, ranks[(d - hop) % n], mesh.groups[axis], tag=i))
         bufs.append((i, buf, t.device))
@@ -211,16 +246,33 @@ def all_gather(mesh: Mesh, axis: str, t: torch.Tensor, dim: int) -> torch.Tensor
     rank of the line, in axis order."""
     if mesh.shape[axis] == 1:
         return t
+    n = mesh.shape[axis]
+    _record("all-gather", n * _nbytes(t), (n - 1) * _nbytes(t), n)
     wire = mesh.to_wire(t)
-    parts = [torch.empty_like(wire) for _ in range(mesh.shape[axis])]
+    parts = [torch.empty_like(wire) for _ in range(n)]
     dist.all_gather(parts, wire, group=mesh.groups[axis])
     return torch.cat(parts, dim).to(t.device)
+
+
+def all_reduce_(mesh: Mesh, axis: str, t: torch.Tensor) -> torch.Tensor:
+    """Overwrite ``t`` in place with the sum of ``t`` over the ranks of this
+    rank's line along ``axis``; every rank of the line gets the same bits."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return t
+    _record("all-reduce", _nbytes(t), 2 * (n - 1) * _nbytes(t) // n, n)
+    wire = mesh.to_wire(t)
+    dist.all_reduce(wire, group=mesh.groups[axis])
+    if wire.data_ptr() != t.data_ptr():
+        t.copy_(wire)
+    return t
 
 
 def broadcast_(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
     """Overwrite ``t`` in place with global rank 0's ``t`` (the whole world)."""
     if mesh.size == 1:
         return t
+    _record("broadcast", _nbytes(t), _nbytes(t), mesh.size)
     wire = mesh.to_wire(t)
     dist.broadcast(wire, src=0)
     if wire.data_ptr() != t.data_ptr():

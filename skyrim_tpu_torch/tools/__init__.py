@@ -1,1 +1,2 @@
-"""Measurement tools for the port's kernels; each runs on a CUDA card."""
+"""Measurement tools for the port's kernels: ``kernel_variants`` runs on a CUDA card,
+``declared_costs`` anywhere."""

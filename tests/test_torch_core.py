@@ -140,8 +140,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_skyrim_tpu():
-    """Every module of the port (the data and IO layers and the parallel
-    layer among them, named) and chip_smoke.py import with the optional
+    """Every module of the port (the data and IO layers, the parallel layer
+    and the tooling among them, named) and chip_smoke.py import with the optional
     host packages the card's machine lacks blocked, and pull in neither
     jax, flax nor skyrim_tpu."""
     code = (
@@ -157,10 +157,13 @@ def test_port_imports_no_jax_and_no_skyrim_tpu():
         "      'data.schedules', 'data.regrid', 'data.transport', 'data.nwp_base', 'data.gfs', 'data.ifs',\n"
         "      'data.ens', 'data.cds', 'data.openmeteo', 'data.observations', 'io.zarrlite', 'evaluate',\n"
         "      'plotting')}\n"
-        "par = {'skyrim_tpu_torch.parallel.' + m for m in ('mesh', 'halo', 'fused_shard', 'sharding', 'mp_worker')}\n"
+        "par = {'skyrim_tpu_torch.parallel.' + m for m in ('mesh', 'halo', 'fused_shard', 'sharding', 'mp_worker',\n"
+        "       'scaling_bench', 'collective_analysis')}\n"
+        "tool = {'skyrim_tpu_torch.' + m for m in ('cli', 'serverless', 'ops.cost', 'utils.timing', 'utils.env',\n"
+        "        'utils.profiling', 'utils.op_stats', 'utils.op_bytes', 'utils.roofline', 'utils.stability')}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'skyrim_tpu'))\n"
-        "print(len(names), bad, sorted(gc - set(sys.modules)), sorted((io | par) - set(names)))\n"
-        "sys.exit(1 if bad or gc - set(sys.modules) or (io | par) - set(names) or len(names) < 20 else 0)\n"
+        "print(len(names), bad, sorted(gc - set(sys.modules)), sorted((io | par | tool) - set(names)))\n"
+        "sys.exit(1 if bad or gc - set(sys.modules) or (io | par | tool) - set(names) or len(names) < 20 else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
     assert out.returncode == 0, out.stdout + out.stderr

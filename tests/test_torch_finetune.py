@@ -432,12 +432,6 @@ def test_fit_refuses_short_targets(tmp_path):
         trainer.fit(FineTuneDataset(tmp_path, frames_out=1))
 
 
-def test_trainer_refuses_a_mesh():
-    _, _, model = _sfno()
-    with pytest.raises(ValueError, match=r"ROADMAP.md §1 item 10"):
-        Trainer(model, model.init_params(), mesh=object())
-
-
 def test_trainer_refuses_an_int8_tree():
     """The port refuses a quantized FuXi tree.  JAX's trainer builds its
     optimizer state over the int8 leaves and fails when the step

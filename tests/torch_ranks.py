@@ -1,7 +1,7 @@
 """Rank programs of the port's multi-device tests, and their launcher.
 
-tests/test_torch_parallel.py and tests/test_torch_sharded.py start each
-program once (``launch``): ``world`` processes of this file, one rank each,
+tests/test_torch_parallel.py, tests/test_torch_sharded.py and
+tests/test_torch_scaling.py start each program once (``launch``): ``world`` processes of this file, one rank each,
 join a gloo group over the CPU through a ``file://`` rendezvous and run
 every case of that program; each rank saves its results to
 ``<workdir>/<program>/rank<r>.pt``.  The tests compute the JAX references
@@ -276,7 +276,42 @@ def program_ensembles(workdir: Path) -> dict:
     return out
 
 
-PROGRAMS = {"parallel": program_parallel, "families": program_families, "ensembles": program_ensembles}
+def program_tooling(workdir: Path) -> dict:
+    """The tooling over 2 ranks: ``collective_analysis`` of the small Pangu
+    (and the 1-1-1-1 one JAX's test counts) over (1,1,2); the mesh trainer on
+    the SFNO of tests/test_torch_finetune.py over (2,1,1) and (1,1,2), two
+    steps in f32, its leaves, losses and gradient norms."""
+    from skyrim_tpu_torch.finetune import TrainConfig, Trainer
+    from skyrim_tpu_torch.models.pangu import PanguConfig, PanguModel
+    from skyrim_tpu_torch.models.sfno import FourCastNetV2Model, SFNOConfig
+    from skyrim_tpu_torch.parallel import collective_analysis as CA
+    from skyrim_tpu_torch.parallel.mesh import make_mesh
+    from skyrim_tpu_torch.params import from_jax
+
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    out = {}
+    ring = make_mesh(1, 1, 2, device="cpu")
+    for depths in ((2, 2, 2, 2), (1, 1, 1, 1)):
+        model = PanguModel("pangu6", cfg=PanguConfig(lat=49, lon=96, embed_dim=16, depths=depths,
+                                                     num_heads=(2, 2, 2, 2)), device="cpu")
+        out[("collectives", depths)] = CA.analyze_model(model, ring, 0.05)
+        out[("reckoned", depths)] = CA.reckon_lon_halo_bytes(model, 2)
+    for sizes in ((2, 1, 1), (1, 1, 2)):
+        mesh = make_mesh(*sizes, device="cpu")
+        model = FourCastNetV2Model(SFNOConfig(**inputs["sfno_cfg"]), device="cpu")
+        model.compute_dtype = torch.float32
+        tr = Trainer(model, from_jax(inputs["tree"], model), TrainConfig(**inputs["train_cfg"]), mesh=mesh)
+        losses, norms = [], []
+        for xs, ys in inputs["batches"]:
+            losses.append(float(tr.train_step(xs, ys)))
+            norms.append(float(tr.last_grad_norm))
+        out[("trainer", sizes)] = {"leaves": {k: p.detach().numpy().copy() for k, p in tr.leaves.items()},
+                                   "losses": losses, "norms": norms}
+    return out
+
+
+PROGRAMS = {"parallel": program_parallel, "families": program_families, "ensembles": program_ensembles,
+            "tooling": program_tooling}
 
 
 def main() -> int:
