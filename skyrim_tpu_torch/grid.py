@@ -15,6 +15,8 @@ from functools import cached_property, lru_cache
 
 import numpy as np
 
+EARTH_RADIUS_M = 6_371_000.0
+
 
 @dataclass(frozen=True)
 class LatLonGrid:

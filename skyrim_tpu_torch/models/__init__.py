@@ -11,3 +11,6 @@ from skyrim_tpu_torch.models.sfno import FourCastNetV2Model
 
 MODELS = {"pangu": PanguModel, "graphcast": GraphCastModel, "fourcastnet_v2": FourCastNetV2Model, "fengwu": FengWuModel,
           "fuxi": FuXiModel, "fourcastnet": FourCastNetModel, "dlwp": DLWPModel}
+
+# the JAX package's list, in its order
+AVAILABLE_MODELS = ["pangu", "fourcastnet", "fourcastnet_v2", "dlwp", "graphcast", "fuxi", "fengwu"]

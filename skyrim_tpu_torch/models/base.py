@@ -25,6 +25,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from skyrim_tpu_torch.channels import CHANNEL_SETS
 from skyrim_tpu_torch.grid import GRID_721x1440, LatLonGrid
 
 Params = Any
@@ -196,3 +197,8 @@ def normalize(norm: dict, x: torch.Tensor) -> torch.Tensor:
 
 def denormalize(norm: dict, x: torch.Tensor) -> torch.Tensor:
     return x * norm["std"] + norm["mean"]
+
+
+def model_channels(name: str) -> tuple[str, ...]:
+    """The channels of the model registered as ``name``."""
+    return CHANNEL_SETS[name]

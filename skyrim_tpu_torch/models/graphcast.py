@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from skyrim_tpu_torch import channels as ch
-from skyrim_tpu_torch.data.solar import clock_features, toa_incident_solar_radiation
+from skyrim_tpu_torch.data.solar import clock_features_torch, toa_incident_solar_radiation_torch
 from skyrim_tpu_torch.grid import LatLonGrid
 from skyrim_tpu_torch.models.base import (
     PrognosticModel,
@@ -324,11 +324,11 @@ class GraphCastModel(PrognosticModel):
         a float32 product, as in the JAX model, whose state holds float32
         days."""
         sec = torch.tensor(time_days, dtype=torch.float32, device=self.device) * 86400.0
-        tisr = toa_incident_solar_radiation(
+        tisr = toa_incident_solar_radiation_torch(
             sec, self.grid.lat, self.grid.lon,
             integration_hours=self.time_step.total_seconds() / 3600.0,
         )
-        clock = clock_features(sec, self.grid.lat, self.grid.lon)
+        clock = clock_features_torch(sec, self.grid.lat, self.grid.lon)
         tisr = tisr / 1.5e7  # scale to O(1): 6h TOA max ≈ 1361·3600·6
         return torch.cat([tisr[None], clock], dim=0)
 

@@ -43,7 +43,8 @@ On a CPU tensor ``fused_mlp`` runs ``reference_mlp`` and ``fused_finish``
 ``reference_finish``; on a CUDA tensor they launch the kernels or raise.
 Reverse mode is JAX's ``_mlp_bwd``/``_finish_bwd`` (``ops/vjp.py``): the
 backward differentiates the plain version on the saved inputs
-(``x_transposed`` is not differentiated).
+(``x_transposed`` is not differentiated), ``fused_mlp``'s in chunks of
+rows where the call is large (``RowChunks``).
 ``<wrapper>.launches`` counts wrapper calls that launched,
 ``fused_mlp.launches_by_shape`` the same by (N, Cin, Cin2, Cout),
 ``mlp_finish.launches_by_shape`` the whole-row finish's by (rows, L,
@@ -61,7 +62,7 @@ import torch
 
 from skyrim_tpu_torch.ops import _build, cost
 from skyrim_tpu_torch.ops.fused_block import _EPS, _bf16, _f32, _layernorm_f32
-from skyrim_tpu_torch.ops.vjp import with_plain_vjp
+from skyrim_tpu_torch.ops.vjp import RowChunks, with_plain_vjp
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _ACT_NONE, _ACT_SWISH = 0, 1  # rowgemm::Act
@@ -386,7 +387,9 @@ def fused_mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False
     (H,)); w2b2: ((H, Cout), (Cout,)); ln: optional (scale, bias) over Cout;
     x2: optional (N, Cin2); residual: optional (N, Cout)."""
     with cost.kernel("K6", cost.mlp, x, w1b1, w2b2, x2, x_transposed):
-        return with_plain_vjp(_mlp, reference_mlp, x, w1b1, w2b2, ln, x2, residual, x_transposed)
+        rows = RowChunks(x.shape[1] if x_transposed else x.shape[0], 1,
+                         {0: (1 if x_transposed else 0, 1), 4: (0, 1), 5: (0, 1)}, (0, 1))
+        return with_plain_vjp(_mlp, reference_mlp, x, w1b1, w2b2, ln, x2, residual, x_transposed, chunks=rows)
 
 
 def _mlp(x, w1b1, w2b2, ln=None, x2=None, residual=None, x_transposed=False):

@@ -57,9 +57,11 @@ tensor and launches the kernels or raises on a CUDA tensor.  Reverse mode
 is JAX's ``_round_bwd``, ``_m2g_tiled_bwd``, ``_g2m_tiled_bwd``,
 ``_m2g_bwd`` and ``_g2m_bwd`` (``ops/vjp.py``): the backward differentiates
 the plain version on the saved inputs; the static tables (``local``,
-``local_hw``, ``local_t``) and K9's row plan get no gradient.  ``launches``
-counts wrapper calls that launched (K7 also ``launches_by_shape``;
-``block_messages.launches`` K14's messages launches).
+``local_hw``, ``local_t``) and K9's row plan get no gradient; K8 and K9
+replay whole tile rows at a time where the call is large (``RowChunks``).
+``launches`` counts wrapper calls that launched (K7 also
+``launches_by_shape``; ``block_messages.launches`` K14's messages
+launches).
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ from skyrim_tpu_torch.ops.fused_mlp import (
     segment_sum,
 )
 from skyrim_tpu_torch.ops.graph import block_onehot, g2m_row_plan
-from skyrim_tpu_torch.ops.vjp import with_plain_vjp
+from skyrim_tpu_torch.ops.vjp import RowChunks, with_plain_vjp
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -221,8 +223,10 @@ def fused_m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
     ``ops.graph.build_face_tiles``); bias_hw: (H, W, deg·L); ad_hw: (H, W, L).
     The tiles need not divide the grid.  Returns (H, W, L)."""
     with cost.kernel("K8", cost.m2g_tiled, uniq, bias_hw, deg):
+        tiles = RowChunks(uniq.shape[0], th * local_hw.shape[1] * deg, {0: (0, 1), 1: (0, th), 2: (0, th), 3: (0, th)},
+                          (0, th))
         return with_plain_vjp(_m2g_tiled, reference_m2g_tiled, uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th,
-                              tw)
+                              tw, chunks=tiles)
 
 
 def _m2g_tiled(uniq, local_hw, bias_hw, ad_hw, b0, wb, ln, deg, th, tw):
@@ -320,8 +324,9 @@ def fused_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=No
     once with the tables; without it the plan is built here from
     ``local_t``.  Returns (TH, TW, U, L) tile partials."""
     with cost.kernel("K9", cost.g2m_tiled, asrc_hw, D, U, th, tw):
+        tiles = RowChunks(local_t.shape[0], th * asrc_hw.shape[1] * D, {0: (0, th), 1: (0, th), 2: (0, 1)}, (0, 1))
         return with_plain_vjp(_g2m_tiled, _plain_g2m_tiled, asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw,
-                              plan)
+                              plan, chunks=tiles)
 
 
 def _plain_g2m_tiled(asrc_hw, bias_hw, local_t, b0, wb, ln, D, U, th, tw, plan=None):

@@ -30,6 +30,7 @@ JAX is imported inside the fixtures and tests: the card's machine has no
 JAX and runs only the ``gpu`` tests of this file.
 """
 
+import contextlib
 
 import numpy as np
 import pytest
@@ -271,13 +272,29 @@ def _port_step(model, params, xs, ys, cfg):
     return float(loss.detach()), grads, new, tr
 
 
+_JAX_STEPS = {}  # name -> _jax_step's result on _batch, computed once a process
+
+
+def _jax_step_of(name, jm, tree, xs, ys, cfg):
+    if name not in _JAX_STEPS:
+        _JAX_STEPS[name] = _jax_step(jm, tree, xs, ys, cfg)
+    return _JAX_STEPS[name]
+
+
 def test_trainer_step_matches_jax(models, jax_path):
     name, jm, tree, model = models
     xs, ys = _batch(model)
     cfg = dict(batch_size=B, learning_rate=LR, weight_decay=WD)
-    jloss, jgrads, jnew = _jax_step(jm, tree, xs, ys, cfg)
     params = from_jax(tree, model)
-    loss, grads, new, tr = _port_step(model, params, xs, ys, cfg)
+    step = _port_step(model, params, xs, ys, cfg)
+    _assert_step_matches_jax(name, tree, step, _jax_step_of(name, jm, tree, xs, ys, cfg))
+
+
+def _assert_step_matches_jax(name, tree, step, jax_step):
+    """The port's step (``_port_step``) against JAX's (``_jax_step``) at the
+    tolerances of the module docstring."""
+    loss, grads, new, tr = step
+    jloss, jgrads, jnew = jax_step
     assert "cache" not in tr.params
     assert set(grads) == set(jgrads) == {k for k in flatten(tree) if not k.startswith("cache/")}
     np.testing.assert_allclose(loss, jloss, rtol=1e-3)
@@ -297,6 +314,66 @@ def test_trainer_step_matches_jax(models, jax_path):
         for k in (k for k in grads if k.startswith("net24/")):
             assert not grads[k].any()
             np.testing.assert_allclose(new[k], before[k] * (1 - LR * WD), rtol=1e-6, atol=1e-12)
+
+
+def test_chunked_replay_equals_whole_and_jax(monkeypatch):
+    """GraphCast's step with every K6, K8 and K9 backward replayed in chunks
+    (``ops.vjp.CHUNK_ROWS`` at 64 rows: K8 in 3 chunks of tile rows, K9 in
+    19, each K6 call in several): the gradients equal the whole replay's at
+    f32 atol 3e-5, rtol 1e-3, and JAX's step as
+    test_trainer_step_matches_jax holds it."""
+    jnp = pytest.importorskip("jax.numpy")
+    import skyrim_tpu.ops.flash_window_attention as fwa
+
+    from skyrim_tpu_torch.ops import vjp
+
+    monkeypatch.setattr(fwa, "use_pallas", lambda: True)
+    jm, tree, model = _graphcast()
+    jm.compute_dtype, model.compute_dtype = jnp.float32, torch.float32
+    xs, ys = _batch(model)
+    cfg = dict(batch_size=B, learning_rate=LR, weight_decay=WD)
+    params = from_jax(tree, model)
+    whole = _port_step(model, params, xs, ys, cfg)
+    chunks = {}
+    replay = vjp._replay_in_chunks
+
+    def spy(plain, skeleton, rows, *args):
+        chunks[plain.__name__] = max(chunks.get(plain.__name__, 0), len(rows.spans()))
+        return replay(plain, skeleton, rows, *args)
+
+    monkeypatch.setattr(vjp, "CHUNK_ROWS", 64)
+    monkeypatch.setattr(vjp, "_replay_in_chunks", spy)
+    step = _port_step(model, params, xs, ys, cfg)
+    assert chunks == {"reference_mlp": chunks["reference_mlp"], "reference_m2g_tiled": 3, "_plain_g2m_tiled": 19}
+    assert chunks["reference_mlp"] > 1
+    for k in whole[1]:
+        np.testing.assert_allclose(step[1][k], whole[1][k], atol=3e-5, rtol=1e-3, err_msg=k)
+    _assert_step_matches_jax("graphcast", tree, step, _jax_step_of("graphcast", jm, tree, xs, ys, cfg))
+
+
+def test_plain_forwards_keep_the_step(monkeypatch):
+    """``ops.vjp.plain_forwards()``, the plain path of the card's gradient
+    comparison: each wrapper's plain forward run in its chunks inside the
+    Function, the same replay backward.  On the CPU the wrappers' forwards
+    are already the plain versions, so the loss and gradients equal the
+    step's without it."""
+    from skyrim_tpu_torch.ops import vjp
+
+    _, _, model = _graphcast()
+    model.compute_dtype = torch.float32
+    params = model.init_params()
+    xs, ys = (torch.from_numpy(a) for a in _batch(model))
+    monkeypatch.setattr(vjp, "CHUNK_ROWS", 64)
+    out = []
+    for plain in (False, True):
+        tr = Trainer(model, params, TrainConfig(batch_size=B, remat=not plain))
+        with vjp.plain_forwards() if plain else contextlib.nullcontext():
+            loss = tr.loss(xs, ys)
+            loss.backward()
+        out.append((loss.detach(), {k: p.grad for k, p in tr.leaves.items()}))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=0)
+    for k, g in out[0][1].items():
+        torch.testing.assert_close(out[1][1][k], g, atol=3e-5, rtol=1e-3, msg=k)
 
 
 def test_apply_without_cache_equals_cached_and_jax(models, jax_path):

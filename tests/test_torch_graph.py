@@ -194,7 +194,7 @@ def test_forcings_match_jax(when):
     float32 days); the fields then agree to 1e-5 relative."""
     from skyrim_tpu.data.solar import clock_features_jax, toa_incident_solar_radiation_jax
 
-    from skyrim_tpu_torch.data.solar import clock_features, toa_incident_solar_radiation
+    from skyrim_tpu_torch.data.solar import clock_features_torch, toa_incident_solar_radiation_torch
     from skyrim_tpu_torch.grid import LatLonGrid
 
     grid = LatLonGrid(19, 36)
@@ -203,11 +203,11 @@ def test_forcings_match_jax(when):
     sec = torch.tensor(days, dtype=torch.float32) * 86400.0
     assert sec.item() == float(sec32)
     ref = np.asarray(toa_incident_solar_radiation_jax(sec32, grid.lat, grid.lon, integration_hours=6.0))
-    out = toa_incident_solar_radiation(sec, grid.lat, grid.lon, integration_hours=6.0).numpy()
+    out = toa_incident_solar_radiation_torch(sec, grid.lat, grid.lon, integration_hours=6.0).numpy()
     assert ref.max() > 0 and out.dtype == np.float32
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5 * ref.max())
     ref = np.asarray(clock_features_jax(sec32, grid.lat, grid.lon))
-    np.testing.assert_allclose(clock_features(sec, grid.lat, grid.lon).numpy(), ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(clock_features_torch(sec, grid.lat, grid.lon).numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
 # --- K6 plain ----------------------------------------------------------------
