@@ -17,9 +17,10 @@ Phases:
      and its window attention alone with a strong earth bias; K2 at both
      shapes; FengWu's fuser: K1 at (1, 186, 360, 1152), 18 heads, window
      (1, 6, 12), one bias table, the shift (0, 3, 6) and the padding rows
-     181-185 in its mask, on the seven-launch chain (C > 512), its
-     attention alone, and K2 at the same shape; K2 at FuXi's trunk (1, 96,
-     180, 1536), exact against torch.roll; each K1 and K2 row names the
+     181-185 in its mask, on the "wide" path (C > 512, five launches,
+     every product on ops.gemm.wide_gemm), its attention alone, and K2 at
+     the same shape; K2 at FuXi's trunk (1, 96, 180, 1536), exact against
+     torch.roll; each K1 and K2 row names the
      forecast whose launches it reports; K3 and K4, each one launch, on
      the strided views of the stage
      buffers the forward hands them (K3's odd H, 181, read in place), each
@@ -44,11 +45,14 @@ Phases:
      past a ragged M (N 192 and 512, residual epilogue), which must come back
      bit-identical, and every shape it takes on the main paths (Pangu's
      eight block products, four of them -- LN1 + qkv, LN2 + fc1 + GELU at
-     both stages -- with the LayerNorm in the prologue (ops.gemm.ln_gemm),
-     timed beside the LayerNorm rows launch + GEMM pair they replace and
-     refusing three faults: each row's statistics from the next row, the
-     LayerNorm left out, beta dropped; K7's second product, K6's grid
-     update) against its plain version, with its rate,
+     both stages -- with the LayerNorm in the prologue (ops.gemm.ln_gemm);
+     FengWu's and FuXi V1's eight on ops.gemm.wide_gemm, the four LN1 + qkv
+     and LN2 + fc1 rows with the LayerNorm in the product, each also timed
+     on the 128 x 128 ping-pong GEMM of ops.gemm.gemm it replaces; every
+     LayerNorm-prologue row timed beside the LayerNorm rows launch + GEMM
+     pair it replaces and refusing three faults: each row's statistics
+     from the next row, the LayerNorm left out, beta dropped; K7's second
+     product, K6's grid update) against its plain version, with its rate,
      bound and launches per forward beside torch.matmul's (timed only); K8 and K9 on the real full-width
      tile tables (partial face tiles in K8, its one launch also stored into
      an output with 64 guard rows past H*W, which must come back
@@ -66,8 +70,8 @@ Phases:
      scaled_dot_product_attention (timed only), each row named with the kernel body its shape takes
      (ops/flash_window_attention.py attention_body); K5 and K1 at FuXi's V1
      trunk geometry (window (1, 6, 12), wlen
-     72, hd 64; K1 there on its seven-launch chain, C 1536, its row
-     reporting the launches of FuXi V1's forecast); K12 over the grid
+     72, hd 64; K1 there on the "wide" path, C 1536, five launches, its
+     row reporting the launches of FuXi V1's forecast); K12 over the grid
      rows and the mesh edges, one launch a call (timed over 20 after 5),
      within 2 ulps of its two-launch chain (the finish GEMM, then the
      LayerNorm rows; timed beside it), its store into an output with 64
@@ -111,9 +115,9 @@ Phases:
      launches no kernel of the port (every count stays 0), then
      GlobalModel("fengwu", ic_source="synthetic"), 721x1440, 69 channels, 2
      frames, fuser 1152 with 18 heads, 16 blocks, a 4-step forecast (16 K1
-     on the chain at (1, 186, 360, 1152) and 16 K2 at that shape per
-     forward; inside K1 64 launches of the row GEMM through ops.gemm and 32
-     of the LayerNorm rows, none of ln_gemm), then GlobalModel("fuxi",
+     on the "wide" path at (1, 186, 360, 1152) and 16 K2 at that shape per
+     forward; inside K1 64 launches of wide_gemm, none of ops.gemm's gemm
+     or ln_gemm and no LayerNorm rows launch), then GlobalModel("fuxi",
      ic_source="synthetic"), the published Swin-V2 cascade at 721x1440, 70
      channels, 2 frames, 3 stages of 48 blocks at C 1536 (its seed-0
      parameters drawn on the card and given as params), a 4-step forecast
@@ -124,8 +128,8 @@ Phases:
      step ms beside bf16's, peak, the first step within 0.15 mean |diff| /
      mean |bf16| of bf16, 48 K2 a step; then torch._int_mm, int8_dot and
      torch.matmul at the trunk's four product shapes, timed only), then
-     FuXi's V1 flavour, one stage (48 K1 on the chain and 48 K2 a forward,
-     inside K1 192 launches of the row GEMM and 96 of the LayerNorm rows),
+     FuXi's V1 flavour, one stage (48 K1 on the "wide" path and 48 K2 a
+     forward, inside K1 192 launches of wide_gemm and no LayerNorm rows),
      then GlobalModel("fourcastnet", ic_source="synthetic"), AFNO at
      720x1440, 26 channels, width 768, 12 blocks (no kernel of the port),
      then GlobalModel("dlwp", ic_source="synthetic"), DLWP at 721x1440, 7
@@ -227,8 +231,8 @@ Phases:
      widths (721x1440, embed 192, depths 2-6-6-2; seed-0 parameters drawn
      on the card, the constant masks at random, replicated from rank 0) over
      (dp, lat, lon) = (1, 1, 2), 2 steps (the window covers at both stages,
-     stage 1 through the shift); FengWu over (1, 1, 2), 1 step (K1's chain
-     at C 1152 on covers); DLWP over (1, 1, 2) in gather mode, 1 call; a
+     stage 1 through the shift); FengWu over (1, 1, 2), 1 step (K1's "wide"
+     path at C 1152 on covers); DLWP over (1, 1, 2) in gather mode, 1 call; a
      2-member Pangu IC ensemble (ic_ensemble_forecast, the synthetic IC)
      over (2, 1, 1).  4 ranks: Pangu over (1, 1, 4), 1 step; the IC
      ensemble over (2, 1, 2).  Each output gathered on rank 0 and held to
@@ -377,17 +381,17 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 def k1_launches(torch, args, window, heads) -> str:
     """One call of fused_swin_block with its kernels' launches counted: its
     path (ops.fused_block.block_path) and the launches, which must be five
-    on the ln_gemm path and seven on the chain."""
+    on the ln_gemm and wide paths and seven on the chain."""
     from skyrim_tpu_torch.ops import fused_block as FB
-    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm
+    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm, wide_gemm
 
-    kernels = (ln_gemm, gemm, FB.layernorm, FB.window_attention)
+    kernels = (ln_gemm, gemm, FB.layernorm, FB.window_attention, wide_gemm)
     before = [k.launches for k in kernels]
     FB.fused_swin_block(*args, window, heads)
     torch.cuda.synchronize()
     n = sum(k.launches - b for k, b in zip(kernels, before))
     path = FB.block_path(args[0].shape[-1])
-    check(n == {"ln_gemm": 5, "chain": 7}[path], f"K1 at C {args[0].shape[-1]} ({path}) launched {n} kernels a call")
+    check(n == {"ln_gemm": 5, "wide": 5, "chain": 7}[path], f"K1 at C {args[0].shape[-1]} ({path}) launched {n} kernels a call")
     return f"[{path}: {n} launches a call]"
 
 
@@ -409,7 +413,7 @@ def kernel_checks(torch, g) -> tuple[list[dict], dict]:
     attn_err = {}
     # (label, (Z, H, W, C, heads, valid_h), window, shift, a bias table per
     # (z, lat) window type): Pangu's two stage widths, and FengWu's fuser
-    # (one table, C 1152: K1's seven-launch chain)
+    # (one table, C 1152: K1's five-launch "wide" path)
     geometries = (("stage 1/4", (8, 186, 360, 192, 6, 181), (2, 6, 12), (1, 3, 6), True),
                   ("stage 2/3", (8, 96, 180, 384, 12, 91), (2, 6, 12), (1, 3, 6), True),
                   ("FengWu fuser", (1, 186, 360, 1152, 18, 181), (1, 6, 12), (0, 3, 6), False))
@@ -953,8 +957,10 @@ def g2m_parts(torch, args, plan, n_edges) -> dict:
 # The row GEMM's shapes on the main paths: name, M, K, N, epilogue (what K1
 # gives ops.gemm.gemm; "ln", "ln_gelu": ops.gemm.ln_gemm, the
 # LayerNorm in the prologue, bias or GELU; "mlp": ops.fused_mlp.mlp_gemm, bias
-# only), and the kernel (with its by-shape key) whose launches it shares.
-S1, S2, SF = (8, 186, 360, 192), (8, 96, 180, 384), (1, 186, 360, 1152)
+# only; "wide ...": the same epilogue on ops.gemm.wide_gemm, K1's products at
+# C > 512, "wide ln" with the LayerNorm in the product), and the kernel (with
+# its by-shape key) whose launches it shares.
+S1, S2, SF, SV = (8, 186, 360, 192), (8, 96, 180, 384), (1, 186, 360, 1152), (1, 96, 180, 1536)
 GEMM_ROWS = (
     ("Pangu stage 1/4 LN1 + qkv", 535680, 192, 576, "ln", ("K1", S1)),
     ("Pangu stage 1/4 proj + residual", 535680, 192, 192, "residual", ("K1", S1)),
@@ -964,10 +970,14 @@ GEMM_ROWS = (
     ("Pangu stage 2/3 proj + residual", 138240, 384, 384, "residual", ("K1", S2)),
     ("Pangu stage 2/3 LN2 + fc1 + GELU", 138240, 384, 1536, "ln_gelu", ("K1", S2)),
     ("Pangu stage 2/3 fc2 + residual", 138240, 1536, 384, "residual", ("K1", S2)),
-    ("FengWu fuser qkv", 66960, 1152, 3456, "bias", ("K1", SF)),
-    ("FengWu fuser proj + residual", 66960, 1152, 1152, "residual", ("K1", SF)),
-    ("FengWu fuser fc1 + GELU", 66960, 1152, 4608, "gelu", ("K1", SF)),
-    ("FengWu fuser fc2 + residual", 66960, 4608, 1152, "residual", ("K1", SF)),
+    ("FengWu fuser LN1 + qkv", 66960, 1152, 3456, "wide ln", ("K1", SF)),
+    ("FengWu fuser proj + residual", 66960, 1152, 1152, "wide residual", ("K1", SF)),
+    ("FengWu fuser LN2 + fc1 + GELU", 66960, 1152, 4608, "wide ln_gelu", ("K1", SF)),
+    ("FengWu fuser fc2 + residual", 66960, 4608, 1152, "wide residual", ("K1", SF)),
+    ("FuXi V1 trunk LN1 + qkv", 17280, 1536, 4608, "wide ln", ("K1", SV)),
+    ("FuXi V1 trunk proj + residual", 17280, 1536, 1536, "wide residual", ("K1", SV)),
+    ("FuXi V1 trunk LN2 + fc1 + GELU", 17280, 1536, 6144, "wide ln_gelu", ("K1", SV)),
+    ("FuXi V1 trunk fc2 + residual", 17280, 6144, 1536, "wide residual", ("K1", SV)),
     ("K7's second product", 322 * 1024, 512, 512, "mlp", ("K7", None)),
     ("K6 grid_update, one product", 721 * 1440, 512, 512, "mlp", ("K6", (721 * 1440, 512, 0, 512))),
 )
@@ -984,14 +994,16 @@ def row_gemm_checks(torch, g) -> tuple[list[dict], dict]:
     against its plain version, timed with torch.matmul in bf16 on the same
     operands beside it (the yardstick: called nowhere in the port), the
     LayerNorm-prologue rows also with the pair of launches they replace and
-    under three faults (ln_gemm_faults).  Returns the rows and the faults'
-    errors over the limit."""
+    under three faults (ln_gemm_faults), the wide_gemm rows also with
+    ops.gemm.gemm's 128 x 128 ping-pong kernel on the same operands (on h
+    for the LayerNorm rows).  Returns the rows and the faults' errors over
+    the limit."""
     import ctypes
 
     from skyrim_tpu_torch.ops import _build
     from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops import fused_mlp as FM
-    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm, plain_gemm, plain_ln_gemm
+    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm, plain_gemm, plain_ln_gemm, wide_gemm
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -1032,28 +1044,32 @@ def row_gemm_checks(torch, g) -> tuple[list[dict], dict]:
 
     faults = {}
     for what, M, K, N, epi, launch_of in GEMM_ROWS:
+        wide, kind = epi.startswith("wide "), epi.removeprefix("wide ")
         a, w, b = randn(M, K, dtype=bf16), randn(K, N, scale=K**-0.5, dtype=bf16), randn(N, scale=0.1)
-        r = randn(M, N, dtype=bf16) if epi == "residual" else None
-        gelu, extra = epi in ("gelu", "ln_gelu"), {}
-        if epi.startswith("ln"):
+        r = randn(M, N, dtype=bf16) if kind == "residual" else None
+        gelu, extra = kind in ("gelu", "ln_gelu"), {}
+        if kind.startswith("ln"):
             # rows of the residual stream's kind: each its own scale and
             # offset, so that a LayerNorm left out or misapplied shows; beta
             # drawn at 0.3 so that its drop does
             a = (a.float() * (0.5 + 3 * torch.rand(M, 1, device=dev, generator=g)) + randn(M, 1)).to(bf16)
             ln = (1 + randn(K, scale=0.1), randn(K, scale=0.3))
-            fn = lambda: ln_gemm(a, ln, w, b, gelu=gelu)  # noqa: E731
+            if wide:
+                fn = lambda: wide_gemm(a, w, b, ln=ln, gelu=gelu)  # noqa: E731
+            else:
+                fn = lambda: ln_gemm(a, ln, w, b, gelu=gelu)  # noqa: E731
             ref = plain_ln_gemm(a, ln, w, b, gelu=gelu)
-        elif epi == "mlp":
+        elif kind == "mlp":
             fn = lambda: FM.mlp_gemm(a, w, b)  # noqa: E731
             ref = plain_gemm(a, w, b)
         else:
-            fn = lambda: gemm(a, w, b, gelu=gelu, residual=r)  # noqa: E731
+            fn = lambda: (wide_gemm if wide else gemm)(a, w, b, gelu=gelu, residual=r)  # noqa: E731
             ref = plain_gemm(a, w, b, gelu=gelu, residual=r)
         c = fn()
         torch.cuda.synchronize()
         err = compare(torch, c, ref, f"row GEMM, {what}")
         del c
-        if epi.startswith("ln"):
+        if kind.startswith("ln"):
             faults.update(ln_gemm_faults(torch, what, a, ln, w, b, gelu, ref))
             h = FB.layernorm(a, *ln)
             # the pair it replaces (the LayerNorm rows launch, then the aligned
@@ -1061,6 +1077,8 @@ def row_gemm_checks(torch, g) -> tuple[list[dict], dict]:
             extra = dict(pair_ms=time_ms(torch, lambda: gemm(FB.layernorm(a, *ln), w, b, gelu=gelu), 10),
                          gemm_alone_ms=time_ms(torch, lambda: gemm(h, w, b, gelu=gelu), 10))
             del h
+        elif wide:  # the 128 x 128 ping-pong GEMM it replaces, on the same operands
+            extra = dict(gemm_alone_ms=time_ms(torch, lambda: gemm(a, w, b, gelu=gelu, residual=r), 10))
         del ref
         ms = time_ms(torch, fn, 10)
         lib_ms = time_ms(torch, lambda: torch.matmul(a, w), 10)
@@ -1223,7 +1241,7 @@ def attention_op_checks(torch, g) -> list[dict]:
     )
     path = k1_launches(torch, args[:-2], *args[-2:])
     op_row(torch, rows, f"K1 fused_swin_block FuXi V1 trunk {(Z, H, Wd, C)} [attention: {FA.attention_body(wlen, C // heads)} body] {path}",
-           "skyrim_tpu_torch/csrc/fused_block.cu+attention.cuh+gemm.cu", "skyrim_tpu/ops/fused_block.py:202",
+           "skyrim_tpu_torch/csrc/gemm.cu+rowgemm.cuh+attention.cuh+fused_block.cu", "skyrim_tpu/ops/fused_block.py:202",
            FB.fused_swin_block, args, FB.reference_swin_block,
            2 * N * C * (4 * C + 2 * hidden) + 4 * 16 * 15 * heads * wlen * wlen * (C // heads),
            2 * N * C * 2 + 2 * C * (4 * C + 2 * hidden) + 4 * args[3].numel() + 4 * mask.numel(), iters=10)
@@ -1584,11 +1602,11 @@ def counters():
     from skyrim_tpu_torch.ops import resample as RS
     from skyrim_tpu_torch.ops import roll as RL
     from skyrim_tpu_torch.ops.fused_mlp import fused_finish, fused_mlp
-    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm
+    from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm, wide_gemm
 
     return {"K1": FB.fused_swin_block, "K2": RL.roll3d, "K3": RS.fused_downsample,
             "K4": RS.fused_upsample, "K5": FA.fused_window_attention_4d, "gemm": gemm, "ln_gemm": ln_gemm,
-            "layernorm": FB.layernorm, "K6": fused_mlp,
+            "wide_gemm": wide_gemm, "layernorm": FB.layernorm, "K6": fused_mlp,
             "K7": GK.fused_round_messages, "K8": GK.fused_m2g_tiled, "K9": GK.fused_g2m_tiled,
             "K10": FA.fused_window_attention, "K11": FA.flash_window_attention, "K12": fused_finish,
             "K13": GK.fused_fixed_degree_messages, "K14": GK.fused_block_messages}
@@ -1660,8 +1678,9 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
     if model.name == "fuxi":
         # both flavours: the trunk's 24 shifted blocks each between two K2
         # rolls on the (96, 180) token grid; V1's 48 blocks at C 1536 take
-        # K1's chain (4 products through ops.gemm and 2 LayerNorm rows
-        # launches a block); Swin-V2's blocks are a PyTorch composition
+        # K1's "wide" path (4 wide_gemm launches a block, LN1 and LN2 in
+        # their products: no LayerNorm rows launch); Swin-V2's blocks are a
+        # PyTorch composition
         cfg = model.cfg
         Ht, Wt = cfg.tokens
         Hd, wh = (Ht + Ht % 2) // 2, cfg.window[0]
@@ -1670,22 +1689,22 @@ def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
         counts.update(K2=rolls)
         by_shape["K2"] = {shape: rolls}
         if not cfg.attn_v2:
-            counts.update(K1=n_blocks, gemm=4 * n_blocks, layernorm=2 * n_blocks)
-            by_shape["K1"], by_shape["K1 path"] = {shape: n_blocks}, {"chain": n_blocks}
+            counts.update(K1=n_blocks, wide_gemm=4 * n_blocks)
+            by_shape["K1"], by_shape["K1 path"] = {shape: n_blocks}, {"wide": n_blocks}
         return counts, by_shape
     if model.name == "fengwu":
-        # the fuser's 16 blocks at C 1152 take K1's chain (block_path: C >
-        # 512): LN1, qkv, attention, proj + residual, LN2, fc1 + GELU, fc2 +
-        # residual, so 4 products through ops.gemm and 2 LayerNorm rows
-        # launches a block, none through ln_gemm; 8 shifted blocks, each
-        # between two K2 rolls
+        # the fuser's 16 blocks at C 1152 take K1's "wide" path (block_path:
+        # C > 512 in whole 64-column slices): LN1 + qkv, attention, proj +
+        # residual, LN2 + fc1 + GELU, fc2 + residual, so 4 wide_gemm
+        # launches a block, none through gemm or ln_gemm and no LayerNorm
+        # rows launch; 8 shifted blocks, each between two K2 rolls
         cfg = model.cfg
         n_blocks = cfg.depth * n_steps
         Ht, Wt = cfg.tokens
         shape = (1, -(-Ht // cfg.window[0]) * cfg.window[0], Wt, cfg.fuser_dim)
-        counts.update(K1=n_blocks, K2=2 * (cfg.depth // 2) * n_steps, gemm=4 * n_blocks, layernorm=2 * n_blocks)
+        counts.update(K1=n_blocks, K2=2 * (cfg.depth // 2) * n_steps, wide_gemm=4 * n_blocks)
         by_shape["K1"], by_shape["K2"] = {shape: n_blocks}, {shape: 2 * (cfg.depth // 2) * n_steps}
-        by_shape["K1 path"] = {"chain": n_blocks}
+        by_shape["K1 path"] = {"wide": n_blocks}
         return counts, by_shape
     if model.name == "pangu":
         # the row GEMM through ops.gemm: K1's proj and fc2; K1's LN1 + qkv

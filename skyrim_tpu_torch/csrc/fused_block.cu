@@ -2,12 +2,16 @@
 // shift mask.  With the GEMMs of gemm.cu they make up the pre-norm Swin/Pangu
 // block that replaces skyrim_tpu/ops/fused_block.py fused_swin_block_4d
 // (_fused_block_kernel); ops/fused_block.py composes the launches: five where
-// the rows fit gemm.cu's LayerNorm-prologue GEMM (C <= 512, Pangu), the
-// seven-launch chain with the LayerNorms below for wider rows (FuXi's C 1536).
+// the rows fit gemm.cu's LayerNorm-prologue GEMM (C <= 512, Pangu); five on
+// gemm.cu's long-K GEMM for wider rows of whole 64-column slices (FengWu's C
+// 1152, FuXi V1's C 1536), bound by the products' flops, which it feeds from
+// tiles whose slices both consumers share, the LayerNorm applied slice by
+// slice in shared memory; the seven-launch chain with the LayerNorms below
+// for any other row wider than 512.
 //
 // skt_layernorm_bf16: rowgemm.cuh's ln_rows_kernel with one row per output,
-// one warp per token row, f32 statistics (flax numerics).  Bound: bytes (one
-// read, one write of the activation).
+// one warp per token row, f32 statistics (flax numerics), the chain's
+// LayerNorms.  Bound: bytes (one read, one write of the activation).
 //
 // skt_window_attention_bf16: attention.cuh's bodies on the packed (Z, H, W, 3C)
 // qkv of the block's GEMM, tokens addressed in place (Packed4D); `body` as in

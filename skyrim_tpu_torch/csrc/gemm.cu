@@ -8,7 +8,19 @@
 // one persistent block an SM, two consumer warpgroups taking whole tiles in
 // turn (128 x 128, or 64 x 192 for N 192 and 576) and storing their
 // epilogues by TMA; the residual comes by TMA into the staging tile.  K1's
-// proj and fc2 (and, for rows wider than 512, all four of its products).
+// proj and fc2 at C <= 512 (and all four products on K1's chain, rows wider
+// than 512 that are not whole 64-column slices).
+//
+// skt_wide_gemm_bf16: rowgemm.cuh's wide_gemm_kernel, K1's four products for
+// rows wider than 512 (FengWu's C 1152, FuXi V1's C 1536; K 1152-6144), with
+// LN1 and LN2 in the prologue of qkv and fc1.  There the products are long
+// and bound by the flops, and rowgemm_tma_kernel's separate 128 x 128 tiles
+// a consumer fed its tensor cores 64 flops a byte of slices from L2: here
+// both consumers share every 128 x 256 tile's slices (85 flops a byte; 128 x
+// 192 where that divides N and 256 does not), the epilogue stores
+// accumulator pairs straight into staging boxes, and LayerNorm warps apply
+// the LayerNorm to each A slice in shared memory from row statistics of a
+// first pass, so h never round-trips device memory.
 //
 // skt_ln_gemm_bf16: rowgemm.cuh's ln_gemm_kernel: epi(bf16(LN(x)) @ B +
 // bias) for rows of K <= 512, K1's LN1 + qkv and LN2 + fc1 + GELU, each one
@@ -79,6 +91,12 @@ struct EpiGemm {
     }
     return v;
   }
+  // the same with the residual epilogue's pair r (wide_gemm_kernel): bf16(acc
+  // + bias) + r
+  __device__ __forceinline__ float2 pair(float2 v, float2 r) const {
+    if (epi == 2) return make_float2(bf16_round_int(v.x) + r.x, bf16_round_int(v.y) + r.y);
+    return pair(v);
+  }
   __device__ __forceinline__ void apply(int, int, float* v, const float* b, const float* res) const {
 #pragma unroll
     for (int u = 0; u < 8; ++u) v[u] += b[u];
@@ -110,4 +128,16 @@ extern "C" int skt_ln_gemm_bf16(const void* x, const void* scale, const void* sh
   EpiGemm e{static_cast<const float*>(bias), nullptr, static_cast<bf16*>(C), N, gelu ? 1 : 0};
   return rowgemm::launch_ln_gemm(x, static_cast<const float*>(scale), static_cast<const float*>(shift), B, e, M,
                                  N, K, eps, stream);
+}
+
+// The long-K row GEMM (wide_gemm_kernel): epi(A @ B + bias) with epilogue
+// 0, 1 or 2 (R the residual), or with scale and shift (K,) f32 epi(bf16(LN(A))
+// @ B + bias) with epilogue 0 or 1 (K % 64 == 0).  group: column tiles a unit
+// of the walk, 0 for the launch's choice.
+extern "C" int skt_wide_gemm_bf16(const void* A, const void* scale, const void* shift, const void* B,
+                                  const void* bias, const void* R, void* C, int M, int N, int K, int epi,
+                                  float eps, int group, void* stream) {
+  EpiGemm e{static_cast<const float*>(bias), static_cast<const bf16*>(R), static_cast<bf16*>(C), N, epi};
+  return rowgemm::launch_wide_gemm(A, static_cast<const float*>(scale), static_cast<const float*>(shift), B, e, M,
+                                   N, K, eps, group, stream);
 }

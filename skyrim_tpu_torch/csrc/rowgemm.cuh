@@ -40,8 +40,8 @@
 //                   allow.
 //   ln_rows_kernel  one warp per row: out = bf16([res +] bf16(LN(y[row]))),
 //                   through common.cuh's layernorm_rows_warp (K7, K12, and
-//                   K1's LayerNorms on its chain for rows wider than 512,
-//                   fused_block.cu).
+//                   K1's LayerNorms on its chain, rows wider than 512 that
+//                   are not whole 64-column slices, fused_block.cu).
 //   segsum_kernel   out[g, s, :] = sum of the rows r of group g with
 //                   local[g, r] == s, in f32, then bf16; local values outside
 //                   [0, S) are skipped.  One block per (group, 128 columns),
@@ -67,6 +67,13 @@
 //                   by TMA, normalised once in place in shared memory by
 //                   producer warps, then multiplied by every N tile's W
 //                   slices by two consumer warpgroups in turn (see below).
+//   wide_gemm_kernel  out = epi(A @ W + b), or epi(bf16(LN(x)) @ W + b),
+//                   for long rows (K1's four products at C > 512, FengWu's
+//                   1152 and FuXi V1's 1536): both consumer warpgroups on one
+//                   128 x 256 (or 192) tile, sharing every slice; the
+//                   LayerNorm applied slice by slice in the ring from
+//                   statistics of a first pass over the row block (see
+//                   below).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time, not linked
@@ -1797,6 +1804,420 @@ int launch_ln_gemm(const void* x, const float* scale, const float* shift, const 
   if (Layout<TALL_BM, TALL_BN, NC>(K).stages >= 6)
     return launch_ln_gemm_as<TALL_BM, TALL_BN>(x, scale, shift, W, epi, M, N, K, eps, st);
   return launch_ln_gemm_as<BM, BN>(x, scale, shift, W, epi, M, N, K, eps, st);
+}
+
+// --- wide_gemm_kernel: long K, both consumers on one tile, LayerNorm in the ring ---
+//
+// out = epi(A @ W + b), or with LN epi(bf16(LN(x) * scale + shift) @ W + b)
+// (flax numerics, as ln_gemm_kernel), for rows of any K % 8 == 0 (LN: K %
+// 64 == 0), W (K, N) row-major, N % 8 == 0: K1's four products for rows
+// wider than 512 (FengWu's fuser at C 1152, FuXi V1's trunk at C 1536; the
+// TPU kernel skyrim_tpu/ops/fused_block.py _fused_block_kernel, its qkv,
+// proj, fc1 and fc2 with LN1 and LN2 inside, lines 109 and 157).  There
+// rowgemm_tma_kernel gave each consumer its own 128 x 128 tile: 32 KB of
+// slices a stage for 2 x 128 x 128 x 64 flops, 64 flops a byte brought from
+// L2, which held its products to 436-626 TFLOP/s at K 1152-6144, and the
+// LayerNorm rows launch before two of them wrote h to device memory for the
+// product to read back.
+//
+// One persistent block an SM; a tile is 128 rows x BN columns over the whole
+// K (BN 256, or 192 where that divides N and 256 does not), a stage one
+// 64-deep slice of it: A 128 x 64 (16 KB) and W 64 x BN in gemm_mainloop's
+// layouts, 85 flops a byte at BN 256 (79 at 192), a ring of four.
+// - TMA thread (lane 0 of warp 3 of the third warpgroup): the walk's slices
+//   into the ring by TMA (rows and columns past M, K and N read as 0),
+//   completing on land[s]; a slot goes back on empty[s], once every
+//   consumer warp is done with it.  The walk: units of `group` consecutive
+//   column tiles of one row block, unit blockIdx.x, + gridDim.x, ...;
+//   without the LayerNorm one tile a unit, so the blocks at work at once
+//   share a few row blocks of A and all of W in L2.
+// - Two consumer warpgroups share every stage: consumer c multiplies rows
+//   64c .. 64c + 63 by all BN columns (wgmma m64nBNk16, BN / 2 f32
+//   accumulators a thread, started from the bias).  Epilogue: each
+//   accumulator pair through Epi::pair into one of the consumer's two
+//   staging boxes of 64 columns as one bf16x2 word (the 128-byte swizzle: no
+//   bank conflict and no exchange between lanes), each box stored by TMA
+//   from one thread (rows past M, columns past N clipped) while the next is
+//   written and the TMA thread already loads the next tile's slices.  RES:
+//   the residual comes by TMA into the staging box first, its first two
+//   boxes while the tile's last slice multiplies, and each pair is added to
+//   the residual word it overwrites.
+// - LN: each unit begins with a statistics pass: its row block's x in
+//   stages of 64-column boxes (nss stages), of which each consumer sums x
+//   and x^2 of its own 64 rows, eight lanes a row, lane l the chunks l, l +
+//   8, ... in order, then a fixed exchange over the eight: each row's
+//   statistics are fixed by the row alone, never by the tile or where the
+//   rows start.  The (mean, rstd) pairs go to the LayerNorm warps (warps 0-2
+//   of the third warpgroup) through shared memory under named barriers 5 and
+//   6.  Those normalise each product slice's A box in place once it lands,
+//   a half (32 columns, two k-steps) at a time, four lanes a row (f32
+//   statistics, fast variance clipped at 0, f32 affine, bf16 h: the product
+//   takes bf16(LN(x)), as the chain's LayerNorm launch rounded it), fence
+//   each half for the async proxy and hand it over on full[2s + h]; the
+//   consumers multiply each half as it comes.  h never leaves shared memory.
+// - No split K and no atomics: each output's sum runs over K in one order.
+//
+// Bound (NVIDIA H100 80GB HBM3, 700 W): operations at these shapes (K and N
+// of 1152-6144: 2MKN flops on 2M(K + N) + 2KN bytes).  What holds it below
+// them (tools/kernel_variants.py gemm and lngemm; PERF.md §6): the slices'
+// feed, about 7.5 TB/s from L2 at 635 TFLOP/s, with a ring of four 48 KB
+// slots; the epilogue, under no products; and with LN the LayerNorm warps,
+// which take a stage longer than its products (a slice is normalised once
+// for each of a row block's column tiles), and the statistics pass, one a
+// unit.
+namespace wide {
+constexpr int BM = 128, CM = 64;        // the block tile's rows; a consumer's
+constexpr int A_BYTES = BM * BK * 2;    // a stage's A box
+constexpr int BOX_BYTES = CM * 64 * 2;  // a consumer's staging box: 64 rows x 64 columns
+constexpr int SLOTS = 4, NTHREADS = 384, MAX_GROUP = 8;
+constexpr int LN_WARPS = 3, LN_THREADS = LN_WARPS * 32;                  // the LayerNorm warps
+constexpr int LN_ROWS = (BM + 8 * LN_WARPS - 1) / (8 * LN_WARPS);        // rows a LayerNorm lane normalises
+// The tile BN columns wide (256, or 192 where N is a multiple of 192 and not
+// of 256: FengWu's proj and fc2, N 1152, whose 256-wide tiles would leave a
+// tenth of the products on padding columns); a stage is its A box and W slice.
+template <int BN>
+struct Shape {
+  static_assert(BN == 192 || BN == 256, "a wgmma width the accumulators hold");
+  static constexpr int W_BYTES = BK * BN * 2, STAGE = A_BYTES + W_BYTES;
+  static constexpr int BOXES = STAGE / A_BYTES;  // A boxes of 64 columns a statistics stage holds
+  // alignment, the ring, two staging boxes a consumer, the barriers, the
+  // rows' (mean, rstd)
+  static constexpr size_t SMEM = 1024 + (size_t)SLOTS * STAGE + 4 * BOX_BYTES + 32 * SLOTS + 32 + BM * 8;
+  static_assert(SMEM <= 232448, "fits a block");
+};
+}  // namespace wide
+
+// The 16-byte chunk `sub` of row r of a 64-column box (the 128-byte swizzle).
+__device__ __forceinline__ bf16* wide_chunk(unsigned char* box, int r, int sub) {
+  return reinterpret_cast<bf16*>(box + r * 128 + ((sub ^ (r & 7)) << 4));
+}
+
+template <bool LN, bool RES, int BN, class Epi>
+__global__ void __launch_bounds__(wide::NTHREADS, 1)
+    wide_gemm_kernel(__grid_constant__ const CUtensorMap mapA, __grid_constant__ const CUtensorMap mapW,
+                     __grid_constant__ const CUtensorMap mapOut, __grid_constant__ const CUtensorMap mapRes,
+                     const float* __restrict__ scale, const float* __restrict__ shift, float eps, Epi epi, int M,
+                     int N, int K, int group) {
+  using namespace wide;
+  constexpr int S = SLOTS, STAGE = Shape<BN>::STAGE, BOXES = Shape<BN>::BOXES;
+  constexpr unsigned B_N_STRIDE = (BK / 8) * 1024, B_K_STRIDE = 1024;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  unsigned char* staging = ring + S * STAGE;
+  // land[s]: slot s's bytes landed; full[2s + h] (LN): half h of its A box
+  // (columns 32h .. 32h + 31) normalised; empty[s]: every consumer warp is
+  // done with it; res_full[2c + b] (RES): a residual box landed in consumer
+  // c's staging box b; stats[r] (LN): row r's (mean, rstd) of the unit's row
+  // block
+  const unsigned land0 = smem_addr(staging + 4 * BOX_BYTES), full0 = land0 + 8 * S, empty0 = full0 + 16 * S;
+  const unsigned res_full0 = empty0 + 8 * S;
+  float2* stats = reinterpret_cast<float2*>(staging + 4 * BOX_BYTES + 32 * S + 32);
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(land0 + 8 * s, 1);
+      mbar_init(full0 + 16 * s, LN_THREADS);
+      mbar_init(full0 + 16 * s + 8, LN_THREADS);
+      mbar_init(empty0 + 8 * s, 8);  // the consumers' eight warps
+    }
+    for (int b = 0; b < 4; ++b) mbar_init(res_full0 + 8 * b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int NT = (N + BN - 1) / BN, nk = (K + BK - 1) / BK, nss = LN ? (nk + BOXES - 1) / BOXES : 0;
+  const int per_rb = (NT + group - 1) / group, units = (M + BM - 1) / BM * per_rb;
+  const auto advance = [](int& stage, unsigned& phase) {
+    if (++stage == wide::SLOTS) stage = 0, phase ^= 1;
+  };
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(LN ? 72 : 40));
+    const int warp = (tid >> 5) & 3;
+    int stage = 0;
+    unsigned phase = 0;
+    if (warp == LN_WARPS) {
+      if (lane) return;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int m0 = u / per_rb * BM, j0 = u % per_rb * group, j1 = min(j0 + group, NT);
+        for (int ss = 0; ss < nss; ++ss, advance(stage, phase)) {  // the statistics pass
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);  // passes at once the first time round
+          const int boxes = min(BOXES, nk - BOXES * ss);
+          const unsigned land = land0 + 8 * stage, slot = smem_addr(ring + stage * STAGE);
+          mbar_expect_tx(land, boxes * A_BYTES);
+          for (int b = 0; b < boxes; ++b) tma_load_2d(slot + b * A_BYTES, &mapA, land, BK * (BOXES * ss + b), m0);
+        }
+        for (int j = j0; j < j1; ++j)
+          for (int kt = 0; kt < nk; ++kt, advance(stage, phase)) {
+            mbar_wait(empty0 + 8 * stage, phase ^ 1);
+            const unsigned land = land0 + 8 * stage, slot = smem_addr(ring + stage * STAGE);
+            mbar_expect_tx(land, STAGE);
+            tma_load_2d(slot, &mapA, land, kt * BK, m0);
+#pragma unroll
+            for (int b = 0; b < BN / 64; ++b)
+              tma_load_2d(slot + A_BYTES + b * (BK / 8) * 1024, &mapW, land, j * BN + 64 * b, kt * BK);
+          }
+      }
+    } else if constexpr (LN) {
+      // the LayerNorm warps: rows r0 + 24 i of the block, four lanes a row,
+      // lane sub taking the 16-byte chunks sub and sub + 4 of every 64-column
+      // box: the first half of a slice (k-steps 0, 1) is normalised and handed
+      // over (full[2s]) before the second (full[2s + 1]).  A quarter warp
+      // takes rows r and r + 4, whose halves lie in opposite banks.
+      const int sub = lane & 3, r0 = 8 * warp + (lane >> 3) + 4 * ((lane >> 2) & 1);
+      bar_arrive(6, 256 + LN_THREADS);  // no statistics to read yet
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int j0 = u % per_rb * group, j1 = min(j0 + group, NT);
+        // the consumers' statistics pass is done (every statistics stage has
+        // landed): (rstd, -mean * rstd) into registers, then the stages skipped
+        bar_sync(5, 256 + LN_THREADS);
+        float2 st[LN_ROWS];
+#pragma unroll
+        for (int i = 0; i < LN_ROWS; ++i) {
+          const float2 v = r0 + 24 * i < BM ? stats[r0 + 24 * i] : make_float2(0.f, 0.f);
+          st[i] = make_float2(v.y, -v.x * v.y);
+        }
+        if (u + gridDim.x < units) bar_arrive(6, 256 + LN_THREADS);  // the next unit's may be written
+        for (int ss = 0; ss < nss; ++ss) advance(stage, phase);
+        for (int j = j0; j < j1; ++j)
+          for (int kt = 0; kt < nk; ++kt, advance(stage, phase)) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = sub + 4 * h, k = kt * BK + 8 * c;
+              float gm[8], bt[8];
+              *reinterpret_cast<float4*>(gm) = __ldg(reinterpret_cast<const float4*>(scale + k));
+              *reinterpret_cast<float4*>(gm + 4) = __ldg(reinterpret_cast<const float4*>(scale + k + 4));
+              *reinterpret_cast<float4*>(bt) = __ldg(reinterpret_cast<const float4*>(shift + k));
+              *reinterpret_cast<float4*>(bt + 4) = __ldg(reinterpret_cast<const float4*>(shift + k + 4));
+              if (h == 0) mbar_wait(land0 + 8 * stage, phase);
+              uint4 x[LN_ROWS];  // every row's chunk in flight at once, then normalised and stored
+#pragma unroll
+              for (int i = 0; i < LN_ROWS; ++i)
+                if (r0 + 24 * i < BM) x[i] = *reinterpret_cast<const uint4*>(wide_chunk(ring + stage * STAGE, r0 + 24 * i, c));
+#pragma unroll
+              for (int i = 0; i < LN_ROWS; ++i)
+                if (r0 + 24 * i < BM) {
+                  unsigned* xw = reinterpret_cast<unsigned*>(&x[i]);
+#pragma unroll
+                  for (int v = 0; v < 4; ++v) {  // (x - mean) * rstd as one fma, then the affine
+                    const float lo = fmaf(__uint_as_float(xw[v] << 16), st[i].x, st[i].y);
+                    const float hi = fmaf(__uint_as_float(xw[v] & 0xFFFF0000u), st[i].x, st[i].y);
+                    xw[v] = pack_bf16(fmaf(lo, gm[2 * v], bt[2 * v]), fmaf(hi, gm[2 * v + 1], bt[2 * v + 1]));
+                  }
+                  *reinterpret_cast<uint4*>(wide_chunk(ring + stage * STAGE, r0 + 24 * i, c)) = x[i];
+                }
+              fence_async_shared();  // h made visible to wgmma
+              mbar_arrive(full0 + 8 * (2 * stage + h));
+            }
+          }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(LN ? 216 : 232));
+    const int me = wg, w = (tid >> 5) & 3, g = lane >> 2, q = lane & 3, t = tid & 127;
+    const bool elected = t == 0;
+    unsigned char* boxes_me = staging + me * 2 * BOX_BYTES;
+    const unsigned res_me = res_full0 + 16 * me;
+    const auto release = [&](int st) {  // the slot before st goes back to the TMA thread
+      if (lane == 0) mbar_arrive(empty0 + 8 * (st == 0 ? S - 1 : st - 1));
+    };
+    // RES: the residual's box bx of the tile at (m0, n0) by TMA into staging
+    // box bx % 2, landing on res_full
+    const auto load_residual = [&](int bx, int m0, int n0) {
+      mbar_expect_tx(res_me + 8 * (bx & 1), BOX_BYTES);
+      tma_load_2d(smem_addr(boxes_me + (bx & 1) * BOX_BYTES), &mapRes, res_me + 8 * (bx & 1), n0 + 64 * bx,
+                  m0 + CM * me);
+    };
+    unsigned res_phase = 0;   // RES: bit b, the parity of res_full[b]'s next completion
+    unsigned full_phase = 0;  // LN: bit s, the parity of full[s]'s next completion (product slices only)
+    int stage = 0;
+    unsigned phase = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int m0 = u / per_rb * BM, j0 = u % per_rb * group, j1 = min(j0 + group, NT);
+      if constexpr (LN) {  // the statistics pass over this consumer's rows, 64 me + (t >> 3) + 16 i
+        const int sub = t & 7, lr0 = CM * me + (t >> 3);
+        float s[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int ss = 0; ss < nss; ++ss, advance(stage, phase)) {
+          mbar_wait(land0 + 8 * stage, phase);
+          const int boxes = min(BOXES, nk - BOXES * ss);
+          for (int b = 0; b < boxes; ++b)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float f[8];
+              load8(wide_chunk(ring + stage * STAGE + b * A_BYTES, lr0 + 16 * i, sub), f);
+#pragma unroll
+              for (int v = 0; v < 8; ++v) s[i] += f[v], s2[i] += f[v] * f[v];
+            }
+          fence_async_shared();  // these reads before the TMA unit's next writes
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+        }
+        bar_sync(6, 256 + LN_THREADS);  // the LayerNorm warps have read the last unit's statistics
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int o = 4; o > 0; o >>= 1) {  // over the row's eight lanes
+            s[i] += __shfl_xor_sync(0xffffffffu, s[i], o);
+            s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], o);
+          }
+          const float mu = s[i] / K;
+          if (sub == 0) stats[lr0 + 16 * i] = make_float2(mu, rsqrtf(fmaxf(s2[i] / K - mu * mu, 0.f) + eps));
+        }
+        bar_arrive(5, 256 + LN_THREADS);  // ... and may read these
+      }
+      for (int j = j0; j < j1; ++j) {
+        const int n0 = j * BN, nb = min(BN / 64, (N - n0 + 63) / 64);  // the tile's boxes that hold columns < N
+        // the products accumulate onto the bias: acc[4i + 2e + c] is row
+        // 16w + g + 8e, column 8i + 2q + c of the consumer's 64 x 256
+        float acc[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          const int col = n0 + 8 * i + 2 * q;
+          const float2 b = col < N ? __ldg(reinterpret_cast<const float2*>(epi.bias + col)) : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) acc[4 * i + 2 * e] = b.x, acc[4 * i + 2 * e + 1] = b.y;
+        }
+        for (int kt = 0; kt < nk; ++kt) {
+          if constexpr (!LN) mbar_wait(land0 + 8 * stage, phase);
+          const unsigned a0 = smem_addr(ring + stage * STAGE) + me * CM * 128, b0 = a0 - me * CM * 128 + A_BYTES;
+#pragma unroll
+          for (int ks = 0; ks < BK / 16; ++ks) {
+            if constexpr (LN) {  // each half of the slice once it is normalised
+              if (ks % 2 == 0) mbar_wait(full0 + 8 * (2 * stage + ks / 2), (full_phase >> stage) & 1);
+            }
+            if (ks == 0) wgmma_fence();
+            wgmma_bf16<BN>(acc, wgmma_desc(a0 + ks * 32, 16, 1024),
+                           wgmma_desc(b0 + ks * 2 * B_K_STRIDE, B_N_STRIDE, B_K_STRIDE));
+          }
+          if constexpr (LN) full_phase ^= 1u << stage;
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous slice's products are done: its slot goes back
+          if (kt > 0) release(stage);
+          if constexpr (RES) {
+            if (kt == nk - 1 && elected) {  // the residual's first boxes, once the last tile's stores read theirs
+              bulk_wait_read<0>();
+              for (int bx = 0; bx < min(nb, 2); ++bx) load_residual(bx, m0, n0);
+            }
+          }
+          advance(stage, phase);
+        }
+        wgmma_wait<0>();
+        release(stage);
+        // epilogue, a box of 64 columns at a time, into the consumer's two
+        // staging boxes in turn: one bf16x2 word a pair, at 4q in chunk i % 8
+        // (RES: added to the residual's word there)
+#pragma unroll
+        for (int bx = 0; bx < BN / 64; ++bx) {
+          if (bx >= nb) break;
+          unsigned char* box = boxes_me + (bx & 1) * BOX_BYTES;
+          if constexpr (RES) {
+            mbar_wait(res_me + 8 * (bx & 1), (res_phase >> (bx & 1)) & 1);
+            res_phase ^= 1u << (bx & 1);
+          } else if (elected) {  // the store that last read this box is done with it
+            if (bx == 0) bulk_wait_read<0>();
+            else if (bx >= 2) bulk_wait_read<1>();
+          }
+          bar_sync(1 + me, 128);
+#pragma unroll
+          for (int ii = 0; ii < 8; ++ii)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 8 * bx + ii, r = 16 * w + g + 8 * e;
+              unsigned* word = reinterpret_cast<unsigned*>(box + r * 128 + ((ii ^ (r & 7)) << 4) + 4 * q);
+              const float2 v = make_float2(acc[4 * i + 2 * e], acc[4 * i + 2 * e + 1]);
+              float2 y;
+              if constexpr (RES) y = epi.pair(v, unpack_bf16(*word));
+              else y = epi.pair(v);
+              *word = pack_bf16(y.x, y.y);
+            }
+          fence_async_shared();  // made visible to the TMA unit, then stored by one thread
+          bar_sync(1 + me, 128);
+          if (elected) {
+            tma_store_2d(&mapOut, smem_addr(box), n0 + 64 * bx, m0 + CM * me);  // rows past M clipped
+            bulk_commit();
+            if constexpr (RES) {  // the box two on, into this staging box once the store has read it
+              if (bx + 2 < nb) {
+                bulk_wait_read<0>();
+                load_residual(bx + 2, m0, n0);
+              }
+            }
+          }
+        }
+      }
+    }
+    if (elected) bulk_wait_read<0>();  // the last stores have read their boxes
+  }
+}
+
+template <bool LN, bool RES, int BN, class Epi>
+static int wide_attribute() {
+  static const int err = static_cast<int>(cudaFuncSetAttribute(
+      wide_gemm_kernel<LN, RES, BN, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide::Shape<BN>::SMEM));
+  return err;
+}
+
+// The column tiles a unit of wide_gemm_kernel's walk takes.  With the
+// LayerNorm every unit begins with a statistics pass over its row block: a
+// longer run of one row block's tiles pays fewer passes, but the last wave of
+// units is coarser and more row blocks are at work at once (their x in L2).
+// The walk's length in stage times, ceil(units / grid) * (G tiles of nk
+// slices and an epilogue of about two, then the pass's nss stages), is least
+// at the G returned (up to MAX_GROUP; one tile a unit without a pass).
+inline int wide_group(int row_blocks, int NT, int nk, int nss, int grid) {
+  if (nss == 0) return 1;
+  int best_g = 1;
+  long long best = 0;
+  for (int G = 1; G <= NT && G <= wide::MAX_GROUP; ++G) {
+    const long long units = (long long)row_blocks * ((NT + G - 1) / G);
+    const long long t = (units + grid - 1) / grid * ((long long)G * (nk + 2) + nss);
+    if (G == 1 || t < best) best = t, best_g = G;
+  }
+  return best_g;
+}
+
+template <bool LN, bool RES, int BN, class Epi>
+int launch_wide_as(const void* A, const float* scale, const float* shift, const void* W, const Epi& epi, int M, int N,
+                   int K, float eps, int group, cudaStream_t st) {
+  using namespace wide;
+  CUtensorMap mapA, mapW, mapOut, mapRes;
+  if (int err = make_tensor_map(&mapA, A, M, K, K, BM)) return err;
+  if (int err = make_tensor_map(&mapW, W, K, N, N, BK)) return err;
+  if (int err = make_tensor_map(&mapOut, epi.out, M, N, N, CM)) return err;
+  mapRes = mapOut;
+  if (RES)
+    if (int err = make_tensor_map(&mapRes, epi.residual(), M, N, N, CM)) return err;
+  const int NT = (N + BN - 1) / BN, nk = (K + BK - 1) / BK, row_blocks = (M + BM - 1) / BM;
+  if (!group) group = wide_group(row_blocks, NT, nk, LN ? (nk + Shape<BN>::BOXES - 1) / Shape<BN>::BOXES : 0, sm_count());
+  const long long units = (long long)row_blocks * ((NT + group - 1) / group);
+  if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = (unsigned)(units < sm_count() ? units : sm_count());
+  if (int err = wide_attribute<LN, RES, BN, Epi>()) return err;
+  wide_gemm_kernel<LN, RES, BN, Epi><<<grid, NTHREADS, Shape<BN>::SMEM, st>>>(mapA, mapW, mapOut, mapRes, scale, shift,
+                                                                              eps, epi, M, N, K, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches wide_gemm_kernel: A (M, K) and W (K, N) row-major bf16, epi.out
+// (and epi.residual()) (M, N) bf16, all 16-byte aligned, K % 8 == 0, N % 8
+// == 0; with scale and shift (K,) f32, 16-byte aligned, the LayerNorm of A's
+// rows first (K % 64 == 0, no residual).  Tiles 256 wide, or 192 where that
+// divides N and 256 does not (not with the LayerNorm, whose work a tile
+// grows with the tile's share of N).  group: column tiles a unit, 0 for
+// wide_group's.  cudaErrorInvalidValue for other operands (the wrapper
+// raises).
+template <class Epi>
+int launch_wide_gemm(const void* A, const float* scale, const float* shift, const void* W, const Epi& epi, int M,
+                     int N, int K, float eps, int group, void* stream) {
+  const auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  const bool ln = scale != nullptr, res = epi.residual() != nullptr;
+  if (M <= 0 || N <= 0 || K <= 0 || K % 8 || N % 8 || group < 0 || !aligned(A) || !aligned(W) ||
+      !aligned(epi.out) || !aligned(epi.residual()) || (ln && (K % BK || !aligned(scale) || !aligned(shift) || res)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool narrow = !ln && N % 256 && N % 192 == 0;
+  if (ln) return launch_wide_as<true, false, 256>(A, scale, shift, W, epi, M, N, K, eps, group, st);
+  if (res && narrow) return launch_wide_as<false, true, 192>(A, scale, shift, W, epi, M, N, K, eps, group, st);
+  if (res) return launch_wide_as<false, true, 256>(A, scale, shift, W, epi, M, N, K, eps, group, st);
+  if (narrow) return launch_wide_as<false, false, 192>(A, scale, shift, W, epi, M, N, K, eps, group, st);
+  return launch_wide_as<false, false, 256>(A, scale, shift, W, epi, M, N, K, eps, group, st);
 }
 
 }  // namespace rowgemm

@@ -25,10 +25,19 @@ chain of hand-written kernels, chosen by width in ``block_path``:
   hd that fit) → proj GEMM + bias + residual (``ops.gemm.gemm``, the wgmma
   row GEMM) → LN2 + fc1 GEMM + bias + GELU (``ln_gemm``) → fc2 GEMM + bias
   + residual.
-- ``"chain"`` (wider rows, FuXi's V1 trunk at C 1536: a row block of
-  them does not fit shared memory), seven launches: the LayerNorms run
-  alone (csrc/fused_block.cu, the LayerNorm rows kernel) and each product
-  on ``gemm``.
+- ``"wide"`` (wider rows of whole 64-column slices: FengWu's fuser at
+  C 1152, FuXi V1's trunk at C 1536), five launches in the same order,
+  each product on ``ops.gemm.wide_gemm`` (``wide_gemm_kernel``): a row
+  block of them does not fit shared memory, so LN1 and LN2 are applied
+  slice by slice in the ring of the product that consumes them, from each
+  row's statistics taken in a first pass over the row block.  Bound by the
+  products' flops (K 1152-6144): both consumer warpgroups share each
+  128 × 256 tile's slices, 85 flops a byte brought from L2 against the 64
+  of ``gemm``'s separate 128 × 128 tiles, and the epilogue stores
+  accumulator pairs without an exchange.
+- ``"chain"`` (other rows wider than 512), seven launches: the
+  LayerNorms run alone (csrc/fused_block.cu, the LayerNorm rows kernel)
+  and each product on ``gemm``.
 
 LN and the GEMMs are per token and run on the flat (Z·H·W, C) view; the
 attention kernel reads q/k/v straight out of (Z, H, W, 3C) by index
@@ -45,7 +54,7 @@ no gradient.  ``fused_swin_block.launches`` counts wrapper calls
 that launched the kernels, ``launches_by_shape`` the same by input shape
 and ``launches_by_path`` by ``block_path``; ``layernorm.launches`` and
 ``window_attention.launches`` count those two kernels' launches
-(``ops.gemm``'s wrappers count theirs).
+(``ops.gemm``'s wrappers, ``wide_gemm`` among them, count theirs).
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ from skyrim_tpu_torch.ops.flash_window_attention import (
     reference_window_attention_4d,
     reference_window_attention_qkv,  # noqa: F401  (the attention-alone checks of K1 reach it here)
 )
-from skyrim_tpu_torch.ops.gemm import LN_GEMM_MAX_K, _EPS, _layernorm_f32, gemm, ln_gemm
+from skyrim_tpu_torch.ops.gemm import LN_GEMM_MAX_K, WIDE_LN_SLICE, _EPS, _layernorm_f32, gemm, ln_gemm, wide_gemm
 from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -132,11 +141,15 @@ window_attention.launches = 0
 
 
 def block_path(C: int) -> str:
-    """K1's launches for rows of width C: ``"ln_gemm"`` (five: each
-    LayerNorm in the prologue of the product that consumes it) where a row
-    block fits ``ln_gemm_kernel``'s shared memory, else ``"chain"`` (seven:
-    the LayerNorms launched alone)."""
-    return "ln_gemm" if C <= LN_GEMM_MAX_K else "chain"
+    """K1's launches for rows of width C, chosen by shape before any launch:
+    ``"ln_gemm"`` (five: each LayerNorm in the prologue of the product that
+    consumes it) where a row block fits ``ln_gemm_kernel``'s shared memory,
+    ``"wide"`` (five, on ``wide_gemm_kernel``) for wider rows of whole
+    64-column slices, else ``"chain"`` (seven: the LayerNorms launched
+    alone)."""
+    if C <= LN_GEMM_MAX_K:
+        return "ln_gemm"
+    return "wide" if C % WIDE_LN_SLICE == 0 else "chain"
 
 
 def fused_swin_block(
@@ -166,17 +179,20 @@ def _swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads)
     N = Z * H * Wd
     xf = x.view(N, C)
     path = block_path(C)
-    if path == "ln_gemm":
-        qkv = ln_gemm(xf, ln1, _bf16(qkv_wb[0]), _f32(qkv_wb[1]))
-    else:
-        qkv = gemm(layernorm(xf, *ln1), _bf16(qkv_wb[0]), _f32(qkv_wb[1]))
+    product = wide_gemm if path == "wide" else gemm
+
+    def ln_product(h, ln, wb, gelu=False):  # LN, then the product that consumes it
+        if path == "ln_gemm":
+            return ln_gemm(h, ln, _bf16(wb[0]), _f32(wb[1]), gelu=gelu)
+        if path == "wide":
+            return wide_gemm(h, _bf16(wb[0]), _f32(wb[1]), ln=ln, gelu=gelu)
+        return gemm(layernorm(h, *ln), _bf16(wb[0]), _f32(wb[1]), gelu=gelu)
+
+    qkv = ln_product(xf, ln1, qkv_wb)
     o = window_attention(qkv.view(Z, H, Wd, 3 * C), bias, mask, window, heads)
-    x1 = gemm(o.view(N, C), _bf16(proj_wb[0]), _f32(proj_wb[1]), residual=xf)
-    if path == "ln_gemm":
-        m = ln_gemm(x1, ln2, _bf16(mlp_wb[0]), _f32(mlp_wb[1]), gelu=True)
-    else:
-        m = gemm(layernorm(x1, *ln2), _bf16(mlp_wb[0]), _f32(mlp_wb[1]), gelu=True)
-    out = gemm(m, _bf16(mlp_wb[2]), _f32(mlp_wb[3]), residual=x1)
+    x1 = product(o.view(N, C), _bf16(proj_wb[0]), _f32(proj_wb[1]), residual=xf)
+    m = ln_product(x1, ln2, mlp_wb[:2], gelu=True)
+    out = product(m, _bf16(mlp_wb[2]), _f32(mlp_wb[3]), residual=x1)
     fused_swin_block.launches += 1
     for counts, key in ((fused_swin_block.launches_by_shape, x.shape), (fused_swin_block.launches_by_path, path)):
         counts[key] = counts.get(key, 0) + 1

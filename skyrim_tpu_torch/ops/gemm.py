@@ -15,8 +15,16 @@ The LayerNorm is flax's (``_layernorm_f32``: f32 statistics, fast variance
 clipped at 0, eps 1e-6, f32 affine), rounded to bf16 before the product,
 as the chain of a LayerNorm launch and ``gemm`` rounds it.
 
-On a CPU tensor ``gemm`` and ``ln_gemm`` run ``plain_gemm`` and
-``plain_ln_gemm``; on a CUDA tensor they launch the kernel or raise.
+``wide_gemm`` is the row GEMM for long rows (K1's four products at
+C > 512: FengWu's 1152, FuXi V1's 1536), one launch of
+``wide_gemm_kernel``: both consumer warpgroups on one 128 × 256 tile
+(128 × 192 where that divides N and 256 does not), and with ``ln`` the
+LayerNorm applied to each 64-column slice of the rows in shared memory
+from statistics of a first pass over the row block (K % 64 == 0), the
+product taking bf16(LN(a)) as ``ln_gemm`` does.
+
+On a CPU tensor ``gemm``, ``ln_gemm`` and ``wide_gemm`` run ``plain_gemm``
+and ``plain_ln_gemm``; on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from skyrim_tpu_torch.ops import _build
 _EPI_BIAS, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
 _EPS = 1e-6
 LN_GEMM_MAX_K = 512  # the widest rows ln_gemm_kernel normalises in shared memory
+WIDE_LN_SLICE = 64  # wide_gemm normalises rows in slices of 64 columns: K a multiple of it
 _CUDA_ERROR_INVALID_VALUE = 1
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -67,6 +76,8 @@ def _lib():
     lib.skt_gemm_bf16.restype = _I
     lib.skt_ln_gemm_bf16.argtypes = [_P] * 6 + [_I] * 4 + [_F, _P]
     lib.skt_ln_gemm_bf16.restype = _I
+    lib.skt_wide_gemm_bf16.argtypes = [_P] * 7 + [_I] * 4 + [_F, _I, _P]
+    lib.skt_wide_gemm_bf16.restype = _I
     return lib
 
 
@@ -138,3 +149,54 @@ def ln_gemm(x, ln, w, b, *, gelu: bool = False):
 
 
 ln_gemm.launches = 0
+
+
+def wide_gemm(a, w, b, *, ln=None, gelu: bool = False, residual=None):
+    """``epilogue(a @ w + b)``, or ``epilogue(bf16(LN(a)) @ w + b)`` with
+    ``ln`` the LayerNorm's (scale, bias), each (K,): a (M, K) bf16, w (K, N)
+    bf16, b (N,) f32; the bias epilogue, GELU, or (without ``ln``) the
+    residual add.  K1's products at C > 512, on ``wide_gemm_kernel``."""
+    if a.device.type == "cpu":
+        if ln is not None:
+            return plain_ln_gemm(a, ln, w, b, gelu=gelu)
+        return plain_gemm(a, w, b, gelu=gelu, residual=residual)
+    M, K = a.shape
+    N = w.shape[1]
+    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise ValueError(f"wide_gemm takes bf16 operands, got {a.dtype} @ {w.dtype}")
+    if b.dtype != torch.float32 or b.shape != (N,) or w.shape[0] != K:
+        raise ValueError(f"wide_gemm shapes: a {tuple(a.shape)}, w {tuple(w.shape)}, b {tuple(b.shape)} {b.dtype}")
+    if K % 8 or N % 8 or (ln is not None and K % WIDE_LN_SLICE):
+        raise ValueError(f"wide_gemm needs K and N divisible by 8 (K by {WIDE_LN_SLICE} with ln), got K={K} N={N}")
+    if not (a.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
+        raise ValueError("wide_gemm operands must be contiguous")
+    if residual is not None and (
+        residual.shape != (M, N) or residual.dtype != torch.bfloat16 or not residual.is_contiguous()
+    ):
+        raise ValueError("wide_gemm residual must be a contiguous bf16 (M, N) tensor")
+    if residual is not None and (gelu or ln is not None):
+        raise ValueError("wide_gemm takes one epilogue, and the residual without ln")
+    scale = shift = None
+    if ln is not None:
+        # 16-byte aligned (the kernel reads them four floats at a time): a
+        # view that starts elsewhere is copied
+        scale, shift = (t.detach().to(torch.float32).contiguous() for t in ln)
+        scale, shift = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (scale, shift))
+        if scale.shape != (K,) or shift.shape != (K,):
+            raise ValueError(f"wide_gemm's LayerNorm takes ({K},) scale and bias, got {tuple(scale.shape)}, {tuple(shift.shape)}")
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
+    epi = _EPI_GELU if gelu else _EPI_RESIDUAL if residual is not None else _EPI_BIAS
+    lib = _lib()
+    err = lib.skt_wide_gemm_bf16(
+        a.data_ptr(), None if scale is None else scale.data_ptr(), None if shift is None else shift.data_ptr(),
+        w.data_ptr(), b.data_ptr(), None if residual is None else residual.data_ptr(), out.data_ptr(),
+        M, N, K, epi, _EPS, 0, torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"wide_gemm_kernel refused a {tuple(a.shape)} @ w {tuple(w.shape)} (alignment or shape)")
+    _build.check(lib, err, "wide_gemm")
+    wide_gemm.launches += 1
+    return out
+
+
+wide_gemm.launches = 0

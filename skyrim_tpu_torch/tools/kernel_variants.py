@@ -23,7 +23,11 @@ variants.
   (1,038,240 x 512) @ (512 x 512), with the bias epilogue; ``skt_gemm_bf16``
   on Pangu's eight block products (qkv, proj + residual, fc1 + GELU, fc2 +
   residual at stage 1, M 535,680, C 192, and stage 2, M 138,240, C 384), each
-  with the epilogue K1 gives it.  Each with its TFLOP/s, and
+  with the epilogue K1 gives it; K1's proj + residual and fc2 + residual at
+  FengWu's C 1152 (M 66,960) and FuXi V1's C 1536 (M 17,280) on
+  ``skt_gemm_bf16`` (the 128 x 128 ping-pong tiles) and, where the variant
+  exports it, ``skt_wide_gemm_bf16`` (``wide_gemm_kernel``).  Each with its
+  TFLOP/s, and
   ``torch.matmul`` in bf16 on the same operands timed beside it once (a
   yardstick; the port never calls it).  Then, for a variant that exports
   ``skt_rowgemm_host_ns``, the host's share of one launch over 1,000 calls
@@ -59,7 +63,12 @@ variants.
   (M 535,680, K 192, N 576 and 768) and stage 2 (M 138,240, K 384, N 1,152
   and 1,536), each one ``skt_ln_gemm_bf16`` launch where the variant exports
   it, else the pair it replaces (``skt_layernorm_bf16`` into h, then
-  ``skt_gemm_bf16`` on h); ``torch.matmul`` in bf16 on the same operands
+  ``skt_gemm_bf16`` on h); LN1 + qkv and LN2 + fc1 + GELU at FengWu's C 1152
+  (M 66,960, N 3,456 and 4,608) and FuXi V1's C 1536 (M 17,280, N 4,608 and
+  6,144) as that pair and, where the variant exports
+  ``skt_wide_gemm_bf16``, one ``wide_gemm_kernel`` launch at each of
+  ``WIDE_GROUPS`` (column tiles a statistics pass serves; 0 the launch's
+  choice); ``torch.matmul`` in bf16 on the same operands
   timed beside them (a yardstick).  The layouts are ``rowgemm.cuh``'s
   ``lng::TALL_BM``, ``TALL_BN`` (rows of K <= 256), ``BM``, ``BN`` and ``NC``:
   edit them in a copy.
@@ -118,7 +127,7 @@ SOURCES = {"attention": ("window_attention",), "gemm": ("fused_mlp", "gemm"), "r
            "g2m": ("graph_g2m",), "m2g": ("graph_m2g", "fused_mlp"), "mlp": ("fused_mlp",),
            "lngemm": ("gemm", "fused_block"), "resample": ("resample", "gemm"),
            "messages": ("graph_finish", "fused_mlp")}  # fmt: skip
-REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("rowgemm_tma_kernel",),
+REPORTED = {"attention": ("window_attention", "Packed4D"), "gemm": ("EpiGemm",),
             "round": ("rowgemm", ""), "g2m": ("graph_g2m", ""), "m2g": ("M2G",), "mlp": ("rowgemm",),
             "lngemm": ("EpiGemm",), "resample": ("resample",), "messages": ("graph_finish",)}  # fmt: skip
 
@@ -183,7 +192,14 @@ GEMM_SHAPES = (
     ("Pangu s2 proj + res", 138240, 384, 384, 2),
     ("Pangu s2 fc1 + GELU", 138240, 384, 1536, 1),
     ("Pangu s2 fc2 + res", 138240, 1536, 384, 2),
+    ("FengWu qkv, no LN", 66960, 1152, 3456, 0),
+    ("FengWu fc1 + GELU, no LN", 66960, 1152, 4608, 1),
+    ("FengWu proj + res", 66960, 1152, 1152, 2),
+    ("FengWu fc2 + res", 66960, 4608, 1152, 2),
+    ("FuXi V1 proj + res", 17280, 1536, 1536, 2),
+    ("FuXi V1 fc2 + res", 17280, 6144, 1536, 2),
 )
+WIDE_K = 512  # K1's products past this K take wide_gemm_kernel (and the chain's pair before it)
 _operands: dict = {}  # one set of operands a shape, shared by the variants
 
 
@@ -201,13 +217,22 @@ def _gemm_operands(torch, M, K, N):
     return _operands[(M, K, N)]
 
 
+def _wide(lib):
+    """A variant's skt_wide_gemm_bf16 (the long-K GEMM), or None."""
+    if not hasattr(lib, "skt_wide_gemm_bf16"):
+        return None
+    return _bind(lib, "skt_wide_gemm_bf16", [P] * 7 + [I] * 4 + [F, I, P])
+
+
 def gemm_cases(torch, libs, _src):
     mlp = _bind(libs["fused_mlp"], "skt_mlp_gemm", [P, L, L, I, P, I, P, P, P, P, I, I, I, I, P])
     gemm = _bind(libs["gemm"], "skt_gemm_bf16", [P] * 5 + [I] * 4 + [P])
+    wide = _wide(libs["gemm"])
     stream = torch.cuda.current_stream().cuda_stream
     cases = {}
     for name, M, K, N, epi in GEMM_SHAPES:
         a, w, b, r, out = _gemm_operands(torch, M, K, N)
+        calls = {}
         if epi == "mlp":
             def call(a=a, w=w, b=b, out=out, M=M, K=K, N=N):
                 return mlp(a.data_ptr(), K, 1, K, None, 0, w.data_ptr(), b.data_ptr(), None, out.data_ptr(), M, N, 0, 1, stream)
@@ -215,17 +240,25 @@ def gemm_cases(torch, libs, _src):
             def call(a=a, w=w, b=b, r=r, out=out, M=M, K=K, N=N, epi=epi):
                 return gemm(a.data_ptr(), w.data_ptr(), b.data_ptr(), r.data_ptr() if epi == 2 else None, out.data_ptr(),
                             M, N, K, epi, stream)  # fmt: skip
-        out.zero_()  # the operands are shared by the variants: no earlier variant's result stands
-        call()  # held against torch.matmul in f32 on the first 4096 rows
-        torch.cuda.synchronize()
-        ref = a[:4096].float() @ w.float() + b
-        if epi == 1:
-            ref = torch.nn.functional.gelu(ref.to(torch.bfloat16).float(), approximate="tanh")
-        elif epi == 2:
-            ref = ref.to(torch.bfloat16).float() + r[:4096].float()
-        err = float((out[:4096].float() - ref).abs().max())
-        print(f"{name} ({M}, {K}) @ ({K}, {N}): max |kernel - matmul| over 4096 rows = {err:.4g}")
-        cases[f"{name} ({M}, {K}) @ ({K}, {N})"] = (call, 2 * M * K * N)
+        calls["128 x 128 ping-pong" if K > WIDE_K else ""] = call
+        if K > WIDE_K and wide:
+            def call(a=a, w=w, b=b, r=r, out=out, M=M, K=K, N=N, epi=epi):
+                return wide(a.data_ptr(), None, None, w.data_ptr(), b.data_ptr(), r.data_ptr() if epi == 2 else None,
+                            out.data_ptr(), M, N, K, epi, 1e-6, 0, stream)  # fmt: skip
+            calls["wide"] = call
+        for how, call in calls.items():
+            out.zero_()  # the operands are shared by the variants: no earlier variant's result stands
+            call()  # held against torch.matmul in f32 on the first 4096 rows
+            torch.cuda.synchronize()
+            ref = a[:4096].float() @ w.float() + b
+            if epi == 1:
+                ref = torch.nn.functional.gelu(ref.to(torch.bfloat16).float(), approximate="tanh")
+            elif epi == 2:
+                ref = ref.to(torch.bfloat16).float() + r[:4096].float()
+            err = float((out[:4096].float() - ref).abs().max())
+            case = f"{name} ({M}, {K}) @ ({K}, {N}){' ' + how if how else ''}"
+            print(f"{case}: max |kernel - matmul| over 4096 rows = {err:.4g}")
+            cases[case] = (call, 2 * M * K * N)
     return cases
 
 
@@ -235,7 +268,12 @@ LNGEMM_SHAPES = (
     ("Pangu s1 LN2 + fc1 + GELU", 535680, 192, 768, 1),
     ("Pangu s2 LN1 + qkv", 138240, 384, 1152, 0),
     ("Pangu s2 LN2 + fc1 + GELU", 138240, 384, 1536, 1),
+    ("FengWu LN1 + qkv", 66960, 1152, 3456, 0),
+    ("FengWu LN2 + fc1 + GELU", 66960, 1152, 4608, 1),
+    ("FuXi V1 LN1 + qkv", 17280, 1536, 4608, 0),
+    ("FuXi V1 LN2 + fc1 + GELU", 17280, 1536, 6144, 1),
 )
+WIDE_GROUPS = (0, 1, 3, 8)  # wide_gemm_kernel's column tiles a unit: 0 the launch's choice
 
 
 def lngemm_cases(torch, libs, _src):
@@ -243,36 +281,46 @@ def lngemm_cases(torch, libs, _src):
     fused = hasattr(libs["gemm"], "skt_ln_gemm_bf16")
     if fused:
         lng = _bind(libs["gemm"], "skt_ln_gemm_bf16", [P] * 6 + [I] * 4 + [F, P])
-    else:
-        ln = _bind(libs["fused_block"], "skt_layernorm_bf16", [P] * 4 + [I] * 2 + [F, P])
+    ln = _bind(libs["fused_block"], "skt_layernorm_bf16", [P] * 4 + [I] * 2 + [F, P])
+    wide = _wide(libs["gemm"])
     stream = torch.cuda.current_stream().cuda_stream
     cases = {}
     for name, M, K, N, gelu in LNGEMM_SHAPES:
         x, w, b, _, out = _gemm_operands(torch, M, K, N)
         scale, shift = _ln_params(torch, K)
         h = _h_buffer(torch, M, K)
-        if fused:
+        calls = {}
+        if fused and K <= WIDE_K:
             def call(x=x, w=w, b=b, out=out, scale=scale, shift=shift, M=M, K=K, N=N, gelu=gelu):
                 return lng(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
                            M, N, K, gelu, 1e-6, stream)  # fmt: skip
-        else:
+            calls["one launch"] = call
+        else:  # the pair: the LayerNorm rows launch into h, then the 128 x 128 ping-pong GEMM on h
             def call(x=x, w=w, b=b, out=out, scale=scale, shift=shift, h=h, M=M, K=K, N=N, gelu=gelu):
                 return (ln(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), h.data_ptr(), M, K, 1e-6, stream)
                         or gemm(h.data_ptr(), w.data_ptr(), b.data_ptr(), None, out.data_ptr(), M, N, K, gelu, stream))
-        out.zero_()
-        call()  # held against torch in f32 on the first 4096 rows
-        torch.cuda.synchronize()
-        xf = x[:4096].float()
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
-        hr = ((xf - mu) * torch.rsqrt(var + 1e-6) * scale + shift).to(torch.bfloat16).float()
-        ref = (hr @ w.float() + b).to(torch.bfloat16).float()
-        if gelu:
-            ref = torch.nn.functional.gelu(ref, approximate="tanh")
-        err = float((out[:4096].float() - ref).abs().max())
-        print(f"{name} ({M}, {K}) @ ({K}, {N}) {'one launch' if fused else 'LayerNorm + GEMM'}: "
-              f"max |kernel - torch| over 4096 rows = {err:.4g}")
-        cases[f"{name} ({M}, {K}) @ ({K}, {N})"] = (call, 2 * M * K * N)
+            calls["LayerNorm + GEMM"] = call
+        if K > WIDE_K and wide:
+            for group in WIDE_GROUPS:
+                def call(x=x, w=w, b=b, out=out, scale=scale, shift=shift, M=M, K=K, N=N, gelu=gelu, group=group):
+                    return wide(x.data_ptr(), scale.data_ptr(), shift.data_ptr(), w.data_ptr(), b.data_ptr(), None,
+                                out.data_ptr(), M, N, K, gelu, 1e-6, group, stream)  # fmt: skip
+                calls[f"wide, group {group or 'chosen'}"] = call
+        for how, call in calls.items():
+            out.zero_()
+            call()  # held against torch in f32 on the first 4096 rows
+            torch.cuda.synchronize()
+            xf = x[:4096].float()
+            mu = xf.mean(-1, keepdim=True)
+            var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0)
+            hr = ((xf - mu) * torch.rsqrt(var + 1e-6) * scale + shift).to(torch.bfloat16).float()
+            ref = (hr @ w.float() + b).to(torch.bfloat16).float()
+            if gelu:
+                ref = torch.nn.functional.gelu(ref, approximate="tanh")
+            err = float((out[:4096].float() - ref).abs().max())
+            case = f"{name} ({M}, {K}) @ ({K}, {N}) {how}"
+            print(f"{case}: max |kernel - torch| over 4096 rows = {err:.4g}")
+            cases[case] = (call, 2 * M * K * N)
     return cases
 
 

@@ -155,6 +155,7 @@ CASES = {
     "K1_unshifted": ("K1", FB.fused_swin_block, lambda: _k1(False)),
     "K1_shifted": ("K1", FB.fused_swin_block, lambda: _k1(True)),
     "K1_chain_width": ("K1", FB.fused_swin_block, lambda: _k1(True, C=520, heads=4)),
+    "K1_wide_width": ("K1", FB.fused_swin_block, lambda: _k1(True, C=576, heads=9)),
     "K2": ("K2", roll3d, _k2),
     "K3_even": ("K3", RS.fused_downsample, lambda: _k3(6)),
     "K4": ("K4", RS.fused_upsample, _k4),
@@ -403,7 +404,7 @@ PLAIN = {
     "K8": GK.reference_m2g_tiled, "K9": GK._plain_g2m_tiled, "K13": GK.reference_fixed_degree_messages,
     "K14": GK.reference_block_messages,
 }  # fmt: skip
-CARD_CASES = sorted(c for c in CASES if c != "K1_chain_width") + ["K1_chain"]
+CARD_CASES = sorted(c for c in CASES if c not in ("K1_chain_width", "K1_wide_width")) + ["K1_chain", "K1_wide"]
 
 
 @pytest.mark.gpu
@@ -412,6 +413,9 @@ def test_card_gradients_match_plain(cuda, case):
     if case == "K1_chain":
         name, fn, (args, act) = "K1", FB.fused_swin_block, _k1(True, C=528, heads=4)
         assert FB.block_path(528) == "chain"
+    elif case == "K1_wide":
+        name, fn, (args, act) = "K1", FB.fused_swin_block, _k1(True, C=576, heads=9)
+        assert FB.block_path(576) == "wide"
     else:
         name, fn, make = CASES[case]
         args, act = make()

@@ -16,6 +16,8 @@ all) and f32 summation order, so elementwise
 (2·2⁻⁸·max|plain|); the roll is exact.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -23,24 +25,24 @@ import torch
 from skyrim_tpu_torch.ops import fused_block as FB
 from skyrim_tpu_torch.ops import resample as RS
 from skyrim_tpu_torch.ops import roll as RL
-from skyrim_tpu_torch.ops.gemm import gemm, ln_gemm, plain_gemm, plain_ln_gemm
+from skyrim_tpu_torch.ops.gemm import LN_GEMM_MAX_K, gemm, ln_gemm, plain_gemm, plain_ln_gemm, wide_gemm
 from skyrim_tpu_torch.ops.windows import shift_attention_mask, window_partition, window_reverse
 
 WINDOW = (2, 6, 12)
 
 
-def _block_inputs(shifted, Z=4, H=12, Wd=24, C=32, heads=4, valid=(3, 11, 24), seed=0):
+def _block_inputs(shifted, Z=4, H=12, Wd=24, C=32, heads=4, valid=(3, 11, 24), seed=0, window=WINDOW):
     """Random block inputs (numpy, f32) with a non-trivial valid extent."""
     rng = np.random.default_rng(seed)
-    wlen = int(np.prod(WINDOW))
-    nz, nh = Z // WINDOW[0], H // WINDOW[1]
+    wlen = int(np.prod(window))
+    nz, nh = Z // window[0], H // window[1]
     hidden = 4 * C
 
     def n(*shape, s=1.0):
         return (rng.normal(size=shape) * s).astype(np.float32)
 
-    shift = (1, 3, 6) if shifted else (0, 0, 0)
-    mask = shift_attention_mask((Z, H, Wd), WINDOW, shift, valid)
+    shift = tuple(w // 2 for w in window) if shifted else (0, 0, 0)
+    mask = shift_attention_mask((Z, H, Wd), window, shift, valid)
     return dict(
         x=n(Z, H, Wd, C),
         ln1=(1 + n(C, s=0.1), n(C, s=0.1)),
@@ -150,13 +152,14 @@ def _ln_gemm_inputs(M, K, N, seed=0):
     return x, ln, w, b
 
 
-@pytest.mark.parametrize("K", [192, 384])
+@pytest.mark.parametrize("K", [192, 384, 1152, 1536])
 @pytest.mark.parametrize("gelu", [False, True], ids=["bias", "gelu"])
 def test_plain_ln_gemm_matches_jax(K, gelu):
     """plain_ln_gemm against the JAX kernel's own arithmetic for LN1 + qkv
     and LN2 + fc1 (skyrim_tpu/ops/fused_block.py: _layernorm_f32, the f32 dot,
     + bias, nn.gelu) at M 37, in f32 at atol 3e-5 (the tolerance of
-    tests/ops/test_fused_block.py:49)."""
+    tests/ops/test_fused_block.py:49): Pangu's widths, and FengWu's and FuXi
+    V1's, which ``wide_gemm`` takes."""
     import flax.linen as nn
     import jax
     import jax.numpy as jnp
@@ -171,20 +174,40 @@ def test_plain_ln_gemm_matches_jax(K, gelu):
     ref = ref + jnp.asarray(b)
     if gelu:
         ref = nn.gelu(ref)
-    before = ln_gemm.launches
-    out = ln_gemm(torch.from_numpy(x), _to(ln, torch.from_numpy), torch.from_numpy(w), torch.from_numpy(b), gelu=gelu)
-    assert ln_gemm.launches == before  # the plain version on the CPU launches nothing
+    wrapper = ln_gemm if K <= LN_GEMM_MAX_K else functools.partial(wide_gemm, ln=_to(ln, torch.from_numpy))
+    args = (torch.from_numpy(x),) + ((_to(ln, torch.from_numpy),) if K <= LN_GEMM_MAX_K else ())
+    before = (ln_gemm.launches, wide_gemm.launches)
+    out = wrapper(*args, torch.from_numpy(w), torch.from_numpy(b), gelu=gelu)
+    assert (ln_gemm.launches, wide_gemm.launches) == before  # the plain version on the CPU launches nothing
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=3e-5, rtol=0)
     plain = plain_ln_gemm(torch.from_numpy(x), _to(ln, torch.from_numpy), torch.from_numpy(w), torch.from_numpy(b), gelu=gelu)
     np.testing.assert_array_equal(out.numpy(), plain.numpy())
 
 
 @pytest.mark.parametrize("C,path", [(16, "ln_gemm"), (192, "ln_gemm"), (384, "ln_gemm"), (512, "ln_gemm"),
-                                    (520, "chain"), (1536, "chain")])  # fmt: skip
+                                    (520, "chain"), (528, "chain"), (576, "wide"), (1152, "wide"),
+                                    (1536, "wide")])  # fmt: skip
 def test_block_path_by_width(C, path):
     """K1 runs five launches (LayerNorms in ln_gemm's prologue) where a row
-    block fits the kernel's shared memory, the seven-launch chain above it."""
+    block fits the kernel's shared memory; above it five on wide_gemm where
+    the rows are whole 64-column slices (FengWu's 1152, FuXi V1's 1536), else
+    the seven-launch chain."""
     assert FB.block_path(C) == path
+
+
+def test_wide_gemm_cpu_takes_plain_version():
+    """On CPU tensors wide_gemm runs the plain versions, each epilogue, and
+    launches nothing."""
+    g = torch.Generator().manual_seed(0)
+    M, K, N = 33, 128, 64
+    a, w, b = torch.randn(M, K, generator=g), torch.randn(K, N, generator=g) * K**-0.5, torch.randn(N, generator=g)
+    r, ln = torch.randn(M, N, generator=g), (1 + 0.1 * torch.randn(K, generator=g), torch.randn(K, generator=g))
+    before = wide_gemm.launches
+    for kw, ref in (({}, plain_gemm(a, w, b)), ({"gelu": True}, plain_gemm(a, w, b, gelu=True)),
+                    ({"residual": r}, plain_gemm(a, w, b, residual=r)), ({"ln": ln}, plain_ln_gemm(a, ln, w, b)),
+                    ({"ln": ln, "gelu": True}, plain_ln_gemm(a, ln, w, b, gelu=True))):  # fmt: skip
+        assert torch.equal(wide_gemm(a, w, b, **kw), ref)
+    assert wide_gemm.launches == before
 
 
 # -- on the card ---------------------------------------------------------------
@@ -197,6 +220,32 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+WIDE_WINDOW = (1, 6, 12)  # FengWu's and FuXi V1's window
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_swin_block_plain_matches_jax_wide(shifted):
+    """K1 at a width that takes the "wide" path on the card (C 576, 9
+    heads, window (1, 6, 12), a valid extent short of the padded one so the
+    mask is non-trivial; shifted by half a window with the shift mask): the
+    port's plain version against JAX's ``reference_swin_block`` and its
+    Pallas kernel in interpret mode, f32, atol 3e-5 (the tolerance of
+    tests/ops/test_fused_block.py:49)."""
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.fused_block import fused_swin_block_4d, reference_swin_block
+
+    assert FB.block_path(576) == "wide"
+    inp = _block_inputs(shifted, Z=1, H=12, Wd=24, C=576, heads=9, valid=(1, 11, 24), window=WIDE_WINDOW)
+    assert inp["mask"] is not None
+    j_args = _args(inp, jnp.asarray)
+    ref_kernel = np.asarray(fused_swin_block_4d(*j_args, WIDE_WINDOW, 9, interpret=True))
+    ref_twin = np.asarray(reference_swin_block(*j_args, WIDE_WINDOW, 9))
+    out = FB.fused_swin_block(*_args(inp, torch.from_numpy), WIDE_WINDOW, 9).numpy()
+    np.testing.assert_allclose(out, ref_kernel, atol=3e-5, rtol=0)
+    np.testing.assert_allclose(out, ref_twin, atol=3e-5, rtol=0)
 
 
 def assert_bf16_close(out, ref):
@@ -472,12 +521,15 @@ def test_ln_gemm_check_refuses_faults(cuda, K):
 @pytest.mark.parametrize("C,heads,window,dims,path,launches", [
     (192, 6, (2, 6, 12), (4, 12, 24), "ln_gemm", 5),
     (384, 12, (2, 6, 12), (4, 12, 24), "ln_gemm", 5),
-    (1536, 24, (1, 6, 12), (1, 12, 24), "chain", 7),
+    (1536, 24, (1, 6, 12), (1, 12, 24), "wide", 5),
+    (1152, 18, (1, 6, 12), (1, 12, 24), "wide", 5),
+    (528, 4, (2, 6, 12), (2, 6, 12), "chain", 7),
 ])  # fmt: skip
 def test_swin_block_launches_by_path(cuda, C, heads, window, dims, path, launches):
-    """fused_swin_block launches five kernels at Pangu's widths (no LayerNorm
-    rows launch) and seven at FuXi's C 1536, by the kernels' counters, and
-    agrees with its plain version on either path."""
+    """fused_swin_block launches five kernels at Pangu's widths and at
+    FengWu's and FuXi V1's (no LayerNorm rows launch on either), seven on the
+    chain, by the kernels' counters, and agrees with its plain version on
+    every path."""
     from skyrim_tpu_torch.ops.windows import shift_attention_mask
 
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -493,13 +545,128 @@ def test_swin_block_launches_by_path(cuda, C, heads, window, dims, path, launche
             mask, (randn(C, C, scale=C**-0.5), randn(C, scale=0.1)), (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
             (randn(C, hidden, scale=C**-0.5), randn(hidden, scale=0.1), randn(hidden, C, scale=hidden**-0.5),
              randn(C, scale=0.1))]  # fmt: skip
-    kernels = (ln_gemm, gemm, FB.layernorm, FB.window_attention)
+    kernels = (ln_gemm, gemm, FB.layernorm, FB.window_attention, wide_gemm)
     before = [k.launches for k in kernels]
     by_path = dict(FB.fused_swin_block.launches_by_path)
     out = FB.fused_swin_block(*args, window, heads)
     torch.cuda.synchronize()
     counts = [k.launches - n for k, n in zip(kernels, before)]
+    assert FB.block_path(C) == path
     assert sum(counts) == launches
-    assert counts == ([2, 2, 0, 1] if path == "ln_gemm" else [0, 4, 2, 1])
+    assert counts == {"ln_gemm": [2, 2, 0, 1, 0], "wide": [0, 0, 0, 1, 4], "chain": [0, 4, 2, 1, 0]}[path]
     assert FB.fused_swin_block.launches_by_path[path] == by_path.get(path, 0) + 1
     assert_bf16_close(out, FB.reference_swin_block(*args, window, heads))
+
+
+# (M, K, N) for wide_gemm_kernel: K1's four products at FengWu's and FuXi
+# V1's widths at a ragged M; one row; a row block less or more one; an M that
+# gives 132 blocks uneven walks; a K that is not a multiple of the 64-deep
+# slice (the proj and fc2 of no model, which the kernel takes) and an N that
+# is not a multiple of the 256-wide tile (FengWu's 1152 and 3456)
+WIDE_SHAPES = [(1000, 1152, 3456), (1000, 1152, 1152), (1000, 1152, 4608), (1000, 4608, 1152),
+               (1000, 1536, 4608), (1000, 1536, 1536), (1000, 1536, 6144), (1000, 6144, 1536),
+               (1, 1152, 1152), (127, 1536, 1536), (129, 1152, 3456), (3 * 132 * 128 - 5, 576, 512),
+               (300, 584, 520)]  # fmt: skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", WIDE_SHAPES)
+@pytest.mark.parametrize("epi", ["bias", "gelu", "residual"])
+def test_wide_gemm_kernel_matches_plain(cuda, M, K, N, epi):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=cuda, generator=g) * K**-0.5).to(torch.bfloat16)
+    b = torch.randn(N, device=cuda, generator=g)
+    r = torch.randn(M, N, device=cuda, generator=g).to(torch.bfloat16) if epi == "residual" else None
+    before = wide_gemm.launches
+    out = wide_gemm(a, w, b, gelu=epi == "gelu", residual=r)
+    torch.cuda.synchronize()
+    assert wide_gemm.launches == before + 1
+    assert_bf16_close(out, plain_gemm(a, w, b, gelu=epi == "gelu", residual=r))
+
+
+# (M, K, N) with the LayerNorm: LN1 + qkv and LN2 + fc1 at both widths, a
+# run of row blocks long enough for every block to take several units; one
+# row; the test width C 576
+WIDE_LN_SHAPES = [(1000, 1152, 3456), (1000, 1152, 4608), (1000, 1536, 4608), (1000, 1536, 6144),
+                  (20000, 1152, 3456), (17280, 1536, 4608), (1, 1152, 3456), (300, 576, 2304)]  # fmt: skip
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", WIDE_LN_SHAPES)
+@pytest.mark.parametrize("gelu", [False, True], ids=["bias", "gelu"])
+def test_wide_ln_gemm_kernel_matches_plain(cuda, M, K, N, gelu):
+    x, ln, w, b = _cuda_ln_gemm_inputs(M, K, N, cuda)
+    before = wide_gemm.launches
+    out = wide_gemm(x, w, b, ln=ln, gelu=gelu)
+    torch.cuda.synchronize()
+    assert wide_gemm.launches == before + 1
+    assert_bf16_close(out, plain_ln_gemm(x, ln, w, b, gelu=gelu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ln", "ln_gelu", "residual"])
+def test_wide_gemm_rows_are_free_of_the_call(cuda, kind):
+    """Rows 333 .. 5332 of a 20,000-row call equal, bit for bit, the same rows
+    called alone: where a row block starts, how many units the walk takes and
+    which block takes a row change nothing in its result (the LayerNorm's
+    statistics included)."""
+    M, K, N, lo, hi = 20000, 1152, 3456 if kind != "residual" else 1152, 333, 5333
+    x, ln, w, b = _cuda_ln_gemm_inputs(M, K, N, cuda)
+    if kind == "residual":
+        r = torch.randn(M, N, device=cuda).to(torch.bfloat16)
+        whole, part = wide_gemm(x, w, b, residual=r), wide_gemm(x[lo:hi].contiguous(), w, b, residual=r[lo:hi].contiguous())
+    else:
+        gelu = kind == "ln_gelu"
+        whole, part = wide_gemm(x, w, b, ln=ln, gelu=gelu), wide_gemm(x[lo:hi].contiguous(), w, b, ln=ln, gelu=gelu)
+    torch.cuda.synchronize()
+    diff = (whole[lo:hi].float() - part.float()).abs()
+    assert torch.equal(whole[lo:hi], part), f"{int((diff > 0).sum())} elements differ, at most by {float(diff.max()):.4g}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N,ln", [(1000, 1152, 3456, True), (777, 1536, 1536, False), (40962, 1536, 4608, True)])
+def test_wide_gemm_tma_store_writes_only_its_rows(cuda, M, K, N, ln):
+    """skt_wide_gemm_bf16 through the library into an output with 64 guard
+    rows past a ragged M: the guard rows come back with their bits, the M
+    rows equal the wrapper's output."""
+    from skyrim_tpu_torch.ops import _build
+    from skyrim_tpu_torch.ops.gemm import _EPS, _lib
+
+    x, lnp, w, b = _cuda_ln_gemm_inputs(M, K, N, cuda)
+    r = None if ln else torch.randn(M, N, device=cuda).to(torch.bfloat16)
+    sentinel = 0x7FA5  # a bf16 NaN pattern no product writes
+    buf = torch.full((M + 64, N), sentinel, device=cuda, dtype=torch.int16)
+    lib = _lib()
+    err = lib.skt_wide_gemm_bf16(x.data_ptr(), lnp[0].data_ptr() if ln else None, lnp[1].data_ptr() if ln else None,
+                                 w.data_ptr(), b.data_ptr(), None if ln else r.data_ptr(), buf.data_ptr(), M, N, K,
+                                 1 if ln else 2, _EPS, 0, torch.cuda.current_stream().cuda_stream)  # fmt: skip
+    _build.check(lib, err, "skt_wide_gemm_bf16")
+    torch.cuda.synchronize()
+    assert bool((buf[M:] == sentinel).all())
+    ref = wide_gemm(x, w, b, ln=lnp, gelu=True) if ln else wide_gemm(x, w, b, residual=r)
+    assert torch.equal(buf[:M].view(torch.bfloat16), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1152, 1536])
+def test_wide_ln_gemm_check_refuses_faults(cuda, K):
+    """The kernel passes the check at FengWu's and FuXi V1's widths; three
+    outputs a faulty kernel would give (each row's statistics taken from the
+    next row, the LayerNorm left out, β dropped) fail it."""
+    M, N = 4096, 3 * K
+    x, ln, w, b = _cuda_ln_gemm_inputs(M, K, N, cuda)
+    ref = plain_ln_gemm(x, ln, w, b)
+    assert_bf16_close(wide_gemm(x, w, b, ln=ln), ref)
+    xf = x.float()
+    mu = torch.roll(xf.mean(-1, keepdim=True), -1, 0)
+    var = torch.roll((xf * xf).mean(-1, keepdim=True), -1, 0) - mu * mu
+    h_next = ((xf - mu) * torch.rsqrt(var.clamp_min(0) + 1e-6) * ln[0] + ln[1]).to(torch.bfloat16)
+    faults = {
+        "statistics of the next row": plain_gemm(h_next, w, b),
+        "LayerNorm left out": plain_gemm(x, w, b),
+        "beta dropped": plain_ln_gemm(x, (ln[0], torch.zeros_like(ln[1])), w, b),
+    }
+    for name, out in faults.items():
+        with pytest.raises(AssertionError):
+            assert_bf16_close(out, ref)
