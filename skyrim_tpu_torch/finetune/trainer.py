@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -64,6 +65,7 @@ from skyrim_tpu_torch.finetune.dataset import FineTuneDataset
 from skyrim_tpu_torch.models.base import PrognosticModel
 from skyrim_tpu_torch.quantize import QuantizedTensor
 from skyrim_tpu_torch.utils.logging import logger
+from skyrim_tpu_torch.utils.profiling import annotate
 from skyrim_tpu_torch.weights.registry import save_checkpoint
 
 
@@ -213,18 +215,22 @@ class Trainer:
     def train_step(self, xs, ys) -> torch.Tensor:
         """One step on a batch (numpy or tensors), the whole batch given to
         every rank of a mesh; returns the batch's loss."""
-        xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
-        ys = torch.as_tensor(ys, dtype=torch.float32, device=self.device)
+        with annotate("skyrim.train.upload", 4 * (math.prod(xs.shape) + math.prod(ys.shape))):
+            xs = torch.as_tensor(xs, dtype=torch.float32, device=self.device)
+            ys = torch.as_tensor(ys, dtype=torch.float32, device=self.device)
         mine = self._members(len(xs))
-        loss = self.loss(xs[mine], ys[mine])
-        loss.backward()
+        with annotate("skyrim.train.forward", device=self.device):
+            loss = self.loss(xs[mine], ys[mine])
+        with annotate("skyrim.train.backward", device=self.device):
+            loss.backward()
         loss = loss.detach()
         if self._split(len(xs)):
             from skyrim_tpu_torch.parallel.mesh import AXES, all_reduce_
 
             self.average_gradients()
             loss = all_reduce_(self.mesh, AXES.dp, loss.clone()) / self.mesh.shape[AXES.dp]
-        self.last_grad_norm = self.update().detach()
+        with annotate("skyrim.train.update", device=self.device):
+            self.last_grad_norm = self.update().detach()
         self.step_count += 1
         return loss
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from skyrim_tpu_torch.channels import CHANNEL_SETS
 from skyrim_tpu_torch.grid import GRID_721x1440, LatLonGrid
+from skyrim_tpu_torch.utils.profiling import annotate
 
 Params = Any
 
@@ -90,7 +91,8 @@ class PrognosticModel(abc.ABC):
         start_time: datetime.datetime | None = None,
     ) -> ModelState:
         x0 = torch.as_tensor(np.asarray(x0, np.float32) if not torch.is_tensor(x0) else x0)
-        x0 = x0.to(self.device, torch.float32)
+        with annotate("skyrim.init_state.upload", x0.nbytes):
+            x0 = x0.to(self.device, torch.float32)
         if x0.ndim == 3:
             x0 = x0[None]
         if x0.shape[0] < self.n_history:

@@ -39,7 +39,9 @@ counts the same on both: the kernel's declared cost, and none of the plain
 version's ops.  Only the outermost wrapper is charged, so a call counts
 once however many launches it makes (K1's seven-launch chain at C > 512
 counts K1 once, as the JAX kernel does).  Nothing is computed when no
-count is active.
+count is active.  The outermost wrapper is also the kernel's span,
+``skyrim.<name>`` (``utils/profiling.py`` ``annotate``), timed on the
+device of the call's first argument.
 """
 
 from __future__ import annotations
@@ -48,6 +50,8 @@ import contextlib
 import dataclasses
 
 import torch
+
+from skyrim_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +101,8 @@ def count_costs():
 @contextlib.contextmanager
 def kernel(name: str, cost_fn, *args):
     """The block is one call of kernel ``name``: ``cost_fn(*args)`` is added to
-    every active count, and the dispatch modes are suspended inside it."""
+    every active count, the dispatch modes are suspended inside it, and the
+    outermost call is the span ``skyrim.<name>``."""
     outer = _DEPTH[0] == 0
     if outer and _ACTIVE:
         c = cost_fn(*args)
@@ -105,13 +110,17 @@ def kernel(name: str, cost_fn, *args):
             count.add(name, c)
     _DEPTH[0] += 1
     try:
-        if outer and torch._C._len_torch_dispatch_stack():
-            from torch.utils._python_dispatch import _disable_current_modes
-
-            with _disable_current_modes():
-                yield
-        else:
+        if not outer:
             yield
+            return
+        with annotate("skyrim." + name, device=args[0] if args else None):
+            if torch._C._len_torch_dispatch_stack():
+                from torch.utils._python_dispatch import _disable_current_modes
+
+                with _disable_current_modes():
+                    yield
+            else:
+                yield
     finally:
         _DEPTH[0] -= 1
 

@@ -23,6 +23,7 @@ import torch
 from skyrim_tpu_torch.field import Field
 from skyrim_tpu_torch.models.base import ModelState, Params, PrognosticModel
 from skyrim_tpu_torch.utils.logging import logger
+from skyrim_tpu_torch.utils.profiling import annotate
 
 
 @torch.no_grad()
@@ -71,22 +72,24 @@ def stream_rollout(
                 yield frame
 
     for _ in range(-(-n_steps // model.frames_out)):
-        state, y = model.advance(params, state)
+        with annotate("skyrim.model.advance"):
+            state, y = model.advance(params, state)
         if idx is not None:
             y = y.index_select(1, idx)
         if transfer_dtype is not None:
             y = y.to(transfer_dtype)
-        if copy_stream is None:
-            item = (y, None)
-        else:
-            host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-            copy_stream.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(copy_stream):
-                host.copy_(y, non_blocking=True)
-                y.record_stream(copy_stream)
-                done = torch.cuda.Event()
-                done.record(copy_stream)
-            item = (host, done)
+        with annotate("skyrim.rollout.stage"):
+            if copy_stream is None:
+                item = (y, None)
+            else:
+                host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+                copy_stream.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(copy_stream):
+                    host.copy_(y, non_blocking=True)
+                    y.record_stream(copy_stream)
+                    done = torch.cuda.Event()
+                    done.record(copy_stream)
+                item = (host, done)
         if pending is not None:
             yield from drain(pending)
         pending = item

@@ -58,6 +58,7 @@ NOT_PORTED = {
     "skyrim_tpu.parallel.mesh.state_sharding":
         "a jax.sharding.NamedSharding of the state; the port's ranks hold lon chunks (parallel/sharding.py)",
     "skyrim_tpu.parallel.halo.shard_map": "jax.shard_map; the port's ranks are processes over torch.distributed",
+    "skyrim_tpu.utils.profiling.StepTimer": "the port times steps with annotate spans",
 }
 # "module.name" → the port's name in the counterpart module
 RENAMED = {
