@@ -16,7 +16,12 @@
 // skt_window_attention_bf16: attention.cuh's bodies on the packed (Z, H, W, 3C)
 // qkv of the block's GEMM, tokens addressed in place (Packed4D); `body` as in
 // window_attention.cu; designs, limits and bound are in attention.cuh.
+//
+// skt_window_attention_backward_bf16: its reverse for K1's backward replay,
+// attention_bwd.cuh (design, limits and bound there): dqkv packed like qkv and
+// the f32 dbias partial sums of each run of windows.
 #include "attention.cuh"
+#include "attention_bwd.cuh"
 #include "rowgemm.cuh"
 
 extern "C" int skt_layernorm_bf16(const void* x, const void* scale, const void* bias, void* out,
@@ -35,4 +40,18 @@ extern "C" int skt_window_attention_bf16(const void* qkv, const void* bias, cons
                            wz, wh, ww, nh, nw};
   return attention::launch(addr, bias, mask, nz * nh * nw, heads, wz * wh * ww, hd, nw, n_types,
                            nz * nh, vec, scale, body, stream);
+}
+
+// dout (Z, H, W, C) bf16; dqkv like qkv; bias and mask as above; dbias (rows,
+// runs, heads, wlen, wlen) f32, rows 1 or nz * nh (the rows of windows that
+// share a bias type and mask table), runs = ceil(windows a row / run).
+extern "C" int skt_window_attention_backward_bf16(const void* qkv, const void* dout, const void* bias,
+                                                  const void* mask, void* dqkv, void* dbias, int Z,
+                                                  int H, int W, int C, int heads, int wz, int wh,
+                                                  int ww, int n_types, int rows, int run,
+                                                  float scale, void* stream) {
+  const int nz = Z / wz, nh = H / wh, nw = W / ww, hd = C / heads, n_win = nz * nh * nw;
+  attention::Packed4D addr{static_cast<const bf16*>(qkv), nullptr, H, W, C, hd, wz, wh, ww, nh, nw};
+  return attention_bwd::launch(addr, dout, dqkv, bias, mask, dbias, n_win, heads, wz * wh * ww, hd,
+                               n_win / rows, run, n_types, nz * nh, scale, stream);
 }

@@ -50,22 +50,37 @@ PyTorch version of the same function; on a CUDA tensor it launches the
 kernels or raises.  Reverse mode is JAX's ``_fused_swin_block_bwd``
 (``ops/vjp.py``): the inputs are saved, and the backward differentiates
 ``reference_swin_block`` on them; the mask, the window and the heads get
-no gradient.  ``fused_swin_block.launches`` counts wrapper calls
+no gradient.  On the card the replay's attention is an autograd Function
+of its own where ``attention_backward_body`` takes the window: forward
+the block's attention kernel (``window_attention``), backward
+``window_attention_backward`` (csrc/attention_bwd.cuh: scores, softmax
+and dS recomputed in f32 registers a window at a time, P and dS rounded
+to bf16 only as operands of the dq, dk and dv products, dbias summed in
+f32 without atomics), in place of the f32 composition's whole-stage score
+tensors; LayerNorm, the four products, GELU and the residuals stay in the
+plain replay.  ``fused_swin_block.launches`` counts wrapper calls
 that launched the kernels, ``launches_by_shape`` the same by input shape
-and ``launches_by_path`` by ``block_path``; ``layernorm.launches`` and
-``window_attention.launches`` count those two kernels' launches
-(``ops.gemm``'s wrappers, ``wide_gemm`` among them, count theirs).
+and ``launches_by_path`` by ``block_path``; ``layernorm.launches``,
+``window_attention.launches`` and ``window_attention_backward.launches``
+count those kernels' launches, ``window_attention_backward.launches_by_body``
+the replays' attentions by body, ``"plain"`` for a window the kernel does
+not take (``ops.gemm``'s wrappers, ``wide_gemm`` among them, count theirs).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
 from skyrim_tpu_torch.ops import _build, cost
+from skyrim_tpu_torch.ops import windows as W
 from skyrim_tpu_torch.ops.flash_window_attention import (
+    _f32_tables,
+    _stream,
+    _tables,
     attention_4d,
     reference_window_attention_4d,
     reference_window_attention_qkv,  # noqa: F401  (the attention-alone checks of K1 reach it here)
@@ -76,12 +91,14 @@ from skyrim_tpu_torch.ops.vjp import with_plain_vjp
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads):
-    """Plain PyTorch version of K1 (JAX ``reference_swin_block``)."""
+def reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads, *,
+                         attention=reference_window_attention_4d):
+    """Plain PyTorch version of K1 (JAX ``reference_swin_block``); the
+    backward replay passes its own ``attention``."""
     dt = x.dtype
     h = _layernorm_f32(x, *ln1).to(dt)
     qkv = h @ qkv_wb[0].to(dt) + qkv_wb[1].to(dt)
-    o = reference_window_attention_4d(qkv, bias, mask, window, heads).to(dt)
+    o = attention(qkv, bias, mask, window, heads).to(dt)
     x1 = x + (o @ proj_wb[0].to(dt) + proj_wb[1].to(dt))
     h2 = _layernorm_f32(x1, *ln2).to(dt)
     m = F.gelu(h2 @ mlp_wb[0].to(dt) + mlp_wb[1].to(dt), approximate="tanh")
@@ -94,6 +111,8 @@ def _lib():
     lib.skt_layernorm_bf16.restype = _I
     lib.skt_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 10 + [_F, _I, _P]
     lib.skt_window_attention_bf16.restype = _I
+    lib.skt_window_attention_backward_bf16.argtypes = [_P] * 6 + [_I] * 11 + [_F, _P]
+    lib.skt_window_attention_backward_bf16.restype = _I
     return lib
 
 
@@ -139,6 +158,148 @@ def window_attention(qkv, bias, mask, window, heads):
 
 window_attention.launches = 0
 
+# (WLP, largest hd) of csrc/attention_bwd.cuh's instantiations: hd in (HDP - 32, HDP], a multiple of 8
+_BACKWARD_SHAPES = ((144, 32), (80, 64))
+#: blocks an SM the backward kernel's grid asks for before it cuts rows of windows into runs
+BACKWARD_BLOCKS_PER_SM = 2
+
+
+def attention_backward_body(wlen: int, hd: int) -> str:
+    """The reverse of K1's attention for a (wlen, hd) window, by shape alone:
+    ``"registers"`` (csrc/attention_bwd.cuh, the register body's geometries:
+    Pangu's wlen 129-144 with hd <= 32, FuXi's and FengWu's wlen 65-80 with
+    hd 33-64, hd a multiple of 8), else ``"plain"`` (the f32 replay of
+    ``reference_window_attention_4d``)."""
+    wlp = -(-wlen // 16) * 16
+    ok = hd % 8 == 0 and any(wlp == w and h - 32 < hd <= h for w, h in _BACKWARD_SHAPES)
+    return "registers" if ok else "plain"
+
+
+def reference_window_attention_backward(qkv, bias, mask, dout, window, heads):
+    """Plain version of ``window_attention_backward``: the gradients of
+    ``reference_window_attention_4d(qkv, bias, mask, window, heads)`` for the
+    output gradient ``dout`` in closed form, in f32 — per window and head, P =
+    softmax(q kᵀ·scale + bias + mask), dS = P∘(dO vᵀ − rowsum(P∘dO vᵀ)), dq =
+    dS k·scale, dk = dSᵀ q·scale, dv = Pᵀ dO, dbias the sum of dS over the
+    windows of each bias type.  Returns (dqkv in qkv's dtype, dbias in
+    bias's shape and dtype); the mask gets no gradient."""
+    Z, H, Wd, c3 = qkv.shape
+    C = c3 // 3
+    hd, wlen, nw = C // heads, math.prod(window), Wd // window[2]
+    scale = hd**-0.5
+
+    def split_heads(t, n):  # (Z, H, W, n·C) → n × (nWin, heads, wlen, hd), f32
+        p = W.window_partition(t.float(), window)
+        return p.reshape(p.shape[0], wlen, n, heads, hd).permute(2, 0, 3, 1, 4)
+
+    q, k, v = split_heads(qkv, 3)
+    (do,) = split_heads(dout, 1)
+    n_win = q.shape[0]
+    b = (bias if bias.ndim == 4 else bias[None]).float()
+    nt = b.shape[0]
+    s = (q @ k.transpose(-1, -2)) * scale
+    s = (s.reshape(nt, n_win // nt, heads, wlen, wlen) + b[:, None]).reshape(n_win, heads, wlen, wlen)
+    if mask is not None:
+        nz, nh = mask.shape[:2]
+        s = (s.reshape(nz, nh, nw, heads, wlen, wlen) + mask.float()[:, :, None, None]).reshape(s.shape)
+    p = torch.softmax(s, dim=-1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    grads = torch.stack((ds @ k * scale, ds.transpose(-1, -2) @ q * scale, p.transpose(-1, -2) @ do))
+    dqkv = grads.permute(1, 3, 0, 2, 4).reshape(n_win, wlen, c3)
+    dqkv = W.window_reverse(dqkv, window, (Z, H, Wd)).to(qkv.dtype)
+    dbias = ds.reshape(nt, n_win // nt, heads, wlen, wlen).sum(1)
+    return dqkv, dbias.reshape(bias.shape).to(bias.dtype)
+
+
+def window_attention_backward(qkv, bias, mask, dout, window, heads):
+    """The gradients of ``window_attention(qkv, bias, mask, window, heads)``
+    for the output gradient ``dout``: (dqkv, bf16 like qkv; dbias, in bias's
+    shape and dtype).  On a CPU tensor ``reference_window_attention_backward``;
+    on a CUDA tensor one launch of csrc/attention_bwd.cuh for a window that
+    ``attention_backward_body`` takes, or raises.  dbias is summed in f32 in a
+    fixed order: two calls on the same inputs give the same bits."""
+    if qkv.device.type == "cpu":
+        return reference_window_attention_backward(qkv, bias, mask, dout, window, heads)
+    what = "window_attention_backward"
+    Z, H, Wd, c3 = qkv.shape
+    C = c3 // 3
+    wz, wh, ww = window
+    nz, nh, nw = Z // wz, H // wh, Wd // ww
+    wlen, hd = wz * wh * ww, C // heads
+    if attention_backward_body(wlen, hd) == "plain":
+        raise ValueError(f"{what}: no kernel takes wlen {wlen} with hd {hd} (attention_backward_body)")
+    dout = dout.to(torch.bfloat16).contiguous()
+    for t in (qkv, dout):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} takes contiguous, 16-byte aligned bf16 tensors, got {t.dtype} {tuple(t.shape)}")
+    if tuple(dout.shape) != (Z, H, Wd, C) or Z % wz or H % wh or Wd % ww or C % heads:
+        raise ValueError(f"{what}: qkv {tuple(qkv.shape)}, dout {tuple(dout.shape)}, window {window}, {heads} heads")
+    b4, n_types, n_masks = _tables(bias, mask, nz * nh * nw, nw, heads, wlen, what)
+    b32, _, mask_ptr = _f32_tables(b4, mask, qkv.device)
+    # rows of windows that share a bias type and mask table, cut into runs to fill the card
+    rows = nz * nh if n_types > 1 or (mask is not None and n_masks > 1) else 1
+    per_row = nz * nh * nw // rows
+    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+    want = min(-(-BACKWARD_BLOCKS_PER_SM * sms // (rows * heads)), per_row)
+    run = -(-per_row // want)
+    runs = -(-per_row // run)
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((rows, runs, heads, wlen, wlen), dtype=torch.float32, device=qkv.device)
+    lib = _lib()
+    err = lib.skt_window_attention_backward_bf16(
+        qkv.data_ptr(), dout.data_ptr(), b32.data_ptr(), mask_ptr, dqkv.data_ptr(), part.data_ptr(),
+        Z, H, Wd, C, heads, wz, wh, ww, n_types, rows, run, hd**-0.5, _stream(qkv),
+    )  # fmt: skip
+    _build.check(lib, err, what)
+    window_attention_backward.launches += 1
+    counts = window_attention_backward.launches_by_body
+    counts["registers"] = counts.get("registers", 0) + 1
+    if n_types == 1:
+        dbias = part.sum((0, 1)) if rows * runs > 1 else part[0, 0]
+    else:
+        dbias = part.sum(1) if runs > 1 else part[:, 0]
+    return dqkv, dbias.reshape(bias.shape).to(bias.dtype)
+
+
+window_attention_backward.launches = 0
+window_attention_backward.launches_by_body = {}  # "registers", or "plain" for a replay the kernel does not take
+
+
+class _ReplayAttention(torch.autograd.Function):
+    """K1's attention inside its backward replay on the card: forward the
+    block's attention kernel, backward ``window_attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, window, heads):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.window, ctx.heads = window, heads
+        return window_attention(qkv, bias, mask, window, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias, mask = ctx.saved_tensors
+        dqkv, dbias = window_attention_backward(qkv, bias, mask, dout, ctx.window, ctx.heads)
+        return dqkv, dbias if ctx.needs_input_grad[1] else None, None, None, None
+
+
+def _replay_attention(qkv, bias, mask, window, heads):
+    """The attention of K1's backward replay: ``_ReplayAttention`` on a card
+    where ``attention_backward_body`` takes the window, else the plain
+    version (counted as ``"plain"`` on a card)."""
+    if qkv.device.type != "cpu":
+        if attention_backward_body(math.prod(window), qkv.shape[-1] // 3 // heads) == "registers":
+            return _ReplayAttention.apply(qkv, bias, mask, window, heads)
+        counts = window_attention_backward.launches_by_body
+        counts["plain"] = counts.get("plain", 0) + 1
+    return reference_window_attention_4d(qkv, bias, mask, window, heads)
+
+
+def _replay_swin_block(*args):
+    """What K1's backward differentiates: ``reference_swin_block`` with
+    ``_replay_attention``."""
+    return reference_swin_block(*args, attention=_replay_attention)
+
 
 def block_path(C: int) -> str:
     """K1's launches for rows of width C, chosen by shape before any launch:
@@ -167,7 +328,7 @@ def fused_swin_block(
     """Whole pre-norm window-attention block; returns (Z, H, W, C) in x's dtype."""
     with cost.kernel("K1", cost.swin_block, x, qkv_wb, mlp_wb, window, heads):
         return with_plain_vjp(_swin_block, reference_swin_block, x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb,
-                              window, heads)
+                              window, heads, replay=_replay_swin_block)
 
 
 def _swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads):

@@ -12,7 +12,10 @@ given; the backward replays the plain PyTorch version on them under
 ``torch.enable_grad()`` and hands back ``torch.autograd.grad`` of it.  The
 gradient is therefore the plain composition's, whatever the kernel
 rounds, and the backward launches no kernel of the port.  K2 is the one
-kernel whose backward is itself (``ops/roll.py``).
+kernel whose backward is itself (``ops/roll.py``).  A wrapper may hand a
+``replay`` of its own: the plain composition with some of its parts on
+kernels that have a backward of their own (K1's attention on the card,
+``ops/fused_block.py``); the backward then differentiates that replay.
 
 Arguments may be nested tuples and lists of tensors, ``None`` and Python
 values; only the tensors are the Function's inputs.  Integer tensors
@@ -33,9 +36,10 @@ edge rows alone holds tens of GB of f32 intermediates.
 ``plain_versions()`` makes every wrapper run its plain version on a CUDA
 tensor too, launching nothing: the counterpart of the JAX package's
 ``SKYRIM_NO_PALLAS``, for the stability harness's f32 leg
-(``utils/stability.py``).  ``plain_forwards()`` keeps the Function and
-its replay but runs the plain version forward as well (in its chunks):
-the plain path differentiated as each plain composition under
+(``utils/stability.py``).  ``plain_forwards()`` keeps the Function but
+runs the plain version forward as well (in its chunks) and replays the
+plain version, never a wrapper's own ``replay``: the plain path
+differentiated as each plain composition under
 ``torch.utils.checkpoint``, at the kernel path's memory.
 """
 
@@ -207,16 +211,18 @@ def _replay_in_chunks(plain, skeleton, chunks, saved, need, grads) -> list:
     return [None if g is None else g.to(t.dtype) for g, t in zip(out, saved)]
 
 
-def with_plain_vjp(kernel, plain, *args, chunks: RowChunks | None = None):
+def with_plain_vjp(kernel, plain, *args, chunks: RowChunks | None = None, replay=None):
     """``kernel(*args)`` forward; backward the gradient of ``plain(*args)``
     on the same inputs, chunk by chunk where ``chunks`` cuts the call into
-    more than one.  ``kernel`` and ``plain`` take the same arguments and
-    return a tensor or a tuple of tensors of the same shapes and dtypes
-    (one tensor where ``chunks`` is given)."""
+    more than one, or of ``replay(*args)`` where it is given, outside
+    ``plain_forwards()``.  ``kernel``, ``plain`` and ``replay`` take the
+    same arguments and return a tensor or a tuple of tensors of the same
+    shapes and dtypes (one tensor where ``chunks`` is given)."""
     if _PLAIN[0]:
         return plain(*args)
     if _PLAIN_FORWARD[0]:
         kernel = plain if chunks is None else (lambda *a: chunks.run(plain, *a))
+        replay = None
     tensors = []
     skeleton = _split(args, tensors)
-    return _PlainVJP.apply(kernel, plain, skeleton, chunks, *tensors)
+    return _PlainVJP.apply(kernel, replay or plain, skeleton, chunks, *tensors)

@@ -24,24 +24,43 @@ that requires a gradient they raise (tested on meta tensors, which reach
 the card's branch without a card); their CPU plain versions stay
 differentiable.
 
+K1's backward replays its plain composition with the attention on a
+Function of its own on the card (``ops/fused_block.py``): its plain
+version, ``reference_window_attention_backward``, is held to autograd
+through ``reference_window_attention_4d`` and to JAX's ``jax.vjp`` of its
+reference in f32 at atol 3e-5, rtol 1e-4.
+
 On the card (marker ``gpu``): each Function's gradients against autograd
 through its plain version on the same card tensors, within 1e-5·max|g|
 (the backward replays that composition; scatter sums may add in another
-order), K2's exactly, and K2's backward a K2 launch.
+order), K2's exactly, and K2's backward a K2 launch; K1's where its
+attention's backward is the kernel at the golden tolerance against the
+plain version's f32 gradient (the kernel rounds P and dS to bf16 as
+operands of its products, which the bf16 replay did in f32), or, where
+it misses, by at most 1.25 times what the bf16 plain version misses it
+by, as for the earth-bias tables in a whole step (``chip_smoke.py``).  The
+attention backward kernel against f32 autograd of the plain attention at
+the golden tolerance at Pangu's two stage shapes, FengWu's 72/64 window
+and one bias table for every window, and twice for equal bits.
 
 JAX is imported inside the CPU tests only: the card's machine has no JAX.
 """
+
+import contextlib
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from skyrim_tpu_torch.ops import flash_window_attention as FWA
+from skyrim_tpu_torch.ops import vjp as VJP
 from skyrim_tpu_torch.ops import fused_block as FB
 from skyrim_tpu_torch.ops import fused_mlp as FM
 from skyrim_tpu_torch.ops import graph_kernels as GK
 from skyrim_tpu_torch.ops import resample as RS
 from skyrim_tpu_torch.ops.roll import plain_roll3d, roll3d, shift_roll
+from skyrim_tpu_torch.ops.windows import shift_attention_mask
 
 WINDOW = (2, 6, 12)
 
@@ -298,12 +317,36 @@ def test_backward_replays_the_plain_version_and_launches_nothing():
     """On the CPU the Function's gradient is autograd's through the plain
     composition, bit for bit, and no kernel counter moves."""
     args, act = _k1(True)
-    counts = (FB.fused_swin_block.launches, roll3d.launches)
+
+    def counts():
+        bwd = FB.window_attention_backward
+        return FB.fused_swin_block.launches, roll3d.launches, bwd.launches, dict(bwd.launches_by_body)
+
+    before = counts()
     grads, cots = _port_grads(FB.fused_swin_block, args, act, torch.float32)
     plain, _ = _port_grads(lambda *a: FB.reference_swin_block(*a) * 1.0, args, act, torch.float32, cots)
     for g, p in zip(grads, plain):
         np.testing.assert_array_equal(g, p)
-    assert (FB.fused_swin_block.launches, roll3d.launches) == counts
+    assert counts() == before
+
+
+def test_plain_forwards_replays_the_plain_version():
+    """A wrapper's own ``replay`` is what its backward differentiates, except
+    inside ``plain_forwards()``, where the plain version is."""
+    seen = []
+
+    def replay(t):
+        seen.append("replay")
+        return t * 2
+
+    x = torch.ones(3, requires_grad=True)
+    for block, want in ((contextlib.nullcontext(), ["replay"]), (VJP.plain_forwards(), [])):
+        seen.clear()
+        with block:
+            y = VJP.with_plain_vjp(lambda t: t * 2, lambda t: t * 2, x, replay=replay)
+        (g,) = torch.autograd.grad(y.sum(), x)
+        assert seen == want
+        torch.testing.assert_close(g, torch.full((3,), 2.0), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("grad", [False, True], ids=["serving", "training"])
@@ -386,6 +429,76 @@ def test_attention_plain_versions_stay_differentiable(kernel):
     assert torch.isfinite(g.float()).all() and g.abs().sum() > 0
 
 
+# --- K1's attention backward ------------------------------------------------------------
+
+# id: (window, heads, hd, (Z, H, W), shift): Pangu's window (wlen 144, hd 32) with four bias types,
+# FuXi's and FengWu's (wlen 72, padded to 80 on the card, hd 64) with two; both under a shift mask
+ATTENTION_BACKWARD = {
+    "pangu": ((2, 6, 12), 2, 32, (4, 12, 24), (1, 3, 6)),
+    "padded": ((1, 6, 12), 2, 64, (1, 12, 24), (0, 3, 6)),
+}
+
+
+def _attention_backward_inputs(case, seed=3):
+    window, heads, hd, dims, shift = ATTENTION_BACKWARD[case]
+    rng = np.random.default_rng(seed)
+    (Z, H, Wd), C, wlen = dims, heads * hd, math.prod(window)
+    mask = shift_attention_mask(dims, window, shift, (Z - (window[0] > 1), H - 1, Wd))
+    assert mask is not None
+    n_types = Z // window[0] * (H // window[1])
+    return (_n(rng, Z, H, Wd, 3 * C), _n(rng, n_types, heads, wlen, wlen, s=0.5), mask, _n(rng, Z, H, Wd, C),
+            window, heads)
+
+
+@pytest.mark.parametrize("case", sorted(ATTENTION_BACKWARD))
+def test_attention_backward_matches_autograd_and_jax(case):
+    """The closed form K1's attention backward implements, against autograd
+    through the plain attention and against JAX's ``jax.vjp`` of its
+    reference; on the CPU the wrapper is that plain version and counts
+    nothing."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops import windows as JW
+    from skyrim_tpu.ops.flash_window_attention import reference_window_attention_qkv
+
+    qkv, bias, mask, dout, window, heads = _attention_backward_inputs(case)
+    tq, tb, tm, td = (torch.from_numpy(a) for a in (qkv, bias, mask, dout))
+    got = FB.reference_window_attention_backward(tq, tb, tm, td, window, heads)
+    leaves = (tq.clone().requires_grad_(True), tb.clone().requires_grad_(True))
+    out = FWA.reference_window_attention_4d(*leaves, tm, window, heads)
+    want = torch.autograd.grad(out, leaves, td)
+    Z, H, Wd = qkv.shape[:3]
+
+    def jfn(q, b):
+        o = reference_window_attention_qkv(JW.window_partition(q, window), b, jnp.asarray(mask), Wd // window[2], heads)
+        return JW.window_reverse(o, window, (Z, H, Wd))
+
+    _, vjp = jax.vjp(jfn, jnp.asarray(qkv), jnp.asarray(bias))
+    jgot = vjp(jnp.asarray(dout))
+    for name, g, w, j in zip(("dqkv", "dbias"), got, want, jgot):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=3e-5, rtol=1e-4, err_msg=f"{case} {name}, autograd")
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=3e-5, rtol=1e-4, err_msg=f"{case} {name}, JAX")
+    bwd = FB.window_attention_backward
+    before = bwd.launches, dict(bwd.launches_by_body)
+    for g, r in zip(bwd(tq, tb, tm, td, window, heads), got):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert (bwd.launches, bwd.launches_by_body) == before
+
+
+@pytest.mark.parametrize("wlen, hd, body", [
+    (144, 32, "registers"), (144, 8, "registers"), (129, 24, "registers"), (72, 64, "registers"),
+    (80, 40, "registers"), (144, 64, "plain"), (144, 12, "plain"), (128, 32, "plain"), (72, 32, "plain"),
+    (72, 72, "plain"), (16, 8, "plain"),
+])  # fmt: skip
+def test_attention_backward_body_by_shape(wlen, hd, body):
+    """The register body's two geometries, hd a multiple of 8, take the
+    kernel; any other window keeps the plain replay."""
+    assert FB.attention_backward_body(wlen, hd) == body
+
+
 # --- on the card -----------------------------------------------------------------------
 
 
@@ -419,18 +532,91 @@ def test_card_gradients_match_plain(cuda, case):
     else:
         name, fn, make = CASES[case]
         args, act = make()
+    # K1's replay differentiates its attention by the backward kernel where that takes the window: the
+    # kernel rounds P and dS to bf16 as operands, so its gradients are held to the f32 plain version's
+    body = FB.attention_backward_body(math.prod(args[8]), args[0].shape[-1] // args[9]) if name == "K1" else None
+    before = dict(FB.window_attention_backward.launches_by_body)
+    runs = [(fn, torch.bfloat16), (PLAIN[name], torch.bfloat16)]
+    if body == "registers":
+        runs.append((PLAIN[name], torch.float32))
     grads = []
-    for f in (fn, PLAIN[name]):
-        targs, leaves = _torch_args(args, act, torch.bfloat16, cuda)
+    for f, dtype in runs:
+        targs, leaves = _torch_args(args, act, dtype, cuda)
         out = f(*targs)
         outs = out if isinstance(out, tuple) else (out,)
         assert all(o.grad_fn is not None for o in outs)
         cots = [torch.from_numpy(c).to(cuda) for c in _cotangents(tuple(o.cpu() for o in outs))]
         loss = sum((o.float() * c).sum() for o, c in zip(outs, cots))
         grads.append([g.float() for g in torch.autograd.grad(loss, leaves)])
-    for g, p in zip(*grads):
+    if body is not None:
+        counts = FB.window_attention_backward.launches_by_body
+        assert counts.get(body, 0) == before.get(body, 0) + 1, (case, body, counts)
+    for g, p, *exact in zip(*grads):
+        if body == "registers":
+            # where the kernel path misses the f32 gradient, the bf16 plain path misses it as well, by at
+            # least 1/1.25 as much (the earth bias's gradient sums the score gradients of a type's windows,
+            # which the bf16 forward's q and k already move)
+            misses = _golden_misses(g.cpu().numpy(), exact[0].cpu().numpy())
+            floor = _golden_misses(p.cpu().numpy(), exact[0].cpu().numpy())
+            assert all(k in floor and v <= 1.25 * floor[k] for k, v in misses.items()), (case, misses, floor)
+            continue
         tol = 0.0 if name == "K2" else 1e-5 * float(p.abs().max())
         assert float((g - p).abs().max()) <= tol, case
+
+
+# id: ((Z, H, W), window, heads, hd, shift or None for no mask, valid H, one bias table for every window)
+CARD_ATTENTION_BACKWARD = {
+    "pangu_stage1": ((8, 186, 360), (2, 6, 12), 6, 32, (1, 3, 6), 181, False),
+    "pangu_stage2": ((8, 96, 180), (2, 6, 12), 12, 32, (1, 3, 6), 91, False),
+    "fengwu_72_64": ((1, 186, 360), (1, 6, 12), 18, 64, (0, 3, 6), 181, False),
+    "one_table": ((8, 96, 180), (2, 6, 12), 12, 32, None, 96, True),
+}
+
+
+def _card_attention_backward_inputs(case, device):
+    dims, window, heads, hd, shift, valid_h, one_table = CARD_ATTENTION_BACKWARD[case]
+    g = torch.Generator(device=device).manual_seed(0)
+    (Z, H, Wd), C, wlen = dims, heads * hd, math.prod(window)
+
+    def randn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device=device) * s
+
+    bias = randn(1 if one_table else Z // window[0] * (H // window[1]), heads, wlen, wlen, s=0.5)
+    bias = bias[0] if one_table else bias  # one table: 3-D
+    mask = None if shift is None else shift_attention_mask(dims, window, shift, (Z, valid_h, Wd))
+    mask = None if mask is None else torch.from_numpy(mask).to(device)
+    return (randn(Z, H, Wd, 3 * C).to(torch.bfloat16), bias, mask, randn(Z, H, Wd, C).to(torch.bfloat16),
+            window, heads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CARD_ATTENTION_BACKWARD))
+def test_card_attention_backward_matches_f32_autograd(cuda, case):
+    """K1's attention backward kernel (Pangu's two stage shapes, FengWu's
+    wlen 72 padded to 80 with hd 64, and one bias table for every window,
+    whose rows are cut into runs) against f32 autograd through the plain
+    attention on the same bf16 values, at the golden tolerance."""
+    qkv, bias, mask, dout, window, heads = _card_attention_backward_inputs(case, cuda)
+    before = FB.window_attention_backward.launches
+    got = FB.window_attention_backward(qkv, bias, mask, dout, window, heads)
+    assert FB.window_attention_backward.launches == before + 1
+    leaves = (qkv.float().requires_grad_(True), bias.clone().requires_grad_(True))
+    want = torch.autograd.grad(FWA.reference_window_attention_4d(*leaves, mask, window, heads), leaves, dout.float())
+    for name, g, w, dt in zip(("dqkv", "dbias"), got, want, (torch.bfloat16, torch.float32)):
+        assert g.shape == w.shape and g.dtype == dt, (case, name)
+        misses = _golden_misses(g.float().cpu().numpy(), w.cpu().numpy())
+        assert not misses, (case, name, misses)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["pangu_stage2", "one_table"])
+def test_card_attention_backward_is_repeatable(cuda, case):
+    """Two calls on the same inputs give the same bits: dbias is summed in a
+    fixed order, with no float atomics."""
+    args = _card_attention_backward_inputs(case, cuda)
+    first, second = FB.window_attention_backward(*args), FB.window_attention_backward(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), case
 
 
 @pytest.mark.gpu
