@@ -71,7 +71,15 @@ Phases:
      (ops/flash_window_attention.py attention_body); K5 and K1 at FuXi's V1
      trunk geometry (window (1, 6, 12), wlen
      72, hd 64; K1 there on the "wide" path, C 1536, five launches, its
-     row reporting the launches of FuXi V1's forecast); K12 over the grid
+     row reporting the launches of FuXi V1's forecast); K15, FuXi's Swin-V2
+     block, at its trunk (96, 180, 1536), unshifted and shifted, on its 91
+     valid rows (seven launches a call: four wide_gemm, the cosine attention
+     on the register body, two post-norm rows; eight shifted, with its K2),
+     its bound from ops/cost.py's declared work, its rows reporting the
+     launches of FuXi's forecast, one fault (each head given its
+     neighbour's logit scale) that its check must refuse, and at logit
+     scales near the clamp the kernel's RMS gap to the composition in f32,
+     which must not exceed the bf16 composition's; K12 over the grid
      rows and the mesh edges, one launch a call (timed over 20 after 5),
      within 2 ulps of its two-launch chain (the finish GEMM, then the
      LayerNorm rows; timed beside it), its store into an output with 64
@@ -121,12 +129,14 @@ Phases:
      ic_source="synthetic"), the published Swin-V2 cascade at 721x1440, 70
      channels, 2 frames, 3 stages of 48 blocks at C 1536 (its seed-0
      parameters drawn on the card and given as params), a 4-step forecast
-     (48 K2 at (1, 96, 180, 1536) a forward and no other kernel), its stage
+     (48 K15 a forward, inside them 192 launches of wide_gemm and 24 K2 at
+     (1, 96, 180, 1536), one a shifted block), its stage
      switch (from step 19 two advances take stage 0, then stage 1, each
-     equal bit for bit to _forward of that stage) and its two int8 tiers
+     equal bit for bit to _stage of that stage) and its two int8 tiers
      on stage 0 (at rest and served through torch._int_mm: resident bytes,
      step ms beside bf16's, peak, the first step within 0.15 mean |diff| /
-     mean |bf16| of bf16, 48 K2 a step; then torch._int_mm, int8_dot and
+     mean |bf16| of bf16; at rest the K15 launches of bf16, served the
+     plain composition's 48 K2 a step and no K15; then torch._int_mm, int8_dot and
      torch.matmul at the trunk's four product shapes, timed only), then
      FuXi's V1 flavour, one stage (48 K1 on the "wide" path and 48 K2 a
      forward, inside K1 192 launches of wide_gemm and no LayerNorm rows),
@@ -1254,7 +1264,101 @@ def attention_op_checks(torch, g) -> list[dict]:
     rows[-1]["shape"] = (Z, H, Wd, C)
     del args, mask, bias
     torch.cuda.empty_cache()
+    rows.extend(k15_rows(torch, randn))
     return rows
+
+
+def k15_rows(torch, randn) -> list[dict]:
+    """K15, FuXi's Swin-V2 block (the port's own entry point), at its trunk
+    (96, 180, 1536), 24 heads, window (6, 12), 91 valid rows, unshifted and
+    shifted (by (3, 6), as the forward's odd blocks: K2 into the shifted
+    frame, the shift mask and the rolled store of the second post-norm):
+    one counted call each (its launches: four wide_gemm, the cosine
+    attention on the register body, two post-norm rows, and the shifted
+    block's K2), the op row against the plain composition on the 91 valid
+    rows (a padded row's query may see no key, and two versions then round
+    a softmax over -1e9 apart; no valid row reads a padded one), the logit
+    scales at log 10 + N(0, 0.1^2), the declared cost (ops/cost.py) as the
+    bound's work; one fault (each head given its neighbour's scale), which
+    the check's rule must refuse; and at logit scales near the clamp (log
+    100 + N(0, 0.1^2), clamped), where two bf16 versions part by more than
+    the rule, the RMS gap of the kernel and of the bf16 composition to the
+    composition in f32, of which the kernel's must be the smaller."""
+    import math
+
+    from skyrim_tpu_torch.ops import cost
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops import roll as RL
+    from skyrim_tpu_torch.ops.gemm import wide_gemm
+    from skyrim_tpu_torch.ops.windows import shift_attention_mask
+
+    bf16, H, Wd, C, heads, window, valid = torch.bfloat16, 96, 180, 1536, 24, (6, 12), 91
+    wlen, hidden = window[0] * window[1], 4 * C
+    kernels = (wide_gemm, FB.cosine_window_attention, FB.post_norm_rows, RL.roll3d)
+    weights = ((randn(C, 3 * C, scale=C**-0.5, dtype=bf16), randn(3 * C, scale=0.1)),
+               16 * torch.sigmoid(randn(heads, wlen, wlen)), torch.exp(math.log(10.0) + randn(heads, scale=0.1)))
+    rest = ((randn(C, C, scale=C**-0.5, dtype=bf16), randn(C, scale=0.1)), (1 + randn(C, scale=0.1), randn(C, scale=0.1)),
+            (randn(C, hidden, scale=C**-0.5, dtype=bf16), randn(hidden, scale=0.1),
+             randn(hidden, C, scale=hidden**-0.5, dtype=bf16), randn(C, scale=0.1)),
+            (1 + randn(C, scale=0.1), randn(C, scale=0.1)), window, heads)
+    x = randn(H, Wd, C, dtype=bf16)
+
+    def rows_of(fn):  # the block's valid rows
+        def valid_rows(*a):
+            valid_rows.launches += 1
+            return fn(*a)[:valid]
+
+        valid_rows.launches = 0
+        return valid_rows
+
+    def rms(a, b):
+        return float((a.double() - b.double()).pow(2).mean().sqrt() / b.double().pow(2).mean().sqrt())
+
+    out = []
+    for shift in ((0, 0), (3, 6)):
+        mask = torch.from_numpy(shift_attention_mask((1, H, Wd), (1, *window), (0, *shift), (1, valid, Wd))).cuda()
+        args = (x, *weights, mask, *rest, shift)
+        before = [k.launches for k in kernels]
+        body = dict(FB.cosine_window_attention.launches_by_body)
+        FB.fused_swin_v2_block(*args)
+        torch.cuda.synchronize()
+        n = [k.launches - b for k, b in zip(kernels, before)]
+        expect = [4, 1, 2, int(shift != (0, 0))]
+        check(n == expect, f"K15 {shift} launched (wide_gemm, attention, post-norm rows, K2) {n} a call, expected {expect}")
+        check(FB.cosine_window_attention.launches_by_body.get("registers", 0) == body.get("registers", 0) + 1,
+              "K15's attention did not take the register body at FuXi's window")
+        declared = cost.swin_v2_block(x, weights[0], rest[2], window, heads)
+        rows = []
+        what = "unshifted" if shift == (0, 0) else f"shifted {shift}"
+        op_row(torch, rows, f"K15 fused_swin_v2_block FuXi trunk {(H, Wd, C)} {what}, {valid} valid rows "
+               f"[cosine attention: registers body] [{sum(n)} launches a call]",
+               "skyrim_tpu_torch/csrc/gemm.cu+rowgemm.cuh+attention.cuh+fused_block.cu",
+               "none: skyrim_tpu/models/fuxi.py computes the Swin-V2 block outside Pallas",
+               rows_of(FB.fused_swin_v2_block), args, rows_of(FB.reference_swin_v2_block), declared.flops,
+               declared.bytes_accessed, iters=10)
+        plain = FB.reference_swin_v2_block(*args)[:valid]
+        faulty = FB.fused_swin_v2_block(*args[:3], args[3].roll(1), *args[4:])[:valid]
+        fault = over_limit(torch, faulty, plain, False)
+        check(fault > 1, f"K15 {what} with each head given its neighbour's scale passed the check ({fault:.3g}x its limit)")
+        log(f"K15 {what}: each head given its neighbour's scale: {fault:.4g}x the check's limit")
+        # near the clamp: the kernel and the bf16 composition against the composition in f32
+        near = torch.exp(torch.clamp(math.log(100.0) + randn(heads, scale=0.1), max=math.log(100.0)))
+        hot = (*args[:3], near, *args[4:])
+        f32 = FB.reference_swin_v2_block(*(tuple(t.float() for t in a) if isinstance(a, tuple) and torch.is_tensor(a[0])
+                                           else a.float() if torch.is_tensor(a) else a for a in hot))[:valid]
+        gaps = (rms(FB.fused_swin_v2_block(*hot)[:valid], f32), rms(FB.reference_swin_v2_block(*hot)[:valid], f32))
+        rule = over_limit(torch, FB.fused_swin_v2_block(*hot)[:valid], FB.reference_swin_v2_block(*hot)[:valid], False)
+        log(f"K15 {what} at logit scales near 100: RMS gap to f32 kernel {gaps[0]:.4g}, bf16 composition {gaps[1]:.4g}; "
+            f"kernel against bf16 composition {rule:.3g}x the rule")
+        check(gaps[0] <= gaps[1], f"K15 {what} near the clamp: the kernel ({gaps[0]:.4g}) is further from f32 than "
+              f"the bf16 composition ({gaps[1]:.4g})")
+        del rows[0]["launches"]  # a forecast's kernel: its launches on FuXi's forecast
+        rows[0].update(shape=(1, H, Wd, C), launches_a_call=sum(n), declared=(declared.flops, declared.bytes_accessed),
+                       fault_over_limit=fault, near_clamp_rms_to_f32=gaps, near_clamp_over_rule=rule)
+        out.append(rows[0])
+        del args, hot, f32, plain, faulty, mask
+        torch.cuda.empty_cache()
+    return out
 
 
 def message_launches(torch, wrapper, args, expect: int, path: str) -> str:
@@ -1615,7 +1719,7 @@ def counters():
             "K6": fused_mlp,
             "K7": GK.fused_round_messages, "K8": GK.fused_m2g_tiled, "K9": GK.fused_g2m_tiled,
             "K10": FA.fused_window_attention, "K11": FA.flash_window_attention, "K12": fused_finish,
-            "K13": GK.fused_fixed_degree_messages, "K14": GK.fused_block_messages}
+            "K13": GK.fused_fixed_degree_messages, "K14": GK.fused_block_messages, "K15": FB.fused_swin_v2_block}
 
 
 BY_SHAPE = ("K1", "K2", "K6", "K7")  # kernels that run at several shapes on a path
@@ -1678,29 +1782,35 @@ def read_counts() -> tuple[dict, dict]:
     return counts, by_shape
 
 
-def expected_launches(model, n_steps: int) -> tuple[dict, dict]:
+def expected_launches(model, n_steps: int, int8_served: bool = False) -> tuple[dict, dict]:
     """Launches per n_steps forwards of the main path: every kernel of the
-    port is listed, so the other model's kernels must stay at 0."""
+    port is listed, so the other model's kernels must stay at 0.
+    ``int8_served``: FuXi's stages carry the int8 collection."""
     counts = dict.fromkeys(counters(), 0)
     by_shape = {k: {} for k in (*BY_SHAPE, *ROW_KERNELS)}
     if model.name in ("fourcastnet_v2", "fourcastnet", "dlwp"):  # PyTorch compositions: no kernel of the port
         return counts, by_shape
     if model.name == "fuxi":
-        # both flavours: the trunk's 24 shifted blocks each between two K2
-        # rolls on the (96, 180) token grid; V1's 48 blocks at C 1536 take
-        # K1's "wide" path (4 wide_gemm launches a block, LN1 and LN2 in
-        # their products: no LayerNorm rows launch); Swin-V2's blocks are a
-        # PyTorch composition
+        # the trunk's 48 blocks on the (96, 180) token grid.  V1: the 24
+        # shifted blocks each between two K2 rolls, all 48 on K1's "wide"
+        # path (4 wide_gemm launches a block, LN1 and LN2 in their products:
+        # no LayerNorm rows launch).  Swin-V2: 48 K15 (4 wide_gemm launches a
+        # block; a shifted block rolls in by one K2 and back in its second
+        # post-norm's store), or with the int8 collection the plain
+        # composition, two K2 a shifted block
         cfg = model.cfg
         Ht, Wt = cfg.tokens
         Hd, wh = (Ht + Ht % 2) // 2, cfg.window[0]
         shape = (1, -(-Hd // wh) * wh, Wt // 2, cfg.embed_dim)
-        rolls, n_blocks = cfg.depth * n_steps, cfg.depth * n_steps
+        n_blocks = cfg.depth * n_steps
+        rolls = n_blocks // 2 if cfg.attn_v2 and not int8_served else n_blocks
         counts.update(K2=rolls)
         by_shape["K2"] = {shape: rolls}
         if not cfg.attn_v2:
             counts.update(K1=n_blocks, wide_gemm=4 * n_blocks)
             by_shape["K1"], by_shape["K1 path"] = {shape: n_blocks}, {"wide": n_blocks}
+        elif not int8_served:
+            counts.update(K15=n_blocks, wide_gemm=4 * n_blocks)
         return counts, by_shape
     if model.name == "fengwu":
         # the fuser's 16 blocks at C 1152 take K1's "wide" path (block_path:
@@ -1860,8 +1970,8 @@ def main_path(torch, label: str, g) -> dict:
                 modules=modules, cascade=cascade, int8=int8, wall_s=time.perf_counter() - t_path)
 
 
-def check_launches(model, n_steps: int, counts: dict, by_shape: dict, what: str) -> None:
-    expect, expect_shape = expected_launches(model, n_steps)
+def check_launches(model, n_steps: int, counts: dict, by_shape: dict, what: str, int8_served: bool = False) -> None:
+    expect, expect_shape = expected_launches(model, n_steps, int8_served)
     for k, v in expect.items():
         check(counts[k] == v, f"{what} launched {k} {counts[k]} times, expected {v}")
     for k in (*BY_SHAPE, *ROW_KERNELS):
@@ -1871,16 +1981,15 @@ def check_launches(model, n_steps: int, counts: dict, by_shape: dict, what: str)
 def fuxi_cascade(torch, model, params, state) -> dict:
     """FuXi's stage switch at full width: from the IC's state at step 19, two
     advances take stage 0 (19 // 20), then stage 1 (20 // 20); each output
-    equals _forward of that stage on the same history bit for bit, and the
+    equals _stage of that stage on the same history bit for bit, and the
     second differs from stage 0's."""
-    stages = params["stages"]
     state = state.replace(step=model.cfg.stage_steps - 1)
     s1, y1 = model.advance(params, state)
     s2, y2 = model.advance(params, s1)
     check(s2.step == model.cfg.stage_steps + 1, f"cascade steps {s1.step}, {s2.step}")
-    check(bool(torch.equal(y1[0], model._forward(stages[0], params, state.x))), "step 19 did not take stage 0")
-    check(bool(torch.equal(y2[0], model._forward(stages[1], params, s1.x))), "step 20 did not take stage 1")
-    other = float((y2[0] - model._forward(stages[0], params, s1.x)).abs().max())
+    check(bool(torch.equal(y1[0], model._stage(0, params, state.x))), "step 19 did not take stage 0")
+    check(bool(torch.equal(y2[0], model._stage(1, params, s1.x))), "step 20 did not take stage 1")
+    other = float((y2[0] - model._stage(0, params, s1.x)).abs().max())
     check(other > 0, "stages 0 and 1 gave the same step 20")
     log(f"fuxi cascade: step 19 took stage 0, step 20 stage 1 (bit for bit), stage 0 at step 20 differs by "
         f"max {other:.4g}")
@@ -1891,7 +2000,8 @@ def fuxi_int8(torch, model, params, state) -> dict:
     """FuXi's two int8 tiers on stage 0 at full width (min_size 65536): the
     resident bytes (quantize.tree_nbytes), the first step's mean |diff| /
     mean |bf16| against the bf16 stage (below 0.15, tests/test_quantize.py:102),
-    its launches (48 K2, nothing else), step ms (CUDA events, 3 steps each,
+    its launches (at rest bf16's K15 and wide_gemm; served 48 K2 and nothing
+    else), step ms (CUDA events, 3 steps each,
     bf16 in the same run) and peak; then torch._int_mm beside torch.matmul
     and quantize.int8_dot at the trunk's four product shapes, timed only."""
     from skyrim_tpu_torch.quantize import QuantizedTensor, int8_dot, quantize_array, tree_nbytes
@@ -1925,7 +2035,7 @@ def fuxi_int8(torch, model, params, state) -> dict:
         _, y = model.advance(qp, state)
         torch.cuda.synchronize()
         counts, by_shape = read_counts()
-        check_launches(model, 1, counts, by_shape, f"fuxi int8 {tier}")
+        check_launches(model, 1, counts, by_shape, f"fuxi int8 {tier}", int8_served=serve)
         rel = float((y - y0).abs().mean() / y0.abs().mean())
         check(bool(torch.isfinite(y).all()) and rel < 0.15, f"fuxi int8 {tier}: mean |diff| / mean |bf16| = {rel:.4g}")
         out[tier] = dict(step_ms=steps(qp), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -2564,13 +2674,16 @@ def small_config(torch, label: str) -> dict:
     if model_name == "fuxi":
         from skyrim_tpu_torch.models.fuxi import FuXiConfig, FuXiModel
 
-        # tests/test_golden.py:43-45, a pair a step: Swin-V2 (2 K2 rolls a
-        # step), V1 (2 K1 a step), and Swin-V2 int8-served with min_size 256
-        # (tests/test_quantize.py:56), its trunk products on torch._int_mm
+        # tests/test_golden.py:43-45, a pair a step: Swin-V2 (2 K15 a step,
+        # hd 8 on the attention's general body), V1 (2 K1 a step), and
+        # Swin-V2 int8-served with min_size 256 (tests/test_quantize.py:56),
+        # its trunk products on torch._int_mm in the plain composition (2 K2
+        # rolls a step)
         cfg = FuXiConfig(lat=49, lon=96, in_channels=5, embed_dim=16, depth=2, num_heads=2,
                          attn_v2=label != "fuxi V1")
         x = np.random.default_rng(0).normal(size=(2, 5, 49, 96)).astype(np.float32)
-        make, key, launches = (lambda device: FuXiModel(cfg, device=device)), ("K1" if label == "fuxi V1" else "K2"), 8
+        key = {"fuxi V1": "K1", "fuxi int8": "K2"}.get(label, "K15")
+        make, launches = (lambda device: FuXiModel(cfg, device=device)), 8
         if label == "fuxi int8":
             quantize = dict(min_size=256, serve_int8=True)
     elif model_name == "fourcastnet":

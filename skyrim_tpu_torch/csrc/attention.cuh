@@ -1,6 +1,7 @@
 // Windowed multi-head attention with earth bias and shift mask: the kernel
 // bodies of K1's attention (fused_block.cu) and of K5, K10 and K11
-// (window_attention.cu), which differ only in where a window's tokens lie.
+// (window_attention.cu), which differ only in where a window's tokens lie,
+// and the cosine attention of K15 (fused_block.cu, the variant below).
 //
 // Addr maps (window t, head, token i) to the head's q, k, v rows and its output
 // row, so a block reads its wlen x hd lanes straight out of the caller's
@@ -41,6 +42,17 @@
 //     written; hd below HDP is zero-filled; rows that are not 16-byte aligned
 //     load and store element by element.
 //
+// Both bodies have one compile-time variant, chosen by the address map's
+// type: CosinePacked4D (FuXi's Swin-V2 block, K15 in fused_block.cu) is
+// Packed4D for cosine attention, softmax(norm(q) norm(k)^T * head_scale[head] +
+// bias + mask) v.  Once a window's q, k, v land, each of its q and k rows is
+// scaled to unit L2 norm in place in shared memory, as the reference rounds it
+// (the squares in bf16 summed in f32, rsqrt(sum + 1e-12) rounded to bf16, each
+// value times it rounded to bf16), one thread a row and one more barrier a
+// window; the scores take the head's f32 scale in place of the scalar.  Every
+// other map compiles to the code it had: the variant's statements sit under
+// `if constexpr`.
+//
 // BODY_SHARED, window_attention_kernel<Addr, PAD>: the general body for any
 // other wlen and hd, one block per (window, head): S through a wlen^2 f32 tile
 // in shared memory (padded to a multiple of 16, WLP), softmax one row a warp,
@@ -54,6 +66,8 @@
 
 #include <math.h>
 #include <mma.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -96,6 +110,45 @@ struct Packed4D {
     return out + (org + rel) * C + head * hd;
   }
 };
+
+// Packed4D for Swin-V2's cosine attention: head_scale (heads,) f32 holds
+// exp(min(logit_scale, log 100)) of each head.
+struct CosinePacked4D : Packed4D {
+  static constexpr bool COSINE = true;
+  const float* head_scale;
+};
+
+// Whether an address map asks for the cosine variant (a COSINE member).
+template <class A, class = void>
+struct is_cosine : std::false_type {};
+template <class A>
+struct is_cosine<A, std::void_t<decltype(A::COSINE)>> : std::bool_constant<A::COSINE> {};
+
+// The cosine variant's normalisation: rows [0, WL) of Qs and of Ks (row
+// stride ld) scaled to unit L2 norm in place, a thread a row, with the
+// reference's roundings (see above).  `lanes` (a multiple of 8) covers the
+// head's hd lanes; the bodies zero-fill the rest, which adds nothing.
+__device__ __forceinline__ void normalise_qk(bf16* Qs, bf16* Ks, int ld, int WL, int lanes, int tid,
+                                             int threads) {
+  for (int r = tid; r < 2 * WL; r += threads) {
+    bf16* row = r < WL ? Qs + r * ld : Ks + (r - WL) * ld;
+    float ss = 0.f;
+    for (int c = 0; c < lanes; c += 8) {
+      float f[8];
+      load8(row + c, f);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) ss += bf16_round(f[u] * f[u]);
+    }
+    const float inv = bf16_round(rsqrtf(ss + 1e-12f));
+    for (int c = 0; c < lanes; c += 8) {
+      float f[8];
+      load8(row + c, f);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) f[u] *= inv;
+      store8(row + c, f);
+    }
+  }
+}
 
 // Partitioned packed rows (nWin, wlen, 3C) -> (nWin, wlen, C).
 struct PackedRows {
@@ -198,6 +251,11 @@ __global__ void __launch_bounds__(THREADS, 2)
     *reinterpret_cast<uint4*>(Vs + i * HDP + c) = v;
   }
   __syncthreads();
+  if constexpr (is_cosine<Addr>::value) {  // q, k to unit rows; the head's own scale
+    normalise_qk(Qs, Ks, HDP, WL, HDP, tid, blockDim.x);
+    scale = addr.head_scale[head];
+    __syncthreads();
+  }
 
   // 2. S = q k^T (k row-major is k^T column-major)
   const int T = WLP / 16;
@@ -408,13 +466,23 @@ __global__ void __launch_bounds__(RegsShape<WLP, HDP>::THREADS, 1)
     const int c = i < (WLP - WL) * WLP ? i % WLP : WL + (i - (WLP - WL) * WLP) % (WLP - WL);
     tile[r * Sh::LDT + c] = c < WL ? 0.f : -INFINITY;
   }
-  const float c2 = scale * LOG2E;
+  const float c2 = [&] {
+    if constexpr (is_cosine<Addr>::value)
+      return addr.head_scale[head] * LOG2E;
+    else
+      return scale * LOG2E;
+  }();
 
   for (int w = w0; w < w1; ++w) {
     const int s = (w - w0) & 1;
     cp_async_wait<0>();
     __syncthreads();  // window w (and the tile) landed; every warp is done with the other buffer
     if (w + 1 < w1) load_window(w + 1, s ^ 1);
+    if constexpr (is_cosine<Addr>::value) {
+      bf16* Qn = bufs + (size_t)s * 3 * WLP * LD;
+      normalise_qk(Qn, Qn + WLP * LD, LD, WL, HDP, tid, Sh::THREADS);
+      __syncthreads();
+    }
     const bf16* Qs = bufs + (size_t)s * 3 * WLP * LD;
     const bf16* Ks = Qs + WLP * LD;
     const bf16* Vs = Ks + WLP * LD;

@@ -14,9 +14,13 @@ Two block flavours (``FuXiConfig.attn_v2``):
 - Swin-V2, the published one and the default (``swin_v2_block``): cosine
   attention with a learned logit scale clamped at log 100, a
   continuous-position-bias MLP over log-spaced relative coordinates, and
-  residual-post-norm.  It is a PyTorch composition, as the JAX package
-  computes it outside Pallas; the shifted-window rolls run on K2
-  (ops/roll.py).
+  residual-post-norm.  It runs as K15 (ops/fused_block.py
+  ``fused_swin_v2_block``: the port's own kernel entry point, as the JAX
+  package computes the block outside Pallas): on the card seven or eight
+  launches a block, and its plain composition on the CPU, under autograd and
+  with the ``int8`` collection (``int8_dot`` products).  Each stage's CPB
+  bias and clamped logit scale (``swin_v2_terms``) and f32 copies of the
+  blocks' vectors are made once, for all stages, by ``prepare_params``.
 - V1 (``swin_v1_block``, FengWu's fuser block ``SwinBlock2D`` too): K2 →
   K1 → K2 (ops/fused_block.py; at C 1536 K1's seven-launch chain).
 
@@ -51,7 +55,7 @@ from skyrim_tpu_torch.models.base import (
 )
 from skyrim_tpu_torch.models.pangu import Dense, LayerNorm
 from skyrim_tpu_torch.ops import windows as W
-from skyrim_tpu_torch.ops.fused_block import fused_swin_block
+from skyrim_tpu_torch.ops.fused_block import fused_swin_block, fused_swin_v2_block, reference_swin_v2_block
 from skyrim_tpu_torch.ops.gemm import _layernorm_f32
 from skyrim_tpu_torch.ops.roll import shift_roll
 from skyrim_tpu_torch.parallel import fused_shard as FS
@@ -60,6 +64,10 @@ from skyrim_tpu_torch.utils.device import resolve_device
 from skyrim_tpu_torch.utils.tree import flatten, unflatten
 
 CPB_HIDDEN = 512  # the continuous-position-bias MLP's width
+LOGIT_SCALE_MAX = math.log(100.0)  # Swin-V2's clamp of the learned logit scale
+# a Swin-V2 block's vectors, which prepare_params keeps in f32 for K15
+VECTORS = ("qkv/bias", "proj/bias", "Dense_0/bias", "Dense_1/bias", "norm1/scale", "norm1/bias", "norm2/scale",
+           "norm2/bias")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,12 +121,8 @@ def _layernorm(x, prm, name):
     return _layernorm_f32(x, prm[f"{name}/scale"], prm[f"{name}/bias"]).to(x.dtype)
 
 
-def _dense(x, prm, name, int8=None):
-    """flax Dense in x's dtype, or with ``int8`` holding ``{name}_q`` the int8
-    product plus the exact bias added in x's dtype."""
-    if int8 is not None and f"{name}_q" in int8:
-        y = int8_dot(x, QuantizedTensor(int8[f"{name}_q"], int8[f"{name}_scale"], x.dtype))
-        return y + int8[f"{name}_bias"].to(x.dtype)
+def _dense(x, prm, name):
+    """flax Dense in x's dtype."""
     y = x @ prm[f"{name}/kernel"].to(x.dtype)
     bias = prm.get(f"{name}/bias")
     return y if bias is None else y + bias.to(x.dtype)
@@ -141,39 +145,67 @@ def swin_v2_terms(prm, window: tuple[int, int]) -> tuple[torch.Tensor, torch.Ten
     cpb = h @ prm["cpb_fc2/kernel"].float()  # (…, T, heads)
     bias = (16.0 * torch.sigmoid(cpb))[..., _table("rel_index", window, dev), :].movedim(-1, -3)
     ls = prm["logit_scale"]
-    scale = torch.exp(torch.minimum(ls, ls.new_tensor(math.log(100.0))))
+    scale = torch.exp(torch.minimum(ls, ls.new_tensor(LOGIT_SCALE_MAX)))
     return bias, scale.float()
+
+
+def _halves(prm) -> dict[str, dict]:
+    """A stage's trunk leaves by half (``a``: unshifted, ``b``: shifted),
+    named as in one block and stacked over the pairs."""
+    return {s: {key[len(f"pairs/{s}/"):]: t for key, t in prm.items() if key.startswith(f"pairs/{s}/")}
+            for s in ("a", "b")}
+
+
+def stage_terms(prm, window: tuple[int, int]) -> dict[str, dict]:
+    """What a stage's Swin-V2 blocks take besides their leaves, per half:
+    ``bias`` and ``scale`` (``swin_v2_terms`` of the stacked blocks) and f32
+    copies of the blocks' ``VECTORS``."""
+    out = {}
+    for s, half in _halves(prm).items():
+        bias, scale = swin_v2_terms(half, window)
+        out[s] = {"bias": bias.contiguous(), "scale": scale.contiguous(),
+                  "vectors": {n: half[n].float().contiguous() for n in VECTORS}}
+    return out
+
+
+def _int8_dense(h, wb):
+    """A product of the ``int8`` collection (``int8_dot``) or of a bf16
+    kernel, then the exact bias in h's dtype."""
+    w, b = wb
+    y = int8_dot(h, w) if isinstance(w, QuantizedTensor) else h @ w.to(h.dtype)
+    return y if b is None else y + b.to(h.dtype)
+
+
+def _product(prm, name, int8, dtype):
+    """(kernel, bias) of one of a block's products: the ``int8`` collection's
+    where it holds ``{name}_q``, else the leaves."""
+    if int8 is not None and f"{name}_q" in int8:
+        return QuantizedTensor(int8[f"{name}_q"], int8[f"{name}_scale"], dtype), int8[f"{name}_bias"]
+    return prm[f"{name}/kernel"], prm.get(f"{name}/bias")
 
 
 def swin_v2_block(x, prm, bias, scale, heads: int, window: tuple[int, int], shifted: bool, valid_h: int,
                   int8=None):
     """One Swin-V2 block on x (H, W, C), H padded to the window, rows from
     ``valid_h`` on padding (masked as keys); ``bias``/``scale`` from
-    ``swin_v2_terms``.  Numerics as the JAX block: q and k normalised with
-    their squares in x's dtype summed in f32, f32 scores and softmax, the
-    probabilities in x's dtype, f32 accumulation of AV, residual-post-norm."""
-    H, Wd, C = x.shape
-    win3 = (1, *window)
+    ``swin_v2_terms``; ``prm`` the block's leaves (its ``VECTORS`` may be
+    f32 copies).  Numerics as the JAX block (``reference_swin_v2_block``):
+    q and k normalised with their squares in x's dtype summed in f32, f32
+    scores and softmax, the probabilities in x's dtype, f32 accumulation of
+    AV, residual-post-norm.  K15; its plain composition with ``int8`` (on
+    the collection's products) and where autograd needs a gradient (K15 has
+    no backward)."""
+    H, Wd, _ = x.shape
     shift = _shift(window, shifted)
-    mask = W.mask_tensor((1, H, Wd), win3, shift, (1, valid_h, Wd), x.device)
-    dt, hd = x.dtype, C // heads
-
-    parts = W.window_partition(shift_roll(x[None], shift, forward=True), win3)
-    n_win, wlen, _ = parts.shape
-    q, k, v = _dense(parts, prm, "qkv", int8).view(n_win, wlen, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
-    qn = q * torch.rsqrt((q * q).float().sum(-1, keepdim=True) + 1e-12).to(dt)
-    kn = k * torch.rsqrt((k * k).float().sum(-1, keepdim=True) + 1e-12).to(dt)
-    attn = (qn.float() @ kn.float().transpose(-1, -2)) * scale + bias
-    if mask is not None:
-        nz, nh = mask.shape[:2]
-        attn = (attn.view(nz, nh, -1, heads, wlen, wlen) + mask[:, :, None, None]).view(n_win, heads, wlen, wlen)
-    probs = torch.softmax(attn, dim=-1).to(dt)
-    out = (probs.float() @ v.float()).to(dt).transpose(1, 2).reshape(n_win, wlen, C)
-    out = _dense(W.window_reverse(out, win3, (1, H, Wd)), prm, "proj", int8)
-    out = shift_roll(out, shift, forward=False)
-    x = x + _layernorm(out[0], prm, "norm1")
-    m = _dense(F.gelu(_dense(x, prm, "Dense_0", int8), approximate="tanh"), prm, "Dense_1", int8)
-    return x + _layernorm(m, prm, "norm2")
+    mask = W.mask_tensor((1, H, Wd), (1, *window), shift, (1, valid_h, Wd), x.device)
+    qkv, proj, fc1, fc2 = (_product(prm, n, int8, x.dtype) for n in ("qkv", "proj", "Dense_0", "Dense_1"))
+    norm1, norm2 = ((prm[f"{n}/scale"], prm[f"{n}/bias"]) for n in ("norm1", "norm2"))
+    args = (x, qkv, bias, scale, mask, proj, norm1, (*fc1, *fc2), norm2, window, heads, shift[1:])
+    if int8 is not None:
+        return reference_swin_v2_block(*args, dense=_int8_dense)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, bias, scale, *prm.values())):
+        return reference_swin_v2_block(*args)
+    return fused_swin_v2_block(*args)
 
 
 def swin_v1_block(x, prm, heads: int, window: tuple[int, int], shifted: bool, valid_h: int):
@@ -287,11 +319,14 @@ class FuXiNet(nn.Module):
         self.head = Leaves(kernel=(p, p, Dc, nc), bias=(nc,))
 
 
-def fuxi_forward(cfg: FuXiConfig, prm: dict, x: torch.Tensor, int8: dict | None = None) -> torch.Tensor:
+def fuxi_forward(cfg: FuXiConfig, prm: dict, x: torch.Tensor, int8: dict | None = None,
+                 terms: dict | None = None) -> torch.Tensor:
     """One stage on x (hist·C, H, W) in the compute dtype → (C, H, W).
 
     ``prm``: the stage's leaves by flax path; ``int8``: the stage's int8
-    collection (``{"pairs": {"a": {"qkv_q": …}, …}}``) or None.  The cube
+    collection (``{"pairs": {"a": {"qkv_q": …}, …}}``) or None; ``terms``:
+    the stage's ``stage_terms`` (``prepare_params``'s cache), else the
+    Swin-V2 terms are computed here from the leaves.  The cube
     embedding and the head are one GEMM each (the head's kernel flipped
     spatially, flax ``ConvTranspose``), as the JAX package's fused path."""
     p, Dc, wh = cfg.patch, cfg.cube_dim, cfg.window[0]
@@ -311,17 +346,18 @@ def fuxi_forward(cfg: FuXiConfig, prm: dict, x: torch.Tensor, int8: dict | None 
     hd = _dense(_layernorm(hd.reshape(Hd, Wd, 4 * Dc), prm, "down_norm"), prm, "down")
 
     h = F.pad(hd, (0, 0, 0, 0, 0, (-Hd) % wh)).contiguous()
-    halves = {s: {key[len(f"pairs/{s}/"):]: t for key, t in prm.items() if key.startswith(f"pairs/{s}/")}
-              for s in ("a", "b")}
+    halves = _halves(prm)
     q8 = {s: (int8 or {}).get("pairs", {}).get(s) for s in ("a", "b")}
-    terms = {s: swin_v2_terms(halves[s], cfg.window) for s in ("a", "b")} if cfg.attn_v2 else None
+    if cfg.attn_v2 and terms is None:
+        terms = {s: dict(zip(("bias", "scale"), swin_v2_terms(halves[s], cfg.window)), vectors={}) for s in halves}
     for i in range(cfg.depth // 2):
         for s, shifted in (("a", False), ("b", True)):
             blk = {key: t[i] for key, t in halves[s].items()}
             if cfg.attn_v2:
+                st = terms[s]
+                blk |= {key: v[i] for key, v in st["vectors"].items()}
                 blk8 = None if q8[s] is None else {key: t[i] for key, t in q8[s].items()}
-                h = swin_v2_block(h, blk, terms[s][0][i], terms[s][1][i], cfg.num_heads, cfg.window, shifted, Hd,
-                                  blk8)
+                h = swin_v2_block(h, blk, st["bias"][i], st["scale"][i], cfg.num_heads, cfg.window, shifted, Hd, blk8)
             else:
                 h = swin_v1_block(h, blk, cfg.num_heads, cfg.window, shifted, Hd)
     hd = h[:Hd]
@@ -411,7 +447,21 @@ class FuXiModel(PrognosticModel):
                      for name, p in sorted(net.named_parameters())}
             net.load_state_dict(state, strict=True, assign=True)
             stages.append(net.eval())
-        return {"stages": stages, "norm": make_norm_params(self.cfg.in_channels, device=self.device)}
+        return self.prepare_params({"stages": stages, "norm": make_norm_params(self.cfg.in_channels, device=self.device)})
+
+    @torch.no_grad()
+    def prepare_params(self, params):
+        """Attach ``params["cache"]["swin_v2"]``, a list aligned with
+        ``params["stages"]``: each Swin-V2 stage's ``stage_terms``, every
+        stage of the cascade ready before the first step and nothing
+        recomputed in a forward.  Stages not held as a ``FuXiNet`` (bf16 at
+        rest) get None, and compute their terms from their leaves, as any
+        forward without the cache (the trainer's) does."""
+        if "cache" in params or not self.cfg.attn_v2:
+            return params
+        terms = [stage_terms(_leaves(s), self.cfg.window) if isinstance(s, nn.Module) else None
+                 for s in params["stages"]]
+        return {**params, "cache": {"swin_v2": terms}}
 
     def floor_params(self, params):
         """The parameters one step reads: one stage and the norm stats."""
@@ -433,6 +483,7 @@ class FuXiModel(PrognosticModel):
                 "serve_int8 requires attn_v2=True (the Swin-V2 block is the int8-collection consumer); "
                 "use the at-rest tier (serve_int8=False) for V1-style configs"
             )
+        params = {k: v for k, v in params.items() if k != "cache"}  # terms of the bf16 leaves
         trees = [stage_tree(s) if isinstance(s, nn.Module) else s for s in params["stages"]]
         if not serve_int8:
             return {**params, "stages": [quantize_tree(t, min_size) for t in trees]}
@@ -442,9 +493,10 @@ class FuXiModel(PrognosticModel):
             stages.append({"params": quantize_tree(rest, min_size), "int8": int8 or {}})
         return {**params, "stages": stages}
 
-    def _forward(self, stage, params, x):
+    def _forward(self, stage, params, x, terms=None):
         """One stage on the 2-frame state x (2, C, H, W): the residual in
-        normalised space, in f32."""
+        normalised space, in f32; ``terms`` the stage's entry of
+        ``prepare_params``'s cache, else made from the leaves."""
         if isinstance(stage, nn.Module):
             prm, int8 = _leaves(stage), None
         elif "int8" in stage:
@@ -453,18 +505,27 @@ class FuXiModel(PrognosticModel):
             prm, int8 = flatten(maybe_dequantize(stage)), None
         norm = params["norm"]
         xn = normalize(norm, x).to(self.compute_dtype)
-        y = fuxi_forward(self.cfg, prm, xn.reshape(-1, *x.shape[-2:]), int8).float()
+        y = fuxi_forward(self.cfg, prm, xn.reshape(-1, *x.shape[-2:]), int8, terms).float()
         return denormalize(norm, normalize(norm, x[-1]) + y)
 
     def apply(self, params, x):
-        return self._forward(params["stages"][0], params, x)[None]
+        return self._stage(0, params, x)[None]
+
+    def _stage(self, k, params, x):
+        """``_forward`` of stage ``k`` with its cached terms, where
+        ``prepare_params`` made them."""
+        terms = params["cache"]["swin_v2"][k] if "cache" in params and self.cfg.attn_v2 else None
+        return self._forward(params["stages"][k], params, x, terms)
+
+    def stage_index(self, step: int, resident: int) -> int:
+        """The cascade's stage for the 0-based ``step`` with ``resident``
+        stages held: ``min(step // stage_steps, resident − 1)``."""
+        return 0 if resident == 1 else min(step // self.cfg.stage_steps, resident - 1)
 
     @torch.no_grad()
     def advance(self, params, state: ModelState):
         """The cascade: stage ``min(step // stage_steps, resident − 1)`` by the
         Python int step (one resident stage needs no choice)."""
-        stages = params["stages"]
-        k = 0 if len(stages) == 1 else min(state.step // self.cfg.stage_steps, len(stages) - 1)
-        y = self._forward(stages[k], params, state.x)
+        y = self._stage(self.stage_index(state.step, len(params["stages"])), params, state.x)
         new_x = torch.cat([state.x, y[None]], dim=0)[-self.n_history:]
         return state.replace(x=new_x, step=state.step + 1, time_days=state.time_days + self._step_days), y[None]

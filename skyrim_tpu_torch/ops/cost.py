@@ -2,10 +2,10 @@
 
 Each TPU kernel of the JAX package declares what one call costs in its
 ``pl.CostEstimate``, and XLA's cost analysis folds those into a step's
-totals.  This module holds the port's copy: one function per kernel (K1–K14)
+totals.  This module holds the port's copy: one function per kernel (K1–K15)
 of the port wrapper's arguments, returning ``Cost(flops, bytes_accessed,
 transcendentals)`` equal to the JAX kernel's estimate at these sites of
-``skyrim_tpu/ops/``:
+``skyrim_tpu/ops/``, and one of the port's own (K15):
 
 ====  =========================================  =============================
 K1    ``fused_swin_block``                       fused_block.py:377
@@ -22,6 +22,10 @@ K11   ``flash_window_attention``                 flash_window_attention.py:450
 K12   ``fused_finish``                           fused_mlp.py:287
 K13   ``fused_fixed_degree_messages``            graph_kernels.py:154
 K14   ``fused_block_messages``                   graph_kernels.py:269
+K15   ``fused_swin_v2_block``                    none: the JAX package computes
+                                                 FuXi's Swin-V2 block outside
+                                                 Pallas; K1's formula at the
+                                                 block's shapes
 ====  =========================================  =============================
 
 The formulas are the JAX ones, their simplifications included (K1 counts
@@ -143,6 +147,14 @@ def swin_block(x, qkv_wb, mlp_wb, window, heads) -> Cost:
     return Cost(24 * Z * H * Wd * C * C + 4 * nwin * heads * wlen * wlen * (C // heads),
                 2 * Z * H * Wd * C * isz + weights_b,
                 nwin * heads * wlen * wlen + Z * H * Wd * hidden)
+
+
+def swin_v2_block(x, qkv_wb, mlp_wb, window, heads) -> Cost:
+    """K15 on an (H, W, C) block: K1's count of the same four products and
+    two batched attention products, (H, W, C) as (1, H, W, C) and the window
+    (wh, ww) as (1, wh, ww); the normalisations and post-norms, element-wise,
+    are not counted."""
+    return swin_block(x[None], qkv_wb, mlp_wb, (1, *window), heads)
 
 
 def roll(x) -> Cost:

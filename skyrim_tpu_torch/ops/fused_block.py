@@ -65,6 +65,31 @@ and ``launches_by_path`` by ``block_path``; ``layernorm.launches``,
 count those kernels' launches, ``window_attention_backward.launches_by_body``
 the replays' attentions by body, ``"plain"`` for a window the kernel does
 not take (``ops.gemm``'s wrappers, ``wide_gemm`` among them, count theirs).
+
+K15, ``fused_swin_v2_block``: FuXi's Swin-V2 block (the port's own kernel
+entry point; the JAX package computes this block outside Pallas), on a
+window-padded (H, W, C) activation: K2 into the shifted frame → qkv + bias
+→ cosine window attention (q and k L2-normalised, each head's
+``exp(min(logit_scale, log 100))``, the CPB bias and the shift mask) →
+proj + bias → ``x + LN1(·)`` → fc1 + bias → GELU-tanh → fc2 + bias →
+``x + LN2(·)`` and back to the unshifted frame.  Residual-post-norm: each
+LayerNorm is of a product's output, not of the block's input.  On the card
+seven launches (eight shifted): the four products on ``wide_gemm`` without
+a LayerNorm (the bias and GELU in their epilogues), the attention on
+csrc/attention.cuh's bodies in their cosine variant
+(``cosine_window_attention``: FuXi's windows on the register body, any
+other window the general body takes on that one), each post-norm one row
+pass (``post_norm_rows``, csrc/fused_block.cu) that reads the product and
+the residual and writes bf16, the second rolling its rows back as it
+stores.  No f32 tensor of the block's width is made; a shape the kernels
+do not take raises, as K1's does.  ``reference_swin_v2_block`` is the plain
+PyTorch composition of the same function, which the wrapper runs on a CPU
+tensor; the kernels have no backward, and models/fuxi.py runs the
+composition itself where autograd needs a gradient and for the ``int8``
+collection.  ``fused_swin_v2_block.launches`` counts the calls that
+launched the kernels; ``cosine_window_attention.launches`` (by body in
+``launches_by_body``) and ``post_norm_rows.launches`` those kernels'
+launches.
 """
 
 from __future__ import annotations
@@ -82,11 +107,13 @@ from skyrim_tpu_torch.ops.flash_window_attention import (
     _stream,
     _tables,
     attention_4d,
+    attention_body,
     reference_window_attention_4d,
     reference_window_attention_qkv,  # noqa: F401  (the attention-alone checks of K1 reach it here)
 )
 from skyrim_tpu_torch.ops.gemm import LN_GEMM_MAX_K, WIDE_LN_SLICE, _EPS, _layernorm_f32, gemm, ln_gemm, wide_gemm
-from skyrim_tpu_torch.ops.vjp import with_plain_vjp
+from skyrim_tpu_torch.ops.roll import shift_roll
+from skyrim_tpu_torch.ops.vjp import plain_only, with_plain_vjp
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -113,6 +140,10 @@ def _lib():
     lib.skt_window_attention_bf16.restype = _I
     lib.skt_window_attention_backward_bf16.argtypes = [_P] * 6 + [_I] * 11 + [_F, _P]
     lib.skt_window_attention_backward_bf16.restype = _I
+    lib.skt_cosine_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 10 + [_F, _I, _P, _P]
+    lib.skt_cosine_window_attention_bf16.restype = _I
+    lib.skt_post_norm_rows_bf16.argtypes = [_P] * 5 + [_I] * 5 + [_F, _P]
+    lib.skt_post_norm_rows_bf16.restype = _I
     return lib
 
 
@@ -363,3 +394,147 @@ def _swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads)
 fused_swin_block.launches = 0
 fused_swin_block.launches_by_shape = {}  # Pangu runs two block widths
 fused_swin_block.launches_by_path = {}  # block_path's choice
+
+
+# --- K15: the Swin-V2 block (FuXi) ------------------------------------------------
+
+
+def _dense_wb(h, wb):
+    """``h @ kernel + bias`` in h's dtype, as flax's Dense computes it (bias
+    optional)."""
+    y = h @ wb[0].to(h.dtype)
+    return y if wb[1] is None else y + wb[1].to(h.dtype)
+
+
+def _unit_rows(t):
+    """Rows of t scaled to unit L2 norm in t's dtype: the squares in t's dtype
+    summed in f32, ``rsqrt(sum + 1e-12)`` rounded to t's dtype."""
+    return t * torch.rsqrt((t * t).float().sum(-1, keepdim=True) + 1e-12).to(t.dtype)
+
+
+def reference_cosine_attention(parts, bias, scale, mask, heads):
+    """Plain version of K15's cosine window attention on partitioned packed
+    rows (n_win, wlen, 3C) → (n_win, wlen, C), numerics as the JAX block's:
+    q and k normalised (``_unit_rows``), f32 scores times each head's
+    ``scale`` plus ``bias`` and the mask (nz, nh, wlen, wlen), f32 softmax,
+    the probabilities in the rows' dtype, f32 accumulation of AV."""
+    n_win, wlen, c3 = parts.shape
+    dt, hd = parts.dtype, c3 // 3 // heads
+    q, k, v = parts.view(n_win, wlen, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    attn = (_unit_rows(q).float() @ _unit_rows(k).float().transpose(-1, -2)) * scale.reshape(heads, 1, 1) + bias
+    if mask is not None:
+        nz, nh = mask.shape[:2]
+        attn = (attn.view(nz, nh, -1, heads, wlen, wlen) + mask[:, :, None, None]).view(n_win, heads, wlen, wlen)
+    probs = torch.softmax(attn, dim=-1).to(dt)
+    return (probs.float() @ v.float()).to(dt).transpose(1, 2).reshape(n_win, wlen, c3 // 3)
+
+
+def reference_swin_v2_block(x, qkv_wb, bias, scale, mask, proj_wb, norm1, mlp_wb, norm2, window, heads, shift, *,
+                            dense=_dense_wb):
+    """Plain PyTorch version of K15 on x (H, W, C): ``reference_cosine_attention``
+    between the products, residual-post-norm with f32 LayerNorm statistics.
+    ``dense(h, wb)`` computes a product (an int8 collection passes its own)."""
+    H, Wd, C = x.shape
+    win3, shift3 = (1, *window), (0, *shift)
+    dt = x.dtype
+    parts = W.window_partition(shift_roll(x[None], shift3, forward=True), win3)
+    out = reference_cosine_attention(dense(parts, qkv_wb), bias, scale, mask, heads)
+    out = shift_roll(dense(W.window_reverse(out, win3, (1, H, Wd)), proj_wb), shift3, forward=False)[0]
+    x = x + _layernorm_f32(out, *norm1).to(dt)
+    m = dense(F.gelu(dense(x, mlp_wb[:2]), approximate="tanh"), mlp_wb[2:])
+    return x + _layernorm_f32(m, *norm2).to(dt)
+
+
+def cosine_window_attention(qkv, bias, scale, mask, window, heads):
+    """K15's cosine window attention of a contiguous bf16 (Z, H, W, 3C) CUDA
+    tensor → (Z, H, W, C): ``softmax(q̂ k̂ᵀ·scale[head] + bias + mask) v`` with
+    q̂, k̂ the rows normalised as ``_unit_rows`` does (plain version
+    ``reference_cosine_attention`` on the partitioned rows); ``bias`` (heads, wlen,
+    wlen) or (n_types, heads, wlen, wlen) f32, ``scale`` (heads,) f32,
+    ``mask`` (nz, nh, wlen, wlen) or None.  The body is K1's choice by shape
+    (``attention_body``); a window that no body takes raises."""
+    heads_scale = scale.detach().to(torch.float32).reshape(heads).contiguous()
+    lib = _lib()
+    out = attention_4d(qkv, bias, mask, window, heads, lib,
+                       lambda *a: lib.skt_cosine_window_attention_bf16(*a, heads_scale.data_ptr()),
+                       "cosine_window_attention")  # fmt: skip
+    cosine_window_attention.launches += 1
+    body = attention_body(math.prod(window), qkv.shape[-1] // 3 // heads)
+    counts = cosine_window_attention.launches_by_body
+    counts[body] = counts.get(body, 0) + 1
+    return out
+
+
+cosine_window_attention.launches = 0
+cosine_window_attention.launches_by_body = {}  # "registers" (FuXi's windows) or "shared"
+
+
+def post_norm_rows(y, ln, res, roll=(0, 0), out=None):
+    """``res + LN(y)`` of contiguous bf16 (H, W, C) CUDA tensors, each row's
+    LayerNorm rounded to bf16 before the add (f32 statistics, eps 1e-6), the
+    row of (h, w) stored at ((h + roll[0]) % H, (w + roll[1]) % W); into
+    ``out`` (y itself will do where nothing rolls) or a new tensor."""
+    H, Wd, C = y.shape
+    if C % 8 or any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16 for t in (y, res)):
+        raise ValueError(f"post_norm_rows takes contiguous, 16-byte aligned bf16 rows of C % 8 == 0, got {tuple(y.shape)}")
+    s1, s2 = roll[0] % H, roll[1] % Wd
+    if out is None or ((s1 or s2) and out.data_ptr() in (y.data_ptr(), res.data_ptr())):
+        out = torch.empty_like(y)
+    scale, shift = _f32(ln[0]), _f32(ln[1])
+    lib = _lib()
+    err = lib.skt_post_norm_rows_bf16(y.data_ptr(), scale.data_ptr(), shift.data_ptr(), res.data_ptr(), out.data_ptr(),
+                                      H, Wd, C, s1, s2, _EPS, _stream(y))
+    _build.check(lib, err, "post_norm_rows")
+    post_norm_rows.launches += 1
+    return out
+
+
+post_norm_rows.launches = 0
+
+
+def fused_swin_v2_block(
+    x: torch.Tensor,  # (H, W, C) window-padded activation, in the unshifted frame
+    qkv_wb,  # ((C, 3C), (3C,))
+    bias: torch.Tensor,  # (heads, wlen, wlen) f32: 16·sigmoid(CPB MLP)
+    scale: torch.Tensor,  # (heads,) or (heads, 1, 1): exp(min(logit_scale, log 100))
+    mask: torch.Tensor | None,  # (1, nh, wlen, wlen) or None
+    proj_wb,  # ((C, C), (C,))
+    norm1,  # (scale, bias), (C,)
+    mlp_wb,  # (W1 (C, hidden), b1, W2 (hidden, C), b2)
+    norm2,
+    window: tuple[int, int],
+    heads: int,
+    shift: tuple[int, int],  # (0, 0) for an unshifted block
+) -> torch.Tensor:
+    """Whole Swin-V2 block (K15); returns (H, W, C) in x's dtype.  No
+    backward: raises where autograd would need one."""
+    args = (x, qkv_wb, bias, scale, mask, proj_wb, norm1, mlp_wb, norm2, window, heads, shift)
+    with cost.kernel("K15", cost.swin_v2_block, x, qkv_wb, mlp_wb, window, heads):
+        if plain_only(x):
+            return reference_swin_v2_block(*args)
+        tensors = (x, *qkv_wb, bias, scale, *proj_wb, *norm1, *mlp_wb, *norm2)
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+            raise NotImplementedError(
+                "fused_swin_v2_block has no backward; under autograd models/fuxi.py runs reference_swin_v2_block"
+            )
+        return _swin_v2_block(*args)
+
+
+def _swin_v2_block(x, qkv_wb, bias, scale, mask, proj_wb, norm1, mlp_wb, norm2, window, heads, shift):
+    if x.dtype != torch.bfloat16 or x.ndim != 3 or not x.is_contiguous():
+        raise ValueError(f"fused_swin_v2_block takes a contiguous bf16 (H, W, C) tensor, got {x.dtype} {tuple(x.shape)}")
+    H, Wd, C = x.shape
+    N = H * Wd
+    xs = shift_roll(x[None], (0, *shift), forward=True)[0]
+    qkv = wide_gemm(xs.view(N, C), _bf16(qkv_wb[0]), _f32(qkv_wb[1]))
+    o = cosine_window_attention(qkv.view(1, H, Wd, 3 * C), bias, scale, mask, (1, *window), heads)
+    y = wide_gemm(o.view(N, C), _bf16(proj_wb[0]), _f32(proj_wb[1])).view(H, Wd, C)
+    x1 = post_norm_rows(y, norm1, xs, out=y)
+    m = wide_gemm(x1.view(N, C), _bf16(mlp_wb[0]), _f32(mlp_wb[1]), gelu=True)
+    y2 = wide_gemm(m, _bf16(mlp_wb[2]), _f32(mlp_wb[3])).view(H, Wd, C)
+    out = post_norm_rows(y2, norm2, x1, roll=shift, out=y2)
+    fused_swin_v2_block.launches += 1
+    return out
+
+
+fused_swin_v2_block.launches = 0

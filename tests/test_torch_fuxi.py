@@ -435,9 +435,9 @@ def test_published_widths(attn_v2):
 @pytest.mark.gpu
 @pytest.mark.parametrize("attn_v2", [True, False])
 def test_small_config_card_matches_cpu(attn_v2):
-    """The same seeded parameters and input on the card (K2, and K1 for V1)
-    and the CPU (their plain versions), 4 bf16 steps over the golden
-    configuration, golden tolerance per step."""
+    """The same seeded parameters and input on the card (K15 and K2, or K1
+    and K2 for V1) and the CPU (their plain versions), 4 bf16 steps over the
+    golden configuration, golden tolerance per step."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from skyrim_tpu_torch.ops import fused_block as FB
@@ -447,11 +447,12 @@ def test_small_config_card_matches_cpu(attn_v2):
     for device in ("cuda", "cpu"):
         model = FuXiModel(FuXiConfig(**GOLDEN_CFG, attn_v2=attn_v2), device=device)
         params = model.init_params(torch.Generator().manual_seed(0))
-        FB.fused_swin_block.launches = RL.roll3d.launches = 0
+        FB.fused_swin_block.launches = FB.fused_swin_v2_block.launches = RL.roll3d.launches = 0
         x = np.random.default_rng(0).normal(size=model.state_shape).astype(np.float32)
         _, ys = scan_rollout(model, params, model.init_state(params, x), 4)
         outs[device] = ys.float().cpu().numpy()
-        if device == "cuda":  # a pair a step, the shifted block between two rolls
-            assert RL.roll3d.launches == 8 and FB.fused_swin_block.launches == (0 if attn_v2 else 8)
+        if device == "cuda":  # a pair a step; V1's shifted block between two rolls, K15's rolls back as it stores
+            assert RL.roll3d.launches == (4 if attn_v2 else 8)
+            assert (FB.fused_swin_v2_block.launches, FB.fused_swin_block.launches) == ((8, 0) if attn_v2 else (0, 8))
     for step in range(4):
         assert_golden_close(outs["cuda"][step], outs["cpu"][step])
