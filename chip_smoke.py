@@ -205,7 +205,9 @@ Phases:
      plain versions, within 1e-5 of the largest element (K1's, whose
      replay's attention backward is a kernel, against the f32 plain
      version's at the golden tolerance; that kernel also timed alone
-     against its bound and the f32 attention it replaced); a K1 whose output
+     against its bound and the f32 attention it replaced, and its replayed
+     LayerNorms' backward kernel against f32 autograd and timed against its
+     byte bound and the f32 composition it replaced); a K1 whose output
      is detached (its kernel path without the Function), which that check
      must refuse; K6-K9's at the
      small GraphCast configuration on the inputs of their first calls in a
@@ -220,7 +222,9 @@ Phases:
      split into forward, backward and optimizer, its peak, its launches by
      kernel (remat: the forward twice, 32 K1, 48 K2 with K2's 16 backward
      launches, 2 K3, 2 K4, 16 K1 attention backward kernels and no plain
-     replay of an attention) and a profile (idle share); the checkpoint,
+     replay of an attention, 32 LayerNorm backward kernels, each after a
+     LayerNorm rows launch, and no plain replay of a LayerNorm) and a
+     profile (idle share); the checkpoint,
      loaded by load_params, forecasting bit for bit what the trained tree
      forecasts; one step's leaf gradients on the kernel path and on the
      plain path (the plain blocks each under torch.utils.checkpoint) within
@@ -1716,7 +1720,7 @@ def counters():
     return {"K1": FB.fused_swin_block, "K2": RL.roll3d, "K3": RS.fused_downsample,
             "K4": RS.fused_upsample, "K5": FA.fused_window_attention_4d, "gemm": gemm, "ln_gemm": ln_gemm,
             "wide_gemm": wide_gemm, "layernorm": FB.layernorm, "K1 backward": FB.window_attention_backward,
-            "K6": fused_mlp,
+            "LN backward": FB.layernorm_backward, "K6": fused_mlp,
             "K7": GK.fused_round_messages, "K8": GK.fused_m2g_tiled, "K9": GK.fused_g2m_tiled,
             "K10": FA.fused_window_attention, "K11": FA.flash_window_attention, "K12": fused_finish,
             "K13": GK.fused_fixed_degree_messages, "K14": GK.fused_block_messages, "K15": FB.fused_swin_v2_block}
@@ -1756,10 +1760,11 @@ def reset_counts() -> None:
     mlp_finish.launches_by_shape.clear()
     FB.fused_swin_block.launches_by_path.clear()
     FB.window_attention_backward.launches_by_body.clear()
+    FB.layernorm_backward.launches_by_body.clear()
 
 
 # launches counted by shape apart: inside K6-K9, and K1's calls by path
-ROW_KERNELS = ("ln_rows", "mlp_finish", "K1 path", "K1 backward body")
+ROW_KERNELS = ("ln_rows", "mlp_finish", "K1 path", "K1 backward body", "K1 LN backward body")
 
 
 def read_counts() -> tuple[dict, dict]:
@@ -1768,7 +1773,8 @@ def read_counts() -> tuple[dict, dict]:
     K6's whole-row finish's by (rows, L, residual) under "mlp_finish" and
     K1's calls by ops.fused_block.block_path under "K1 path" and its backward
     replays' attentions by body ("plain" where the kernel does not take the
-    window) under "K1 backward body"."""
+    window) under "K1 backward body", their LayerNorms by body ("kernel" or
+    "plain") under "K1 LN backward body"."""
     from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops.fused_mlp import ln_rows, mlp_finish
 
@@ -1779,6 +1785,7 @@ def read_counts() -> tuple[dict, dict]:
     by_shape["mlp_finish"] = dict(mlp_finish.launches_by_shape)
     by_shape["K1 path"] = dict(FB.fused_swin_block.launches_by_path)
     by_shape["K1 backward body"] = dict(FB.window_attention_backward.launches_by_body)
+    by_shape["K1 LN backward body"] = dict(FB.layernorm_backward.launches_by_body)
     return counts, by_shape
 
 
@@ -2874,13 +2881,70 @@ def attention_backward_row(torch, g, qkv_shape, bias, mask, window, heads) -> di
                 plain_fwd_bwd_ms=time_ms(torch, plain, 3))
 
 
+def layernorm_backward_row(torch, g, rows, C) -> dict:
+    """K1's replayed LayerNorm on the card (ops.fused_block.layernorm forward,
+    layernorm_backward backward) at ``rows`` x ``C`` on seeded bf16 x and
+    output gradient: the backward's ms beside its byte bound (x and dy read,
+    dx written, the scale read and its two f32 gradients written once), the
+    forward + backward pair's beside theirs (x read and h written besides),
+    the f32 composition's forward + backward under autograd that K1's
+    replay ran before (ops.gemm._layernorm_f32 and its cast to bf16), and
+    the library's fused LayerNorm forward + backward on the same rows
+    (torch.nn.functional.layer_norm, whose CUDA kernels take the affine in
+    the rows' dtype: bf16).  dx
+    must lie within half a bf16 ulp of f32 autograd's (plus 1e-5 of its
+    largest element), the two gradients of the affine within 1e-4."""
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops.gemm import _layernorm_f32
+
+    bf16 = torch.bfloat16
+    x = torch.randn(rows, C, device="cuda", generator=g).mul(2).add(0.5).to(bf16)
+    dy = torch.randn(rows, C, device="cuda", generator=g).to(bf16)
+    scale = 1 + 0.1 * torch.randn(C, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(C, device="cuda", generator=g)
+    got = FB.layernorm_backward(x, scale, bias, dy)
+    leaves = (x.float().requires_grad_(True), scale.clone().requires_grad_(True), bias.clone().requires_grad_(True))
+    want = torch.autograd.grad(_layernorm_f32(*leaves), leaves, dy.float())
+    del leaves
+    dx, ref = got[0].float(), want[0]
+    dx_over = float(((dx - ref).abs() / (2**-8 * ref.abs() + 1e-5 * ref.abs().max())).max())
+    affine = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[1:], want[1:]))
+    check(dx_over <= 1 and affine <= 1e-4,
+          f"K1 LN backward ({rows}, {C}): dx {dx_over:.3g}x its limit, the affine's gradients off by {affine:.3g}")
+    del got, want, dx, ref
+    ms = time_ms(torch, lambda: FB.layernorm_backward(x, scale, bias, dy), 20)
+    bound_ms, by = bound(0, 2 * 3 * rows * C + 4 * 3 * C)
+    pair_bound_ms, _ = bound(0, 2 * 5 * rows * C + 4 * 5 * C)
+
+    def pair():
+        FB.layernorm(x, scale, bias)
+        FB.layernorm_backward(x, scale, bias, dy)
+
+    def plain():
+        leaves = (x.detach().requires_grad_(True), scale.detach().requires_grad_(True),
+                  bias.detach().requires_grad_(True))
+        torch.autograd.grad(_layernorm_f32(*leaves).to(bf16), leaves, dy)
+
+    def library():
+        leaves = (x.detach().requires_grad_(True), scale.to(bf16).requires_grad_(True),
+                  bias.to(bf16).requires_grad_(True))
+        torch.autograd.grad(torch.nn.functional.layer_norm(leaves[0], (C,), *leaves[1:], FB._EPS), leaves, dy)
+
+    pair_ms = time_ms(torch, pair, 20)
+    return dict(ms=ms, bound_ms=bound_ms, bound_by=by, bound_share=bound_ms / ms, dx_over_limit=dx_over,
+                affine_rel_err=affine, pair_ms=pair_ms, pair_bound_ms=pair_bound_ms,
+                pair_bound_share=pair_bound_ms / pair_ms, plain_fwd_bwd_ms=time_ms(torch, plain, 5),
+                library_fwd_bwd_ms=time_ms(torch, library, 20))
+
+
 def kernel_grad_checks(torch, g) -> dict:
     """K1 (both Pangu stages, shifted, earth bias at 0.5), K2 (both shapes;
     its backward one K2 launch, equal to torch.roll's gradient bit for bit),
     K3 and K4 (on the stage buffers' views) at full width: each Function's
     gradients against autograd through its plain version (K1 against the
-    f32 plain version's at the golden tolerance, its attention backward also
-    timed alone, attention_backward_row); then a K1 whose output is detached
+    f32 plain version's at the golden tolerance, its attention backward and
+    its LayerNorms' also timed alone, attention_backward_row and
+    layernorm_backward_row); then a K1 whose output is detached
     (its kernel path without the Function), which the check must refuse."""
     from skyrim_tpu_torch.ops import fused_block as FB
     from skyrim_tpu_torch.ops import resample as RS
@@ -2909,6 +2973,7 @@ def kernel_grad_checks(torch, g) -> dict:
                                         golden=True)
         out[f"K1 attention backward {stage}"] = attention_backward_row(torch, g, (Z, H, Wd, 3 * C), args[3], mask,
                                                                        window, heads)
+        out[f"K1 LN backward {stage}"] = layernorm_backward_row(torch, g, Z * H * Wd, C)
         if stage == "stage 1/4":
             try:  # the planted fault: K1's kernel path returning a detached output, as before its Function
                 grad_check(torch, g, "K1 cut from the graph", lambda *a: FB._swin_block(*a).detach(),
@@ -3208,12 +3273,17 @@ def train_path(torch) -> dict:
 
         x, y = (torch.from_numpy(a[None]).cuda() for a in ds[0])
         step, step_shapes = same_pair_steps(torch, trainer, x, y, res)
-        log(f"train: K1 by path {step_shapes['K1 path']}, its backward by body {step_shapes['K1 backward body']}")
+        log(f"train: K1 by path {step_shapes['K1 path']}, its backward by body {step_shapes['K1 backward body']}, "
+            f"its LayerNorms' by body {step_shapes['K1 LN backward body']}")
         check(step_shapes["K1 backward body"] == {"registers": 16},
               f"K1's backward replays' attentions by body: {step_shapes['K1 backward body']}")
+        check(step_shapes["K1 LN backward body"] == {"kernel": 32},
+              f"K1's backward replays' LayerNorms by body: {step_shapes['K1 LN backward body']}")
         # remat: the forward twice (16 K1, 16 K2, K3 and K4 each), K2's 16 backward launches, K1's 16
-        # attention backward kernels (none of its replays' attentions plain)
-        expect = {"K1": 32, "K2": 48, "K3": 2, "K4": 2, "ln_gemm": 64, "gemm": 64, "K1 backward": 16}
+        # attention backward kernels (none of its replays' attentions plain), its replays' 32 LayerNorms
+        # each a LayerNorm rows launch forward and a LayerNorm backward launch
+        expect = {"K1": 32, "K2": 48, "K3": 2, "K4": 2, "ln_gemm": 64, "gemm": 64, "K1 backward": 16,
+                  "layernorm": 32, "LN backward": 32}
         check(step == expect, f"one train step launched {step}, expected {expect}")
         path = checkpoint_round_trip(torch, model, trainer, x)
         res["checkpoint"] = Path(path).name

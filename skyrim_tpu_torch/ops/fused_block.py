@@ -57,14 +57,22 @@ the block's attention kernel (``window_attention``), backward
 and dS recomputed in f32 registers a window at a time, P and dS rounded
 to bf16 only as operands of the dq, dk and dv products, dbias summed in
 f32 without atomics), in place of the f32 composition's whole-stage score
-tensors; LayerNorm, the four products, GELU and the residuals stay in the
-plain replay.  ``fused_swin_block.launches`` counts wrapper calls
-that launched the kernels, ``launches_by_shape`` the same by input shape
+tensors.  Each of its two LayerNorms is a Function of its own where
+``layernorm_backward_body`` takes the rows (bf16, C % 8 == 0, C <= 1536):
+forward the LayerNorm rows kernel (``layernorm``), backward
+``layernorm_backward`` (csrc/fused_block.cu: one warp a row, f32 statistics
+recomputed from x, dx rounded once to bf16, the scale's and bias's
+gradients summed in f32 without atomics), in place of the f32
+composition's elementwise passes; the four products, GELU and the
+residuals stay in the plain replay.  ``fused_swin_block.launches`` counts
+wrapper calls that launched the kernels, ``launches_by_shape`` the same by input shape
 and ``launches_by_path`` by ``block_path``; ``layernorm.launches``,
-``window_attention.launches`` and ``window_attention_backward.launches``
-count those kernels' launches, ``window_attention_backward.launches_by_body``
-the replays' attentions by body, ``"plain"`` for a window the kernel does
-not take (``ops.gemm``'s wrappers, ``wide_gemm`` among them, count theirs).
+``window_attention.launches``, ``window_attention_backward.launches`` and
+``layernorm_backward.launches`` count those kernels' launches,
+``window_attention_backward.launches_by_body`` the replays' attentions by
+body, ``"plain"`` for a window the kernel does not take, and
+``layernorm_backward.launches_by_body`` the replays' LayerNorms the same way
+(``ops.gemm``'s wrappers, ``wide_gemm`` among them, count theirs).
 
 K15, ``fused_swin_v2_block``: FuXi's Swin-V2 block (the port's own kernel
 entry point; the JAX package computes this block outside Pallas), on a
@@ -119,15 +127,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def reference_swin_block(x, ln1, qkv_wb, bias, mask, proj_wb, ln2, mlp_wb, window, heads, *,
-                         attention=reference_window_attention_4d):
+                         attention=reference_window_attention_4d, layernorm=_layernorm_f32):
     """Plain PyTorch version of K1 (JAX ``reference_swin_block``); the
-    backward replay passes its own ``attention``."""
+    backward replay passes its own ``attention`` and ``layernorm``."""
     dt = x.dtype
-    h = _layernorm_f32(x, *ln1).to(dt)
+    h = layernorm(x, *ln1).to(dt)
     qkv = h @ qkv_wb[0].to(dt) + qkv_wb[1].to(dt)
     o = attention(qkv, bias, mask, window, heads).to(dt)
     x1 = x + (o @ proj_wb[0].to(dt) + proj_wb[1].to(dt))
-    h2 = _layernorm_f32(x1, *ln2).to(dt)
+    h2 = layernorm(x1, *ln2).to(dt)
     m = F.gelu(h2 @ mlp_wb[0].to(dt) + mlp_wb[1].to(dt), approximate="tanh")
     return x1 + m @ mlp_wb[2].to(dt) + mlp_wb[3].to(dt)
 
@@ -140,6 +148,10 @@ def _lib():
     lib.skt_window_attention_bf16.restype = _I
     lib.skt_window_attention_backward_bf16.argtypes = [_P] * 6 + [_I] * 11 + [_F, _P]
     lib.skt_window_attention_backward_bf16.restype = _I
+    lib.skt_layernorm_backward_blocks.argtypes = [_I, _I]
+    lib.skt_layernorm_backward_blocks.restype = _I
+    lib.skt_layernorm_backward_bf16.argtypes = [_P] * 5 + [_I] * 3 + [_F, _P]
+    lib.skt_layernorm_backward_bf16.restype = _I
     lib.skt_cosine_window_attention_bf16.argtypes = [_P] * 4 + [_I] * 10 + [_F, _I, _P, _P]
     lib.skt_cosine_window_attention_bf16.restype = _I
     lib.skt_post_norm_rows_bf16.argtypes = [_P] * 5 + [_I] * 5 + [_F, _P]
@@ -326,10 +338,112 @@ def _replay_attention(qkv, bias, mask, window, heads):
     return reference_window_attention_4d(qkv, bias, mask, window, heads)
 
 
+#: the widest rows csrc/fused_block.cu's LayerNorm backward holds in a warp's registers
+LAYERNORM_BACKWARD_MAX_C = 1536
+
+
+def layernorm_backward_body(x) -> str:
+    """The reverse of a LayerNorm of K1's replay on rows like ``x``, by what
+    ``x`` shows: ``"kernel"`` (``layernorm_backward``) for a bf16 CUDA tensor
+    of C % 8 == 0 and C <= ``LAYERNORM_BACKWARD_MAX_C``, else ``"plain"``
+    (autograd through ``_layernorm_f32``)."""
+    C = x.shape[-1]
+    ok = x.device.type == "cuda" and x.dtype == torch.bfloat16 and C % 8 == 0 and 0 < C <= LAYERNORM_BACKWARD_MAX_C
+    return "kernel" if ok else "plain"
+
+
+def reference_layernorm_backward(x, scale, bias, dy):
+    """Plain version of ``layernorm_backward``: the gradients of
+    ``_layernorm_f32(x, scale, bias)`` for the output gradient ``dy`` in
+    closed form, in f32 — with x̂ = (x − mean)·rstd (flax's statistics) and
+    g = dy·scale, dx = rstd·(g − mean(g) − x̂·mean(g·x̂)), the last term left
+    out in a row whose fast variance the clip at 0 raised; dscale = Σ dy·x̂
+    and dbias = Σ dy over the rows.  Returns (dx in x's dtype, dscale in
+    scale's, dbias in bias's)."""
+    xf, d = x.float(), dy.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf * xf).mean(-1, keepdim=True) - mu * mu
+    inv = torch.rsqrt(var.clamp_min(0.0) + _EPS)
+    xh = (xf - mu) * inv
+    g = d * scale.float()
+    mgx = torch.where(var < 0, 0.0, (g * xh).mean(-1, keepdim=True))
+    dx = inv * (g - g.mean(-1, keepdim=True) - xh * mgx)
+    rows = tuple(range(xf.ndim - 1))
+    return dx.to(x.dtype), (d * xh).sum(rows).to(scale.dtype), d.sum(rows).to(bias.dtype)
+
+
+def layernorm_backward(x, scale, bias, dy):
+    """The gradients of ``layernorm(x, scale, bias)`` (rows of x's last axis)
+    for the output gradient ``dy``: (dx, bf16 like x; dscale; dbias, in their
+    dtypes).  On a CPU tensor ``reference_layernorm_backward``; on a CUDA
+    tensor one launch of csrc/fused_block.cu's LayerNorm backward where
+    ``layernorm_backward_body`` takes the rows, or raises.  The scale's and
+    bias's gradients are summed in f32 in a fixed order: two calls on the
+    same inputs give the same bits."""
+    if x.device.type == "cpu":
+        return reference_layernorm_backward(x, scale, bias, dy)
+    what = "layernorm_backward"
+    C = x.shape[-1]
+    if layernorm_backward_body(x) == "plain":
+        raise ValueError(f"{what} takes bf16 rows of C % 8 == 0, C <= {LAYERNORM_BACKWARD_MAX_C}, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    x2, dy2 = x.reshape(-1, C).contiguous(), dy.to(torch.bfloat16).reshape(-1, C).contiguous()
+    if dy2.shape != x2.shape or x2.data_ptr() % 16 or dy2.data_ptr() % 16:
+        raise ValueError(f"{what} takes 16-byte aligned x and dy of one shape, got {tuple(x.shape)}, {tuple(dy.shape)}")
+    rows = x2.shape[0]
+    lib = _lib()
+    blocks = lib.skt_layernorm_backward_blocks(rows, C)
+    if blocks <= 0:
+        raise ValueError(f"{what}: no grid for {rows} rows of {C}")
+    dx = torch.empty_like(x2)
+    part = torch.empty((blocks, 2, C), dtype=torch.float32, device=x.device)
+    err = lib.skt_layernorm_backward_bf16(x2.data_ptr(), dy2.data_ptr(), _f32(scale).data_ptr(), dx.data_ptr(),
+                                          part.data_ptr(), rows, C, blocks, _EPS, _stream(x2))
+    _build.check(lib, err, what)
+    layernorm_backward.launches += 1
+    counts = layernorm_backward.launches_by_body
+    counts["kernel"] = counts.get("kernel", 0) + 1
+    sums = part.sum(0) if blocks > 1 else part[0]
+    return dx.view(x.shape), sums[0].to(scale.dtype), sums[1].to(bias.dtype)
+
+
+layernorm_backward.launches = 0
+layernorm_backward.launches_by_body = {}  # K1's replayed LayerNorms: "kernel", or "plain" for rows it does not take
+
+
+class _ReplayLayerNorm(torch.autograd.Function):
+    """A LayerNorm of K1's backward replay on the card: forward the
+    LayerNorm rows kernel (``layernorm``), backward ``layernorm_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias):
+        ctx.save_for_backward(x, scale, bias)
+        return layernorm(x.reshape(-1, x.shape[-1]).contiguous(), scale, bias).view(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, bias = ctx.saved_tensors
+        dx, dscale, dbias = layernorm_backward(x, scale, bias, dy)
+        need = ctx.needs_input_grad
+        return dx, dscale if need[1] else None, dbias if need[2] else None
+
+
+def _replay_layernorm(x, scale, bias):
+    """A LayerNorm of K1's backward replay: ``_ReplayLayerNorm`` where
+    ``layernorm_backward_body`` takes the rows (its backward counts
+    ``"kernel"`` when it launches), else ``_layernorm_f32``, counted as
+    ``"plain"``."""
+    if layernorm_backward_body(x) == "kernel":
+        return _ReplayLayerNorm.apply(x, scale, bias)
+    counts = layernorm_backward.launches_by_body
+    counts["plain"] = counts.get("plain", 0) + 1
+    return _layernorm_f32(x, scale, bias)
+
+
 def _replay_swin_block(*args):
     """What K1's backward differentiates: ``reference_swin_block`` with
-    ``_replay_attention``."""
-    return reference_swin_block(*args, attention=_replay_attention)
+    ``_replay_attention`` and ``_replay_layernorm``."""
+    return reference_swin_block(*args, attention=_replay_attention, layernorm=_replay_layernorm)
 
 
 def block_path(C: int) -> str:

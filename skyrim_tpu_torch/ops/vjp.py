@@ -14,8 +14,9 @@ gradient is therefore the plain composition's, whatever the kernel
 rounds, and the backward launches no kernel of the port.  K2 is the one
 kernel whose backward is itself (``ops/roll.py``).  A wrapper may hand a
 ``replay`` of its own: the plain composition with some of its parts on
-kernels that have a backward of their own (K1's attention on the card,
-``ops/fused_block.py``); the backward then differentiates that replay.
+kernels that have a backward of their own (K1's attention and LayerNorms
+on the card, ``ops/fused_block.py``); the backward then differentiates that
+replay.
 
 Arguments may be nested tuples and lists of tensors, ``None`` and Python
 values; only the tensors are the Function's inputs.  Integer tensors

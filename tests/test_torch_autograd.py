@@ -43,11 +43,25 @@ attention backward kernel against f32 autograd of the plain attention at
 the golden tolerance at Pangu's two stage shapes, FengWu's 72/64 window
 and one bias table for every window, and twice for equal bits.
 
+K1's replay takes its two LayerNorms on a Function of their own on the
+card too: its plain version, ``reference_layernorm_backward``, is held to
+autograd through ``_layernorm_f32`` and to JAX's ``jax.vjp`` of its
+LayerNorm at C 192, 384, 1152 and 1536 in f32 and bf16, with a constant row
+whose variance the clip at 0 raises.  On the card every K1 case's replay
+runs the LayerNorm kernels, whose dx and h round once from f32 values the
+composition rounds in another order: K1's cases whose attention backward
+is plain are held to the bf16 plain version's gradients within 2⁻⁶ of
+each gradient's largest element (four bf16 ulps of it) in place of
+1e-5·max|g|.  The kernel itself against f32 autograd at Pangu's two stage
+shapes, FengWu's and FuXi V1's widths, twice for equal bits, and refusing
+rows it does not take.
+
 JAX is imported inside the CPU tests only: the card's machine has no JAX.
 """
 
 import contextlib
 import math
+import types
 
 import numpy as np
 import pytest
@@ -499,6 +513,92 @@ def test_attention_backward_body_by_shape(wlen, hd, body):
     assert FB.attention_backward_body(wlen, hd) == body
 
 
+# --- K1's LayerNorm backward -------------------------------------------------------------
+
+# a constant f32 row whose fast variance E[x²] − E[x]² both PyTorch's and JAX's f32 sums round below 0, so
+# the clip at 0 engages (by C); rounded to bf16, a constant row sums exactly and its variance is 0
+CLIPPED_ROW = {192: 0.1613, 384: 0.0871, 1152: 0.0871, 1536: 0.0871}
+
+
+def _layernorm_backward_inputs(C, seed=11):
+    rng = np.random.default_rng(seed)
+    x = _n(rng, 2, 3, C, s=2.0) + 0.5
+    x[1, 2] = CLIPPED_ROW[C]
+    return x, 1 + _n(rng, C, s=0.1), _n(rng, C, s=0.1), _n(rng, 2, 3, C)
+
+
+@pytest.mark.parametrize("C", sorted(CLIPPED_ROW))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_layernorm_backward_matches_autograd_and_jax(C, dtype):
+    """The closed form K1's replayed LayerNorms take on the card, against
+    autograd through ``_layernorm_f32`` and JAX's ``jax.vjp`` of its
+    ``_layernorm_f32``, each cast to the input's dtype, at Pangu's, FengWu's
+    and FuXi V1's widths: the affine's gradients in f32 at atol 3e-5, rtol
+    1e-4, dx there in f32 and within one bf16 ulp in bf16 (each rounds an
+    f32 dx once); on the CPU the wrapper is that plain version and counts
+    nothing."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+
+    from skyrim_tpu.ops.fused_block import _layernorm_f32 as jax_layernorm
+    from skyrim_tpu_torch.ops.gemm import _layernorm_f32
+
+    x, scale, bias, dy = _layernorm_backward_inputs(C)
+    tx, td = (torch.from_numpy(a).to(dtype) for a in (x, dy))
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    if dtype == torch.float32:  # the clip engages in the constant row
+        row = tx[1, 2]
+        assert float((row * row).mean() - row.mean() * row.mean()) < 0
+    got = FB.reference_layernorm_backward(tx, ts, tb, td)
+    leaves = tuple(t.clone().requires_grad_(True) for t in (tx, ts, tb))
+    want = torch.autograd.grad(_layernorm_f32(*leaves).to(dtype), leaves, td)
+    jdt = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}[dtype]
+    _, vjp = jax.vjp(lambda a, s, b: jax_layernorm(a, s[None], b[None]).astype(jdt), jnp.asarray(x, jdt),
+                     jnp.asarray(scale), jnp.asarray(bias))
+    jgot = vjp(jnp.asarray(dy, jdt))
+    dx_tol = dict(atol=3e-5, rtol=1e-4) if dtype == torch.float32 else dict(atol=1e-6, rtol=2**-7)
+    for name, g, w, j, dt in zip(("dx", "dscale", "dbias"), got, want, jgot, (dtype, torch.float32, torch.float32)):
+        assert g.shape == w.shape and g.dtype == dt, name
+        tol = dx_tol if name == "dx" else dict(atol=3e-5, rtol=1e-4)
+        g = g.float().numpy()
+        np.testing.assert_allclose(g, w.float().numpy(), **tol, err_msg=f"{C} {dtype} {name}, autograd")
+        np.testing.assert_allclose(g, np.asarray(j.astype(jnp.float32)), **tol, err_msg=f"{C} {dtype} {name}, JAX")
+    bwd = FB.layernorm_backward
+    before = bwd.launches, dict(bwd.launches_by_body)
+    for g, r in zip(bwd(tx, ts, tb, td), got):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert (bwd.launches, bwd.launches_by_body) == before
+
+
+@pytest.mark.parametrize("C, dtype, device, body", [
+    (192, torch.bfloat16, "cuda", "kernel"), (384, torch.bfloat16, "cuda", "kernel"),
+    (1152, torch.bfloat16, "cuda", "kernel"), (1536, torch.bfloat16, "cuda", "kernel"),
+    (8, torch.bfloat16, "cuda", "kernel"), (1544, torch.bfloat16, "cuda", "plain"), (100, torch.bfloat16, "cuda", "plain"),
+    (192, torch.float32, "cuda", "plain"), (192, torch.bfloat16, "cpu", "plain"), (192, torch.bfloat16, "meta", "plain"),
+])  # fmt: skip
+def test_layernorm_backward_body_by_shape(C, dtype, device, body):
+    """bf16 rows on the card of C % 8 == 0 up to 1536 take the kernel; f32
+    rows, other widths and other devices keep autograd through
+    ``_layernorm_f32``.  (Decided from what the tensor shows; a stand-in
+    carries a CUDA device without a card.)"""
+    x = types.SimpleNamespace(shape=(4, 3, C), dtype=dtype, device=torch.device(device))
+    assert FB.layernorm_backward_body(x) == body
+
+
+def test_replay_on_the_cpu_keeps_the_plain_layernorm():
+    """On the CPU K1's backward replay takes ``_layernorm_f32`` for both of
+    its LayerNorms, counted as ``"plain"``, and launches nothing."""
+    args, act = _k1(True)
+    bwd = FB.layernorm_backward
+    before = bwd.launches, dict(bwd.launches_by_body)
+    grads, _ = _port_grads(FB.fused_swin_block, args, act, torch.bfloat16)
+    assert all(np.isfinite(g).all() for g in grads)
+    assert bwd.launches == before[0]
+    assert bwd.launches_by_body.get("plain", 0) == before[1].get("plain", 0) + 2
+    assert bwd.launches_by_body.get("kernel", 0) == before[1].get("kernel", 0)
+
+
 # --- on the card -----------------------------------------------------------------------
 
 
@@ -536,6 +636,7 @@ def test_card_gradients_match_plain(cuda, case):
     # kernel rounds P and dS to bf16 as operands, so its gradients are held to the f32 plain version's
     body = FB.attention_backward_body(math.prod(args[8]), args[0].shape[-1] // args[9]) if name == "K1" else None
     before = dict(FB.window_attention_backward.launches_by_body)
+    ln_before = FB.layernorm_backward.launches
     runs = [(fn, torch.bfloat16), (PLAIN[name], torch.bfloat16)]
     if body == "registers":
         runs.append((PLAIN[name], torch.float32))
@@ -551,6 +652,7 @@ def test_card_gradients_match_plain(cuda, case):
     if body is not None:
         counts = FB.window_attention_backward.launches_by_body
         assert counts.get(body, 0) == before.get(body, 0) + 1, (case, body, counts)
+        assert FB.layernorm_backward.launches == ln_before + 2, case
     for g, p, *exact in zip(*grads):
         if body == "registers":
             # where the kernel path misses the f32 gradient, the bf16 plain path misses it as well, by at
@@ -561,6 +663,12 @@ def test_card_gradients_match_plain(cuda, case):
             assert all(k in floor and v <= 1.25 * floor[k] for k, v in misses.items()), (case, misses, floor)
             continue
         tol = 0.0 if name == "K2" else 1e-5 * float(p.abs().max())
+        if name == "K1":
+            # the replay's LayerNorms on their kernels: their dx and h round once from f32 values that the
+            # composition rounds from in another order, and the bf16 products behind them carry a one-ulp
+            # change on to every gradient at the scale of its largest element (up to 1.5 bf16 ulps of it on
+            # an H100), so K1's gradients are held to within four such ulps
+            tol = 2**-6 * float(p.abs().max())
         assert float((g - p).abs().max()) <= tol, case
 
 
@@ -617,6 +725,66 @@ def test_card_attention_backward_is_repeatable(cuda, case):
     first, second = FB.window_attention_backward(*args), FB.window_attention_backward(*args)
     for a, b in zip(first, second):
         assert torch.equal(a, b), case
+
+
+# id: (rows, C): Pangu's two stages, FengWu's fuser, FuXi V1's trunk
+CARD_LAYERNORM_BACKWARD = {
+    "pangu_stage1": (535_680, 192), "pangu_stage2": (138_240, 384), "fengwu": (66_960, 1152), "fuxi_v1": (17_280, 1536),
+}  # fmt: skip
+
+
+def _card_layernorm_backward_inputs(case, device):
+    rows, C = CARD_LAYERNORM_BACKWARD[case]
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    return ((randn(rows, C) * 2 + 0.5).to(torch.bfloat16), 1 + 0.1 * randn(C), 0.1 * randn(C),
+            randn(rows, C).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CARD_LAYERNORM_BACKWARD))
+def test_card_layernorm_backward_matches_f32_autograd(cuda, case):
+    """The LayerNorm backward kernel against f32 autograd through
+    ``_layernorm_f32`` on the same bf16 values: dx within half a bf16 ulp
+    (its one rounding) plus 1e-5 of the largest element, the affine's
+    gradients (f32 sums over every row) within 1e-4 of their largest."""
+    from skyrim_tpu_torch.ops.gemm import _layernorm_f32
+
+    x, scale, bias, dy = _card_layernorm_backward_inputs(case, cuda)
+    before = FB.layernorm_backward.launches
+    got = FB.layernorm_backward(x, scale, bias, dy)
+    assert FB.layernorm_backward.launches == before + 1
+    leaves = (x.float().requires_grad_(True), scale.clone().requires_grad_(True), bias.clone().requires_grad_(True))
+    want = torch.autograd.grad(_layernorm_f32(*leaves), leaves, dy.float())
+    for name, g, w, dt in zip(("dx", "dscale", "dbias"), got, want, (torch.bfloat16, torch.float32, torch.float32)):
+        assert g.shape == w.shape and g.dtype == dt, (case, name)
+        err, ref = (g.float() - w).abs(), w.abs()
+        limit = 2**-8 * ref + 1e-5 * ref.max() if name == "dx" else 1e-4 * ref.max()
+        assert bool((err <= limit).all()), (case, name, float((err / limit).max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["pangu_stage1", "fuxi_v1"])
+def test_card_layernorm_backward_is_repeatable(cuda, case):
+    """Two calls on the same inputs give the same bits: the affine's
+    gradients are summed in a fixed order, with no float atomics."""
+    args = _card_layernorm_backward_inputs(case, cuda)
+    first, second = FB.layernorm_backward(*args), FB.layernorm_backward(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), case
+
+
+@pytest.mark.gpu
+def test_card_layernorm_backward_refuses_rows_it_does_not_take(cuda):
+    """An odd width, rows wider than 1536 and f32 rows raise on the card."""
+    for C, dtype in ((100, torch.bfloat16), (1544, torch.bfloat16), (192, torch.float32)):
+        x = torch.randn(64, C, device=cuda).to(dtype)
+        ln = (torch.ones(C, device=cuda), torch.zeros(C, device=cuda))
+        with pytest.raises(ValueError, match="layernorm_backward"):
+            FB.layernorm_backward(x, *ln, torch.randn_like(x))
 
 
 @pytest.mark.gpu

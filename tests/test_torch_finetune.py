@@ -578,6 +578,32 @@ def test_pangu_train_step_launches_the_attention_backward(cuda):
 
 
 @pytest.mark.gpu
+def test_pangu_train_step_replays_layernorms_on_the_kernel(cuda):
+    """One train step of the same Pangu replays each K1's two LayerNorms on
+    the LayerNorm backward kernel, 32 launches, none plainly; under
+    plain_forwards() and plain_versions() it launches none and counts
+    none."""
+    from skyrim_tpu_torch.models.pangu import PanguConfig, PanguModel
+    from skyrim_tpu_torch.ops import fused_block as FB
+    from skyrim_tpu_torch.ops.vjp import plain_forwards, plain_versions
+
+    cfg = PanguConfig(lat=49, lon=96, embed_dim=64, depths=(2, 6, 6, 2), num_heads=(2, 4, 4, 2))
+    model = PanguModel("pangu", cfg=cfg, device=cuda)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    xs, ys = (a[:1] for a in _batch(model))
+    bwd = FB.layernorm_backward
+    for block, want in ((contextlib.nullcontext(), 32), (plain_forwards(), 0), (plain_versions(), 0)):
+        before, by_body = bwd.launches, dict(bwd.launches_by_body)
+        tr = Trainer(model, params, TrainConfig(batch_size=1))
+        with block:
+            loss = tr.train_step(xs, ys)
+        assert torch.isfinite(loss)
+        assert bwd.launches - before == want
+        assert bwd.launches_by_body.get("kernel", 0) - by_body.get("kernel", 0) == want
+        assert bwd.launches_by_body.get("plain", 0) == by_body.get("plain", 0)
+
+
+@pytest.mark.gpu
 def test_pangu_step_on_the_card_matches_the_plain_path(cuda):
     """One step of a small Pangu through the kernels on the card and one on
     the CPU's plain path, from the same parameters and batch: the leaf
